@@ -14,9 +14,13 @@ Phases (a failed phase raises; the script then exits non-zero and
 prints no result):
   1. device   — needs CUDA; prints the card's name and power limit;
   2. build    — one nvcc per kernel source, all started together;
-  3. kernels  — kernel vs plain at every bucket (atol 2e-3 on the final
-                h), median times over CUDA events, cuDNN's LSTM as a
-                yardstick, and the card's least time for the same work;
+  3. kernels  — kernel vs plain at every bucket at h=64 and at
+                h in {8, 16, 32} (atol 2e-3 on the final h); `ms` is one
+                wrapper call between CUDA events (host cost included),
+                timed as the plain version and cuDNN's LSTM (a yardstick)
+                are; `graph_ms` is the kernel's device time per launch
+                (a CUDA graph of back-to-back launches); `bound_ms` the
+                card's least time for the same work;
   4. main     — SWB1 encode → decode → store → admit → flush for ~8
                 fleet ticks (one with injected anomalies, one flush
                 holding duplicate devices, two small flushes); every
@@ -32,17 +36,27 @@ from __future__ import annotations
 
 import asyncio
 import json
-import statistics
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-SEED = 0
-BUCKETS = (256, 1024, 4096, 16384)
-WINDOW, HIDDEN = 64, 64
-FLEET = 32768
+from sitewhere_tpu_torch.tools.main_path import (
+    BUCKETS,
+    FLEET,
+    HIDDEN,
+    SEED,
+    TICK_S,
+    WINDOW,
+)
+
+# the other widths the repo configures, checked at one ragged batch
+WIDTHS, WIDTH_BATCH = (8, 16, 32), 1000
+# K1's `ms` with its earlier CUDA-core design, logged beside this run's
+# (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)
+CUDA_CORE_MS = {256: 0.121, 1024: 0.291, 4096: 0.484, 16384: 1.486}
 # published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor rate
 # and HBM bandwidth; the card's own power limit is printed beside them
 PEAK_BF16_FLOPS = 989e12
@@ -77,24 +91,19 @@ def phase_build() -> None:
     log(f"build: {len(reports)} kernel source(s) in "
         f"{time.perf_counter() - t0:.3f} s")
     for name, report in reports.items():
+        # one line per compiled kernel: its template arguments (for
+        # lstm_window: h, warps sharing a tile's units, tiles a CTA, rows
+        # a tile), registers and spills, from nvcc's -Xptxas -v report
+        entry, spill = "?", ""
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-
-
-def cuda_median_ms(torch, fn, reps: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+            if "Compiling entry function" in line:
+                args = re.findall(r"Li(\d+)E", line)
+                entry = f"<{','.join(args)}>" if args else line.split("'")[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                log(f"  {name}{entry}: {regs} registers, {spill}")
 
 
 def lstm_bound_ms(batch: int, steps: int, hidden: int) -> tuple[float, str]:
@@ -112,6 +121,8 @@ def lstm_bound_ms(batch: int, steps: int, hidden: int) -> tuple[float, str]:
 def library_lstm_ms(torch, layer: dict, xn) -> float:
     """One cuDNN `torch.nn.LSTM` call on the same inputs (same i/f/g/o
     gate order), a yardstick only — the port never calls it."""
+    from sitewhere_tpu_torch.utils.timing import cuda_median_ms
+
     hidden = layer["wh"].shape[0]
     lstm = torch.nn.LSTM(1, hidden, batch_first=True).to(xn.device)
     with torch.no_grad():
@@ -123,7 +134,7 @@ def library_lstm_ms(torch, layer: dict, xn) -> float:
     lstm.flatten_parameters()  # one weight chunk: no compaction per call
     seq = xn[:, :, None].to(torch.bfloat16).contiguous()
     with torch.no_grad():
-        return cuda_median_ms(torch, lambda: lstm(seq), reps=10)
+        return cuda_median_ms(lambda: lstm(seq), reps=10)
 
 
 def phase_kernels(torch) -> list[dict]:
@@ -132,35 +143,55 @@ def phase_kernels(torch) -> list[dict]:
         lstm_window_final,
         lstm_window_final_plain,
     )
+    from sitewhere_tpu_torch.utils.timing import cuda_median_ms, graph_ms
 
-    model = build_model("lstm", window=WINDOW, hidden=HIDDEN)
-    layer = model.init(torch.Generator().manual_seed(SEED))["lstm0"]
-    gen = torch.Generator().manual_seed(SEED + 1)
-    rows = []
-    for batch in BUCKETS:
+    def layer_and_input(hidden, batch, gen):
+        model = build_model("lstm", window=WINDOW, hidden=hidden)
+        layer = model.init(torch.Generator().manual_seed(SEED))["lstm0"]
         # the main path hands the kernel xn[:, :-1] of a [B, W] window
         xw = torch.randn((batch, WINDOW), generator=gen).cuda()
-        xn = xw[:, :-1]
+        return layer, xw[:, :-1]
+
+    def checked(layer, xn):
         got = lstm_window_final(layer, xn, torch.bfloat16)
         want = lstm_window_final_plain(layer["wx"], layer["wh"], layer["b"], xn)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not err < KERNEL_ATOL:
-            raise AssertionError(f"kernel vs plain at B={batch}: "
-                                 f"max |err| {err} >= {KERNEL_ATOL}")
-        ms = cuda_median_ms(
-            torch, lambda: lstm_window_final(layer, xn, torch.bfloat16), reps=50)
+            raise AssertionError(
+                f"kernel vs plain at B={xn.shape[0]}, h={layer['wh'].shape[0]}: "
+                f"max |err| {err} >= {KERNEL_ATOL}")
+        return err
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    rows, widths = [], []
+    for batch in BUCKETS:
+        layer, xn = layer_and_input(HIDDEN, batch, gen)
+        err = checked(layer, xn)
+        call = lambda: lstm_window_final(layer, xn, torch.bfloat16)  # noqa: E731
+        ms = cuda_median_ms(call, reps=50)
+        dev_ms = graph_ms(call)
         plain_ms = cuda_median_ms(
-            torch, lambda: lstm_window_final_plain(
+            lambda: lstm_window_final_plain(
                 layer["wx"], layer["wh"], layer["b"], xn), reps=5, warmup=1)
         lib_ms = library_lstm_ms(torch, layer, xn.contiguous())
         bound_ms, bound_by = lstm_bound_ms(batch, WINDOW - 1, HIDDEN)
         row = {"batch": batch, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"lstm_window_final B={batch}: {json.dumps(row)}")
+               "graph_ms": dev_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        log(f"lstm_window_final B={batch}: {json.dumps(row)} "
+            f"(CUDA-core design: ms {CUDA_CORE_MS[batch]})")
         rows.append(row)
-    return rows
+    for hidden in WIDTHS:
+        layer, xn = layer_and_input(hidden, WIDTH_BATCH, gen)
+        row = {"hidden": hidden, "batch": WIDTH_BATCH,
+               "max_abs_err": checked(layer, xn),
+               "graph_ms": graph_ms(lambda: lstm_window_final(
+                   layer, xn, torch.bfloat16))}
+        log(f"lstm_window_final h={hidden}: {json.dumps(row)}")
+        widths.append(row)
+    return rows, widths
 
 
 def plain_scores(torch, model, params, x, valid):
@@ -177,39 +208,27 @@ def plain_scores(torch, model, params, x, valid):
 
 
 async def phase_main(torch) -> dict:
-    from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch
-    from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
-    from sitewhere_tpu_torch.models import build_model
     from sitewhere_tpu_torch.ops import lstm_kernel
-    from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
-    from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
-    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
+    from sitewhere_tpu_torch.sim.simulator import SimConfig
+    from sitewhere_tpu_torch.tools import main_path
 
     t_setup = time.perf_counter()
-    model = build_model("lstm", window=WINDOW, hidden=HIDDEN)
-    store = TelemetryStore(history=128, initial_devices=FLEET)
-    sim_cfg = SimConfig(num_devices=FLEET, seed=SEED)
-    sim = DeviceSimulator(sim_cfg, tenant_id="smoke")
-    for k in range(WINDOW + 4):
-        store.append_measurements(sim.tick(t=60.0 * k)[0])
-    metrics = MetricsRegistry()
-    session = ScoringSession(
-        model, store, metrics,
-        ScoringConfig(buckets=BUCKETS, capacity=FLEET))
-    session.warmup()
+    path = main_path.build("smoke")
+    model, session, sim, metrics = (path.model, path.session, path.sim,
+                                    path.metrics)
     torch.cuda.synchronize()
     log(f"main: set-up (store fill + warmup) "
         f"{time.perf_counter() - t_setup:.3f} s")
 
-    t = 60.0 * (WINDOW + 4)
+    t = path.t
     plan = []  # (label, [(batch, truth)], anomaly tick?)
     for k in range(6):
-        plan.append(("fleet", [sim.tick(t=t + 60.0 * k)], False))
-    t += 60.0 * 6
+        plan.append(("fleet", [sim.tick(t=t + TICK_S * k)], False))
+    t += TICK_S * 6
     sim.cfg = SimConfig(num_devices=FLEET, seed=SEED, anomaly_rate=0.05,
                         anomaly_magnitude=12.0)
     plan.append(("anomalies", [sim.tick(t=t)], True))
-    sim.cfg = sim_cfg
+    sim.cfg = path.sim_cfg
     dup = np.arange(3000, dtype=np.uint32)
     plan.append(("duplicates", [sim.tick(t=t + 30.0, devices=dup),
                                 sim.tick(t=t + 45.0, devices=dup)], False))
@@ -226,11 +245,7 @@ async def phase_main(torch) -> dict:
     for label, ticks, anomalous in plan:
         t0 = time.perf_counter()
         for batch, _ in ticks:
-            payload = batch.encode()
-            wire = MeasurementBatch.decode(
-                payload, BatchContext(tenant_id="smoke", source="gateway"))
-            store.append_measurements(wire)
-            session.admit(wire)
+            path.ingest(batch)
         t1 = time.perf_counter()
         scored = await session.flush()
         t2 = time.perf_counter()
@@ -287,7 +302,7 @@ def main() -> int:
 
     kind = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch)
+    rows, widths = phase_kernels(torch)
     stats = asyncio.run(phase_main(torch))
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
@@ -296,13 +311,14 @@ def main() -> int:
         "source": "sitewhere_tpu_torch/csrc/lstm_window.cu",
         "replaces": "sitewhere_tpu/ops/lstm_kernel.py:75",
         "launches": stats["kernel_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + widths),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
         "shape": {"batch": top["batch"], "steps": WINDOW - 1,
                   "hidden": HIDDEN},
         "per_bucket": rows,
+        "widths": widths,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,10 @@ from typing import Any
 import torch
 
 from sitewhere_tpu_torch.models.common import dense_init, lstm_init, lstm_scan
+from sitewhere_tpu_torch.ops.lstm_kernel import (
+    KERNEL_HIDDEN,
+    lstm_window_final,
+)
 from sitewhere_tpu_torch.utils import resolve_device
 
 
@@ -43,9 +47,11 @@ class LstmAnomalyModel:
     @property
     def fused(self) -> bool:
         """Does `score_fused` take the window kernel? A property of the
-        configuration (single layer, bf16), decided once — never by
-        catching a failure."""
-        return self.cfg.layers == 1 and self.cfg.compute_dtype == torch.bfloat16
+        configuration (single layer, bf16, a hidden width the kernel is
+        built for), decided once — never by catching a failure."""
+        cfg = self.cfg
+        return (cfg.layers == 1 and cfg.compute_dtype == torch.bfloat16
+                and cfg.hidden in KERNEL_HIDDEN)
 
     # -- params ------------------------------------------------------------
 
@@ -120,11 +126,9 @@ class LstmAnomalyModel:
     def score_fused(self, params: dict, x: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
         """`score` with the recurrence in the fused window kernel
-        (ops/lstm_kernel.py) for a single-layer bf16 model; any other
-        configuration is `score`. Scoring needs only the LAST step's
-        prediction, so the kernel writes back one [B, h] tensor."""
-        from sitewhere_tpu_torch.ops.lstm_kernel import lstm_window_final
-
+        (ops/lstm_kernel.py) where `fused` holds; any other configuration
+        is `score`. Scoring needs only the LAST step's prediction, so the
+        kernel writes back one [B, h] tensor."""
         if not self.fused:
             return self.score(params, x, valid)
         xn, _, _ = self._normalize(x, valid.float())

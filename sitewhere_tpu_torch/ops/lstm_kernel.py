@@ -5,9 +5,12 @@ lstm_kernel.py:67-96, pallas_call at :75). The windowed scorer re-runs a
 W-step LSTM over every flushed device window but consumes only the LAST
 step's prediction, so the kernel keeps h/c and both weight matrices on
 chip for all T = W-1 steps and writes back only the final h `[B, h]`.
-The CUDA source is `csrc/lstm_window.cu`; its header states the design
-and the bound (≈34 GFLOP per B=16384 flush: operations, not bytes, bound
-it; ≈35 µs at the bf16 dense rate).
+The CUDA source is `csrc/lstm_window.cu`; it runs each step's
+`[16 rows, h] × [h, 4h]` product on the tensor cores (`mma.sync` bf16),
+and its header states the design and the bound (≈34 GFLOP per B=16384
+flush: operations, not bytes, bound it; ≈35 µs at the bf16 dense rate).
+The kernel reads the params as they are (float32) and rounds wx and wh
+to bf16 as it loads them, so a dispatch launches nothing but the kernel.
 
 `lstm_window_final` launches the kernel for a CUDA tensor and uses the
 plain PyTorch version below only for a CPU tensor. There is no fallback:
@@ -27,7 +30,7 @@ import torch
 # kernel launches since import (or since a caller reset it to 0)
 launches = 0
 
-KERNEL_HIDDEN = (32, 64)   # hidden widths the CUDA kernel is built for
+KERNEL_HIDDEN = (8, 16, 32, 64)   # hidden widths the CUDA kernel is built for
 
 
 def lstm_window_final_plain(wx: torch.Tensor, wh: torch.Tensor,
@@ -72,6 +75,9 @@ def _check(params_layer: dict, xn: torch.Tensor, cdt) -> tuple:
     for name, p in (("wx", wx), ("wh", wh), ("b", b)):
         if p.device != xn.device:
             raise ValueError(f"{name} is on {p.device}, xn on {xn.device}")
+        if p.dtype != torch.float32 or not p.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got "
+                             f"{p.dtype}, strides {p.stride()}")
     return wx, wh, b
 
 
@@ -97,18 +103,11 @@ def _launch(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"the CUDA kernel is built for hidden in "
                          f"{KERNEL_HIDDEN}, not {hidden}")
     fn = _c_entry()
-    # the bf16 copies are freed when this returns; the caching allocator
-    # hands their memory only to work queued after the kernel on this
-    # stream, so the asynchronous launch never reads a reused buffer
-    wx16 = wx.reshape(-1).to(torch.bfloat16).contiguous()
-    wh16 = wh.to(torch.bfloat16).contiguous()
-    b32 = b.reshape(-1).float().contiguous()
     out = torch.empty((B, hidden), dtype=torch.float32, device=xn.device)
     with torch.cuda.device(xn.device):
         stream = torch.cuda.current_stream(xn.device).cuda_stream
-        err = fn(xn.data_ptr(), xn.stride(0), wx16.data_ptr(),
-                 wh16.data_ptr(), b32.data_ptr(), out.data_ptr(),
-                 B, T, hidden, stream)
+        err = fn(xn.data_ptr(), xn.stride(0), wx.data_ptr(), wh.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), B, T, hidden, stream)
     if err != 0:
         raise RuntimeError(f"lstm_window_final kernel launch failed: "
                            f"cudaError {err}")

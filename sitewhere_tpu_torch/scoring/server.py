@@ -25,11 +25,13 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Awaitable, Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, ScoredBatch
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
@@ -48,6 +50,14 @@ from sitewhere_tpu_torch.utils.retry import retry_backoff
 logger = logging.getLogger(__name__)
 
 Sink = Callable[[ScoredBatch], Awaitable[None]]
+
+
+def _span(name: str):
+    """A `torch.profiler` label for a host step of the hot path
+    (`scoring.take_pending`, `scoring.dispatch`, `scoring.update_and_score`);
+    only a flag check when no profiler runs."""
+    return (record_function(name) if torch.autograd._profiler_enabled()
+            else nullcontext())
 
 
 @dataclass(frozen=True)
@@ -379,8 +389,9 @@ class ScoringSession:
         dispatches = []
         for rdev, rval, rpos in rounds:
             bucket = self._bucket_for(rdev.shape[0])
-            scores_dev = self.ring.update_and_score(
-                self.model, self.params, rdev, rval, bucket)
+            with _span("scoring.update_and_score"):
+                scores_dev = self.ring.update_and_score(
+                    self.model, self.params, rdev, rval, bucket)
             # start the device→host copy NOW (non-blocking): the settle
             # thread then waits on this copy's event only
             self.batch_size_hist.observe(float(rdev.shape[0]))
@@ -463,7 +474,8 @@ class ScoringSession:
         for lo in range(0, dev.shape[0], max_b):
             hi = lo + max_b
             try:
-                dispatches = self._dispatch(dev[lo:hi], val[lo:hi])
+                with _span("scoring.dispatch"):
+                    dispatches = self._dispatch(dev[lo:hi], val[lo:hi])
             except Exception:
                 logger.exception("scoring dispatch failed; reloading ring")
                 self.dropped.inc(dev.shape[0] - lo)
@@ -525,7 +537,8 @@ class ScoringSession:
         if self._pending_max >= self.ring.capacity:
             self._start_regrow()  # grow off the hot path
             return False
-        dev, val, ts, ingest, ctx, traces = self._take_pending()
+        with _span("scoring.take_pending"):
+            dev, val, ts, ingest, ctx, traces = self._take_pending()
         return self._dispatch_chunks(dev, val, ts, ingest, ctx,
                                      time.monotonic(),
                                      traces=traces)[0] > 0
@@ -539,7 +552,8 @@ class ScoringSession:
             return None
         if self.faults is not None:
             await self.faults.acheck("scoring.dispatch")
-        dev, val, ts, ingest, ctx, traces = self._take_pending()
+        with _span("scoring.take_pending"):
+            dev, val, ts, ingest, ctx, traces = self._take_pending()
         futs: list[asyncio.Future] = []
         _, failed = self._dispatch_chunks(dev, val, ts, ingest, ctx,
                                           time.monotonic(), futs,

@@ -36,15 +36,17 @@ def _pallas(p, xn):
         jnp.asarray(p["b"]).reshape(1, -1), interpret=True))
 
 
-def test_plain_matches_pallas_kernel_interpret():
+@pytest.mark.parametrize("hidden", [8, 16, 64])
+def test_plain_matches_pallas_kernel_interpret(hidden):
     """Same bf16 operands and f32 accumulation as the Pallas kernel: the
     two differ only in summation order and the bf16 flips of h that
-    order causes (measured 4e-4 at this shape). atol 2e-3."""
-    p, tp = _params(0, 64)
+    order causes (measured 4e-4 at h=64). atol 2e-3, at every width the
+    repo configures for the kernel path."""
+    p, tp = _params(0, hidden)
     xn = np.random.default_rng(0).standard_normal((256, 63)).astype(np.float32)
     want = _pallas(p, xn)
     got = lstm_window_final(tp, torch.from_numpy(xn), torch.bfloat16).numpy()
-    assert got.shape == want.shape == (256, 64)
+    assert got.shape == want.shape == (256, hidden)
     np.testing.assert_allclose(got, want, atol=2e-3)
 
 
@@ -98,6 +100,10 @@ def _bad_inputs():
         "f32 compute dtype": (tp, xn, torch.float32),
         "wh not [h, 4h]": (wh_bad, xn, torch.bfloat16),
         "wx not [1, 4h]": (wx_bad, xn, torch.bfloat16),
+        "bf16 wh": (dict(tp, wh=tp["wh"].bfloat16()), xn, torch.bfloat16),
+        "float64 b": (dict(tp, b=tp["b"].double()), xn, torch.bfloat16),
+        "transposed wh": (dict(tp, wh=tp["wh"].T.contiguous().T), xn,
+                          torch.bfloat16),
     }
 
 

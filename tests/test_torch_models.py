@@ -27,6 +27,7 @@ from sitewhere_tpu.ops.lstm_kernel import lstm_window_final as jax_window_final
 from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
 from sitewhere_tpu_torch.models import build_model
 from sitewhere_tpu_torch.models.common import lstm_scan as torch_lstm_scan
+from sitewhere_tpu_torch.ops.lstm_kernel import KERNEL_HIDDEN
 
 
 def _np_params(jax_model, seed):
@@ -119,6 +120,22 @@ def test_score_fused_is_score_for_configs_without_kernel():
         assert not tm.fused
         tp = tm.init(torch.Generator().manual_seed(0))
         x, valid = _windows(0, 16, 16)
+        xt, vt = torch.from_numpy(x), torch.from_numpy(valid)
+        assert torch.equal(tm.score_fused(tp, xt, vt), tm.score(tp, xt, vt))
+
+
+@pytest.mark.parametrize("hidden,fused", [
+    (8, True), (16, True), (32, True), (64, True), (24, False), (96, False)])
+def test_fused_is_chosen_by_width(hidden, fused):
+    """A single-layer bf16 model takes the kernel exactly when its width is
+    one the kernel is built for; any other width scores through `score`,
+    decided by configuration as the JAX package's `pallas_ok` decides."""
+    tm = build_model("lstm", device="cpu", window=16, hidden=hidden)
+    assert tm.fused is fused
+    assert (hidden in KERNEL_HIDDEN) is fused
+    if not fused:
+        tp = tm.init(torch.Generator().manual_seed(0))
+        x, valid = _windows(1, 16, 16)
         xt, vt = torch.from_numpy(x), torch.from_numpy(valid)
         assert torch.equal(tm.score_fused(tp, xt, vt), tm.score(tp, xt, vt))
 

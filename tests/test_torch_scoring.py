@@ -122,6 +122,47 @@ def test_session_matches_jax_session(run):
     run(main())
 
 
+def test_width8_session_matches_jax_session(run):
+    """An `lstm` session at hidden=8 (the width the service tests
+    configure) takes the kernel path (on the CPU its plain version) and
+    scores like the JAX session on the same weights and ticks, float32
+    readback, atol 3e-2 as above."""
+
+    async def main():
+        window, n_dev = 16, 40
+        cfg = dict(buckets=(32, 64), batch_window_ms=0.0,
+                   score_dtype="float32")
+        jmodel = jax_build("lstm", window=window, hidden=8)
+        params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(3)))
+        jstore, tstore = JStore(history=64), TelemetryStore(history=64)
+        sim = DeviceSimulator(SimConfig(num_devices=n_dev, seed=9), tenant_id="t")
+        for k in range(window + 4):
+            batch, _ = sim.tick(t=60.0 * k)
+            jstore.append_measurements(_jbatch(batch))
+            tstore.append_measurements(batch)
+        js = JSession(jmodel, jstore, JMetrics(), JConfig(**cfg), params=params)
+        ts = ScoringSession(
+            build_model("lstm", device="cpu", window=window, hidden=8),
+            tstore, MetricsRegistry(), ScoringConfig(**cfg),
+            params=params_from_numpy(params, "cpu"), device="cpu")
+        assert ts.model.fused
+        js.warmup()
+        ts.warmup()
+        t = 60.0 * (window + 4)
+        for k, devices in enumerate((None, np.arange(10, dtype=np.uint32))):
+            batch, _ = sim.tick(t=t + 60.0 * k, devices=devices)
+            jstore.append_measurements(_jbatch(batch))
+            tstore.append_measurements(batch)
+            js.admit(_jbatch(batch))
+            ts.admit(batch)
+            want, got = await js.flush(), await ts.flush()
+            assert len(got) == len(batch)
+            np.testing.assert_array_equal(got.device_index, want.device_index)
+            np.testing.assert_allclose(got.score, want.score, atol=3e-2)
+
+    run(main())
+
+
 def test_query_path_matches_jax(run):
     """score_devices (host windows, the model's scan `score`) on both
     packages: atol 3e-2."""
