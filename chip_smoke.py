@@ -5,10 +5,9 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout,
 holds each against its plain PyTorch version on the card, then drives
-the port's main path — a dedicated `ScoringSession` scoring the windowed
-`lstm` model (W=64, h=64, 1 layer, bf16, random weights from a seed)
-over a 32,768-device simulated fleet — and checks its scores. Imports
-torch, numpy and `sitewhere_tpu_torch` only.
+each of the port's serving paths at full width (W=64, h=64, 1 layer,
+bf16, random weights from seeds, a 32,768-device simulated fleet) and
+checks its scores. Imports torch, numpy and `sitewhere_tpu_torch` only.
 
 Phases (a failed phase raises; the script then exits non-zero and
 prints no result):
@@ -27,7 +26,26 @@ prints no result):
                 score finite, kernel launches == dispatches, a sample of
                 each flush against the plain kernel version (atol 1e-2
                 plus 1e-3 relative for the float16 readback), anomalies
-                above the normal p99.
+                above the normal p99;
+  5. stream   — the main phase's plan through a dedicated session on the
+                streaming `lstm-stream` model (the default serving
+                model); then a second such session with
+                readback="anomalies" scores the same anomaly tick;
+  6. pool     — `SharedScoringPool` on `lstm-stream`: 1 tenant × 32,768
+                devices with one fleet-sized bucket (the bench's default)
+                and 8 tenants × 4,096 devices with their own weights and
+                bucket 4096 (the bench's megabatch A/B shape), four fleet
+                ticks and an anomaly tick each;
+  7. pool-window — the pool on the windowed `lstm`, 4 tenants × 8,192
+                devices, a fleet tick and an anomaly tick.
+Phases 5–7 check that every event is scored, every score finite, the
+dispatches are the occurrence rounds, injected anomalies stand out, and
+a sample of 1,024 devices per tenant agrees with an independent CPU
+reference (the streaming model stepped over the same events from its
+host windows, or the windowed model's `score` on the host store's
+windows; atol 1e-2 plus 1e-3 relative). No CUDA kernel of the port runs
+on these paths (their steps are plain PyTorch), so K1's launch count
+must stay 0 there. Each path prints one stats line.
 The second-to-last line is the `{"kernels": [...]}` record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -43,11 +61,13 @@ import time
 
 import numpy as np
 
+from sitewhere_tpu_torch.sim.simulator import SimConfig
 from sitewhere_tpu_torch.tools.main_path import (
     BUCKETS,
     FLEET,
     HIDDEN,
     SEED,
+    THRESHOLD,
     TICK_S,
     WINDOW,
 )
@@ -63,6 +83,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 KERNEL_ATOL = 2e-3
 SCORE_ATOL, SCORE_RTOL = 1e-2, 1e-3
+# devices per tenant held against the CPU reference in phases 5–7
+SAMPLE = 1024
+# (tenants, devices a tenant, buckets) of the pooled phases
+POOLS = ((1, FLEET, (FLEET,)), (8, FLEET // 8, (FLEET // 8,)))
+WINDOW_POOL = (4, FLEET // 4, (FLEET // 4,))
 
 
 def log(msg: str) -> None:
@@ -207,28 +232,23 @@ def plain_scores(torch, model, params, x, valid):
     return model._finalize(pred, xn, valid)
 
 
-async def phase_main(torch) -> dict:
-    from sitewhere_tpu_torch.ops import lstm_kernel
-    from sitewhere_tpu_torch.sim.simulator import SimConfig
-    from sitewhere_tpu_torch.tools import main_path
+def anomaly_tick(sim, sim_cfg, t: float):
+    """A fleet tick with 5% of devices spiking by 12 sigma."""
+    sim.cfg = SimConfig(num_devices=sim_cfg.num_devices, seed=sim_cfg.seed,
+                        anomaly_rate=0.05, anomaly_magnitude=12.0)
+    tick = sim.tick(t=t)
+    sim.cfg = sim_cfg
+    return tick
 
-    t_setup = time.perf_counter()
-    path = main_path.build("smoke")
-    model, session, sim, metrics = (path.model, path.session, path.sim,
-                                    path.metrics)
-    torch.cuda.synchronize()
-    log(f"main: set-up (store fill + warmup) "
-        f"{time.perf_counter() - t_setup:.3f} s")
 
-    t = path.t
-    plan = []  # (label, [(batch, truth)], anomaly tick?)
-    for k in range(6):
-        plan.append(("fleet", [sim.tick(t=t + TICK_S * k)], False))
+def session_plan(path) -> list:
+    """The dedicated sessions' flushes: (label, [(batch, truth)], anomaly
+    tick?) for six fleet ticks, an anomaly tick, a flush holding
+    duplicate devices and two small flushes."""
+    sim, t = path.sim, path.t
+    plan = [("fleet", [sim.tick(t=t + TICK_S * k)], False) for k in range(6)]
     t += TICK_S * 6
-    sim.cfg = SimConfig(num_devices=FLEET, seed=SEED, anomaly_rate=0.05,
-                        anomaly_magnitude=12.0)
-    plan.append(("anomalies", [sim.tick(t=t)], True))
-    sim.cfg = path.sim_cfg
+    plan.append(("anomalies", [anomaly_tick(sim, path.sim_cfg, t)], True))
     dup = np.arange(3000, dtype=np.uint32)
     plan.append(("duplicates", [sim.tick(t=t + 30.0, devices=dup),
                                 sim.tick(t=t + 45.0, devices=dup)], False))
@@ -236,7 +256,115 @@ async def phase_main(torch) -> dict:
         200, dtype=np.uint32))], False))
     plan.append(("small-1024", [sim.tick(t=t + 60.0, devices=np.arange(
         5000, 5900, dtype=np.uint32))], False))
+    return plan
 
+
+def check_anomalies(label: str, scores: np.ndarray, truth: np.ndarray) -> None:
+    a_med = float(np.median(scores[truth]))
+    n_p99 = float(np.quantile(scores[~truth], 0.99))
+    log(f"{label}: anomalies {int(truth.sum())}: median score {a_med}, "
+        f"normal p99 {n_p99}")
+    if not a_med > n_p99:
+        raise AssertionError(f"{label}: injected anomalies do not stand out")
+
+
+def check_scored(label: str, scored, dev: np.ndarray) -> None:
+    """Every event scored (in arrival order), every score finite."""
+    if (len(scored) != dev.shape[0]
+            or not np.array_equal(scored.device_index, dev)
+            or not np.isfinite(scored.score).all()):
+        raise AssertionError(f"{label}: {len(scored)} scores for "
+                             f"{dev.shape[0]} events, finite="
+                             f"{np.isfinite(scored.score).all()}")
+
+
+def check_close(label: str, got: np.ndarray, ref: np.ndarray) -> float:
+    """`got` (float16 readback) against a float32 reference narrowed the
+    same way: atol SCORE_ATOL plus SCORE_RTOL relative."""
+    ref = ref.astype(np.float16).astype(np.float32)
+    err = np.abs(got - ref)
+    if not (err <= SCORE_ATOL + SCORE_RTOL * np.abs(ref)).all():
+        raise AssertionError(f"{label}: scores vs the reference, max |err| "
+                             f"{err.max()}")
+    return float(err.max()) if err.size else 0.0
+
+
+def occurrence_rounds(dev: np.ndarray) -> int:
+    """Dispatches a duplicate-free split of `dev` needs: its largest
+    per-device event count."""
+    return int(np.unique(dev, return_counts=True)[1].max())
+
+
+def path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
+               launches) -> dict:
+    return {"events": n_events, "flushes": len(flush_ms),
+            "dispatches": n_dispatch, "events_per_s": n_events / busy_s,
+            "flush_p50_ms": float(np.quantile(flush_ms, 0.5)),
+            "flush_p99_ms": float(np.quantile(flush_ms, 0.99)),
+            "host_ms_per_flush_p50": float(np.quantile(host_ms, 0.5)),
+            "kernel_launches": launches}
+
+
+class StreamReference:
+    """The streaming model on the CPU for a sample of one tenant's
+    devices: state from `warm_state` on their host windows (the store as
+    the path seeded its ring from it), then `step_score` over the same
+    events in arrival order. Independent of the path under test: no
+    ring, no stack, no card."""
+
+    def __init__(self, torch, params: dict, store, devices: np.ndarray):
+        from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
+        from sitewhere_tpu_torch.models import build_model
+
+        self.torch = torch
+        self.model = build_model("lstm-stream", device="cpu", window=WINDOW,
+                                 hidden=HIDDEN)
+        self.params = params_from_numpy(params_to_numpy(params), "cpu")
+        self.row = np.full(int(devices.max()) + 1, -1, np.int64)
+        self.row[devices] = np.arange(devices.shape[0])
+        x, valid = store.window(devices, WINDOW)
+        self.state = self.model.warm_state(self.params, torch.from_numpy(x),
+                                           torch.from_numpy(valid))
+
+    def step(self, dev: np.ndarray, val: np.ndarray):
+        """Advance over one flush's events; returns (positions of the
+        sampled devices' events, their reference scores)."""
+        torch = self.torch
+        known = dev < self.row.shape[0]
+        pos = np.nonzero(known)[0]
+        pos = pos[self.row[dev[pos]] >= 0]
+        rows = self.row[dev[pos]]
+        # occurrence rank of each event among its device's events
+        order = np.argsort(rows, kind="stable")
+        _, start, cnt = np.unique(rows[order], return_index=True,
+                                  return_counts=True)
+        rank = np.empty_like(rows)
+        rank[order] = np.arange(rows.shape[0]) - np.repeat(start, cnt)
+        ref = np.empty(rows.shape[0], np.float32)
+        for r in range(int(rank.max()) + 1 if rank.size else 0):
+            sel = rank == r
+            idx = torch.from_numpy(rows[sel])
+            sub = {k: v[idx] for k, v in self.state.items()}
+            score, new = self.model.step_score(
+                self.params, sub, torch.from_numpy(val[pos[sel]]))
+            for k, v in self.state.items():
+                v[idx] = new[k]
+            ref[sel] = score.numpy()
+        return pos, ref
+
+
+async def phase_main(torch) -> dict:
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import main_path
+
+    t_setup = time.perf_counter()
+    path = main_path.build("smoke")
+    model, session, metrics = path.model, path.session, path.metrics
+    torch.cuda.synchronize()
+    log(f"main: set-up (store fill + warmup) "
+        f"{time.perf_counter() - t_setup:.3f} s")
+
+    plan = session_plan(path)
     dispatches = metrics.counter("scoring.dispatches")
     d0 = dispatches.value
     lstm_kernel.launches = 0
@@ -274,26 +402,209 @@ async def phase_main(torch) -> dict:
         log(f"main: flush {label}: {n} events in {flush_ms[-1]:.3f} ms, "
             f"sample max |err| vs plain {err.max():.3e}")
         if anomalous:
-            truth = ticks[0][1]
-            a_med = float(np.median(scored.score[truth]))
-            n_p99 = float(np.quantile(scored.score[~truth], 0.99))
-            log(f"main: anomalies {int(truth.sum())}: median score {a_med}, "
-                f"normal p99 {n_p99}")
-            if not a_med > n_p99:
-                raise AssertionError("injected anomalies do not stand out")
+            check_anomalies("main", scored.score, ticks[0][1])
     launches = lstm_kernel.launches
     n_dispatch = int(dispatches.value - d0)
     if launches == 0 or launches != n_dispatch:
         raise AssertionError(f"kernel launches {launches} != dispatches "
                              f"{n_dispatch}")
     await session.drain()
-    stats = {"events": n_events, "flushes": len(flush_ms),
-             "dispatches": n_dispatch, "events_per_s": n_events / busy_s,
-             "flush_p50_ms": float(np.quantile(flush_ms, 0.5)),
-             "flush_p99_ms": float(np.quantile(flush_ms, 0.99)),
-             "host_ms_per_flush_p50": float(np.quantile(host_ms, 0.5)),
-             "kernel_launches": launches}
+    stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
+                       launches)
     log(f"main: {json.dumps(stats)}")
+    return stats
+
+
+async def phase_stream(torch) -> dict:
+    """The dedicated session on the streaming model, then its sparse
+    readback twin on the same anomaly tick."""
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import main_path
+
+    t_setup = time.perf_counter()
+    path = main_path.build("stream", "lstm-stream")
+    # k=1024 slots a 16384-event dispatch hold the anomaly tick's ≈820 a
+    # dispatch, so the sets compare whole (overflow would be counted)
+    sparse = main_path.build("stream", "lstm-stream", readback="anomalies",
+                             sparse_k=1024)
+    rng = np.random.default_rng(SEED + 2)
+    sample = np.sort(rng.choice(FLEET, SAMPLE, replace=False))
+    ref = StreamReference(torch, path.session.params, path.store, sample)
+    torch.cuda.synchronize()
+    log(f"stream: set-up (store fills, warmups, CPU reference seed) "
+        f"{time.perf_counter() - t_setup:.3f} s")
+    plan = session_plan(path)
+    dispatches = path.metrics.counter("scoring.dispatches")
+    d0, expect = dispatches.value, 0
+    lstm_kernel.launches = 0
+    flush_ms, host_ms, n_events, busy_s = [], [], 0, 0.0
+    for label, ticks, anomalous in plan:
+        t0 = time.perf_counter()
+        for batch, _ in ticks:
+            path.ingest(batch)
+        t1 = time.perf_counter()
+        scored = await path.session.flush()
+        t2 = time.perf_counter()
+        busy_s += t2 - t0
+        flush_ms.append(1e3 * (t2 - t1))
+        host_ms.append(1e3 * (t1 - t0))
+        dev = np.concatenate([b.device_index for b, _ in ticks])
+        val = np.concatenate([b.value for b, _ in ticks])
+        n_events += dev.shape[0]
+        check_scored(f"stream {label}", scored, dev)
+        for lo in range(0, dev.shape[0], BUCKETS[-1]):
+            expect += occurrence_rounds(dev[lo:lo + BUCKETS[-1]])
+        pos, want = ref.step(dev, val)
+        err = check_close(f"stream {label}", scored.score[pos], want)
+        log(f"stream: flush {label}: {dev.shape[0]} events in "
+            f"{flush_ms[-1]:.3f} ms, {pos.shape[0]} sampled events, max "
+            f"|err| vs the CPU reference {err:.3e}")
+        if anomalous:
+            check_anomalies("stream", scored.score, ticks[0][1])
+            anomalous_tick, full_scored = ticks[0][0], scored
+        elif label == "fleet":
+            sparse.ingest(ticks[0][0])
+            await sparse.session.flush()
+    launches = lstm_kernel.launches
+    n_dispatch = int(dispatches.value - d0)
+    if n_dispatch != expect or launches:
+        raise AssertionError(f"stream: {n_dispatch} dispatches for {expect} "
+                             f"occurrence rounds, {launches} K1 launches")
+    await path.session.drain()
+    stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
+                       launches)
+    log(f"stream: {json.dumps(stats)}")
+
+    # the sparse twin has seen the same fleet ticks: the anomaly tick's
+    # reported set is the full readback's {score >= threshold}, apart
+    # from what top-k overflow (counted) leaves out
+    sparse.ingest(anomalous_tick)
+    t1 = time.perf_counter()
+    got = await sparse.session.flush()
+    sparse_ms = 1e3 * (time.perf_counter() - t1)
+    overflow = int(sparse.session.anomaly_overflow.value)
+    full = dict(zip(full_scored.device_index[full_scored.is_anomaly].tolist(),
+                    full_scored.score[full_scored.is_anomaly].tolist()))
+    missing = set(full) - set(got.device_index.tolist())
+    # the device compares the float32 score with the bar and the host the
+    # float16 readback: a score within one float16 ulp of the bar may
+    # fall on either side
+    edge = np.abs(full_scored.score - THRESHOLD) <= 4e-3
+    n_edge = int(edge.sum())
+    bad = [d for d, v in zip(got.device_index.tolist(), got.score.tolist())
+           if abs(full.get(d, THRESHOLD) - v) > (1e-3 if d in full else 4e-3)]
+    if (bad or len(missing) > overflow + n_edge
+            or abs(len(got) + overflow - len(full)) > n_edge
+            or got.total_scored != FLEET):
+        raise AssertionError(
+            f"stream sparse: {len(bad)} reported outside the full set, "
+            f"{len(missing)} missing vs overflow {overflow} ({n_edge} at "
+            f"the bar), total_scored {got.total_scored}")
+    log(f"stream sparse: {len(got)} anomalies reported + {overflow} "
+        f"overflow, {len(full)} full-readback scores >= {THRESHOLD} "
+        f"({n_edge} within a float16 ulp of it); flush {sparse_ms:.3f} ms")
+    stats["sparse"] = {"reported": len(got), "overflow": overflow,
+                       "full_set": len(full), "flush_ms": sparse_ms}
+    path.session.close()
+    sparse.session.close()
+    return stats
+
+
+async def drive_pool(torch, label: str, model: str, tenants: int,
+                     devices: int, buckets: tuple, fleet_ticks: int) -> dict:
+    """`fleet_ticks` fleet ticks then an anomaly tick through a pool,
+    every tenant one tick a flush, checked against a CPU reference."""
+    from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import main_path
+
+    t_setup = time.perf_counter()
+    path = await main_path.build_pool("t", model, tenants, devices, buckets)
+    pool = path.pool
+    rng = np.random.default_rng(SEED + 3)
+    samples = {tid: np.sort(rng.choice(devices, min(SAMPLE, devices),
+                                       replace=False))
+               for tid in path.tenants}
+    streaming = model == "lstm-stream"
+    if streaming:
+        refs = {tid: StreamReference(torch, m.params, m.store, samples[tid])
+                for tid, m in path.tenants.items()}
+    else:
+        cpu_model = build_model(model, device="cpu", window=WINDOW,
+                                hidden=HIDDEN)
+        cpu_params = {tid: params_from_numpy(params_to_numpy(m.params), "cpu")
+                      for tid, m in path.tenants.items()}
+    torch.cuda.synchronize()
+    log(f"{label}: set-up (store fills, warmup) "
+        f"{time.perf_counter() - t_setup:.3f} s")
+    dispatches = path.metrics.counter("scoring.dispatches")
+    per_round = path.metrics.histogram("scoring.megabatch_tenants_per_dispatch")
+    d0, expect = dispatches.value, 0
+    r0 = (per_round.count, per_round.sum)
+    lstm_kernel.launches = 0
+    flush_ms, host_ms, n_events, busy_s = [], [], 0, 0.0
+    for k in range(fleet_ticks + 1):
+        anomalous = k == fleet_ticks
+        t = path.t + TICK_S * k
+        ticks = {tid: (anomaly_tick(m.sim, m.sim_cfg, t) if anomalous
+                       else m.sim.tick(t=t))
+                 for tid, m in path.tenants.items()}
+        t0 = time.perf_counter()
+        for tid, (batch, _) in ticks.items():
+            path.ingest(tid, batch)
+        t1 = time.perf_counter()
+        scored = await path.flush()
+        t2 = time.perf_counter()
+        busy_s += t2 - t0
+        flush_ms.append(1e3 * (t2 - t1))
+        host_ms.append(1e3 * (t1 - t0))
+        expect += max(occurrence_rounds(b.device_index)
+                      for b, _ in ticks.values())
+        errs = []
+        for tid, (batch, truth) in ticks.items():
+            dev, val = batch.device_index, batch.value
+            n_events += dev.shape[0]
+            check_scored(f"{label} {tid}", scored[tid], dev)
+            if streaming:
+                pos, want = refs[tid].step(dev, val)
+            else:
+                # the host store is the durable copy: the ring's windows
+                # must equal its windows, and score like them on the CPU
+                slot = pool.stack.slots[tid]
+                pos = np.searchsorted(dev, samples[tid])
+                x, valid = path.tenants[tid].store.window(samples[tid], WINDOW)
+                rx, rv = pool.ring.windows(slot, samples[tid])
+                rx, rv = rx.cpu().numpy(), rv.cpu().numpy()
+                if not (np.array_equal(rv, valid)
+                        and np.array_equal(rx[rv], x[valid])):
+                    raise AssertionError(f"{label} {tid}: ring windows differ "
+                                         "from the host store's")
+                want = cpu_model.score(cpu_params[tid], torch.from_numpy(x),
+                                       torch.from_numpy(valid)).numpy()
+            errs.append(check_close(f"{label} {tid}", scored[tid].score[pos],
+                                    want))
+            if anomalous:
+                check_anomalies(f"{label} {tid}", scored[tid].score, truth)
+        log(f"{label}: flush {'anomalies' if anomalous else 'fleet'}: "
+            f"{tenants} x {devices} events in {flush_ms[-1]:.3f} ms, max "
+            f"|err| vs the CPU reference {max(errs):.3e}")
+    launches = lstm_kernel.launches
+    n_dispatch = int(dispatches.value - d0)
+    rounds = per_round.count - r0[0]
+    packed = (per_round.sum - r0[1]) / max(rounds, 1)
+    # every tenant admitted before each flush: each round packs them all
+    if (n_dispatch != expect or launches or rounds != fleet_ticks + 1
+            or packed != tenants):
+        raise AssertionError(
+            f"{label}: {n_dispatch} dispatches for {expect} occurrence "
+            f"rounds, {launches} K1 launches, {rounds} rounds packing "
+            f"{packed} tenants each")
+    stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
+                       launches)
+    stats["tenants_per_dispatch"] = packed
+    log(f"{label}: {json.dumps(stats)}")
+    pool.close()
     return stats
 
 
@@ -304,6 +615,14 @@ def main() -> int:
     phase_build()
     rows, widths = phase_kernels(torch)
     stats = asyncio.run(phase_main(torch))
+    asyncio.run(phase_stream(torch))
+    for tenants, devices, buckets in POOLS:
+        asyncio.run(drive_pool(torch, f"pool-{tenants}x{devices}",
+                               "lstm-stream", tenants, devices, buckets,
+                               fleet_ticks=4))
+    tenants, devices, buckets = WINDOW_POOL
+    asyncio.run(drive_pool(torch, f"pool-window-{tenants}x{devices}", "lstm",
+                           tenants, devices, buckets, fleet_ticks=1))
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

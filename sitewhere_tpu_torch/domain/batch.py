@@ -89,6 +89,16 @@ class ScoredBatch:
     is_anomaly: np.ndarray    # bool [N]
     ts: np.ndarray            # float64 [N]
     model_version: int = 0
+    # sparse anomaly readback (ScoringConfig.readback="anomalies"): the
+    # batch carries ONLY the anomalous events; this is how many events
+    # the flush actually scored on the device. -1 = full readback
+    total_scored: int = -1
 
     def __len__(self) -> int:
         return int(self.device_index.shape[0])
+
+    def select(self, mask: np.ndarray) -> "ScoredBatch":
+        return ScoredBatch(self.ctx, self.device_index[mask],
+                           self.score[mask], self.is_anomaly[mask],
+                           self.ts[mask], self.model_version,
+                           self.total_scored)

@@ -1,5 +1,5 @@
-"""Lightweight metrics: counters, histograms with quantiles, and
-a sliding-window meter. The hot-path cost is a plain float add: callers
+"""Lightweight metrics: counters, gauges, histograms with quantiles,
+and a sliding-window meter. The hot-path cost is a plain float add: callers
 hold the metric object, there is no label lookup on the fast path."""
 
 from __future__ import annotations
@@ -22,6 +22,17 @@ class Counter:
 
     def inc(self, amount: float = 1.0) -> None:
         self.value += amount
+
+
+class Gauge:
+    __slots__ = ("name", "value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0.0
+
+    def set(self, value: float) -> None:
+        self.value = value
 
 
 class Histogram:
@@ -142,6 +153,9 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str, buckets: Optional[list[float]] = None) -> Histogram:
         m = self._metrics.get(name)
         if m is None:
@@ -155,7 +169,7 @@ class MetricsRegistry:
     def snapshot(self) -> dict:
         out: dict[str, object] = {}
         for name, m in sorted(self._metrics.items()):
-            if isinstance(m, Counter):
+            if isinstance(m, (Counter, Gauge)):
                 out[name] = m.value
             elif isinstance(m, Meter):
                 out[name] = {"rate_10s": m.rate(10.0), "rate_60s": m.rate(60.0)}

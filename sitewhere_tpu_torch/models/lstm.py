@@ -1,4 +1,5 @@
-"""LSTM anomaly detector: the windowed next-step forecaster.
+"""LSTM anomaly detectors: the windowed next-step forecaster and its
+streaming twin (one cell step per event on device-resident state).
 
 Self-supervised next-step forecaster over a device's recent telemetry
 window; the anomaly score is the normalized one-step-ahead prediction
@@ -18,7 +19,12 @@ from typing import Any
 
 import torch
 
-from sitewhere_tpu_torch.models.common import dense_init, lstm_init, lstm_scan
+from sitewhere_tpu_torch.models.common import (
+    _matmul_round,
+    dense_init,
+    lstm_init,
+    lstm_scan,
+)
 from sitewhere_tpu_torch.ops.lstm_kernel import (
     KERNEL_HIDDEN,
     lstm_window_final,
@@ -148,3 +154,120 @@ class LstmAnomalyModel:
             fl += steps * 8.0 * h * (in_dim + h)
             in_dim = h
         return fl + steps * 2.0 * h  # head projection
+
+
+class StreamingLstmModel(LstmAnomalyModel):
+    """Event-native streaming twin of the windowed LSTM scorer.
+
+    Per-device LSTM state (h, c per layer), the standing next-step
+    prediction and running normalisation stats live on the device
+    (scoring/stream.py), and each event costs ONE cell step — where the
+    windowed model rescans W-1 steps per event — on the same weights.
+
+    score(t) = |prediction made at t-1 − x_t| in normalised space, gated
+    on history count like the windowed model. Normalisation uses
+    per-device capped-count Welford stats (count capped at W), the
+    streaming analog of the window mean/std, so params trained on the
+    windowed objective serve directly. `score` (the whole-window query
+    path) is inherited unchanged.
+    """
+
+    name = "lstm-stream"
+    streaming = True
+
+    def init_state(self, cap: int) -> dict:
+        """Zero per-device streaming state for `cap` rows (callers add
+        their own scratch row before passing a capacity here)."""
+        h, dev = self.cfg.hidden, self.device
+        state = {"pred": torch.zeros(cap, dtype=torch.float32, device=dev),
+                 "mean": torch.zeros(cap, dtype=torch.float32, device=dev),
+                 "var": torch.ones(cap, dtype=torch.float32, device=dev),
+                 "count": torch.zeros(cap, dtype=torch.int32, device=dev)}
+        for layer in range(self.cfg.layers):
+            state[f"h{layer}"] = torch.zeros((cap, h), dtype=torch.float32,
+                                             device=dev)
+            state[f"c{layer}"] = torch.zeros((cap, h), dtype=torch.float32,
+                                             device=dev)
+        return state
+
+    def _cell(self, params: dict, layer: int, x: torch.Tensor,
+              h: torch.Tensor, c: torch.Tensor):
+        """One fused-gate LSTM step. x: [B, d_in] → (h, c) [B, hidden];
+        both products rounded as `lstm_scan` rounds them."""
+        cdt = self.cfg.compute_dtype
+        p = params[f"lstm{layer}"]
+        gates = (_matmul_round(x, p["wx"], cdt)
+                 + _matmul_round(h, p["wh"], cdt) + p["b"])
+        i, f, g, o = gates.split(self.cfg.hidden, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return h, c
+
+    def step_score(self, params: dict, rows: dict, v: torch.Tensor):
+        """Score + advance gathered state rows for one event each.
+
+        rows: state leaves indexed down to the event batch ([B] / [B, h]);
+        v: [B] raw values. Returns (scores [B], new rows). The order is
+        the reference's: score from the old stats and the standing
+        prediction, then the Welford update, then the cell on the
+        re-normalised value, then the head."""
+        cfg = self.cfg
+        mean, var, cnt = rows["mean"], rows["var"], rows["count"]
+        xn = (v - mean) / torch.sqrt(var + 1e-6)
+        enough = cnt >= max(8, cfg.window // 8)
+        err = (xn - rows["pred"]).abs()
+        score = torch.where(enough, err, torch.zeros_like(err)).clamp(
+            0.0, cfg.score_clip)
+        # capped-count Welford: behaves like the window-W mean/std once
+        # count saturates (the streaming analog of _normalize)
+        cnt1 = (cnt + 1).clamp(max=cfg.window)
+        delta = v - mean
+        mean1 = mean + delta / cnt1
+        var1 = var + ((v - mean1) * delta - var) / cnt1
+        x = ((v - mean1) / torch.sqrt(var1 + 1e-6))[:, None]
+        out = dict(rows)
+        out["mean"], out["var"], out["count"] = mean1, var1, cnt1
+        for layer in range(cfg.layers):
+            h, c = self._cell(params, layer, x, rows[f"h{layer}"],
+                              rows[f"c{layer}"])
+            out[f"h{layer}"], out[f"c{layer}"] = h, c
+            x = h
+        head = params["head"]
+        out["pred"] = (x @ head["w"] + head["b"])[:, 0]
+        return score, out
+
+    def warm_state(self, params: dict, x: torch.Tensor,
+                   valid: torch.Tensor) -> dict:
+        """Build streaming state for `n` devices by replaying their host
+        windows (x: [n, W] chronological left-padded, valid: [n, W]) —
+        the warmup/recovery seed. Padding slots feed x=0 through the
+        cell (they are not skipped), as the reference does."""
+        cfg = self.cfg
+        v = valid.float()
+        n = v.sum(-1).clamp(min=1.0)
+        mean = (x * v).sum(-1) / n
+        var = (((x - mean[:, None]) * v) ** 2).sum(-1) / n
+        xn = ((x - mean[:, None]) / torch.sqrt(var + 1e-6)[:, None]) * v
+        state = self.init_state(x.shape[0])
+        seq = xn[:, :, None]
+        for layer in range(cfg.layers):
+            seq, (h, c) = lstm_scan(params[f"lstm{layer}"], seq,
+                                    cfg.compute_dtype)
+            seq = seq.to(cfg.compute_dtype)
+            state[f"h{layer}"], state[f"c{layer}"] = h, c
+        head = params["head"]
+        state["pred"] = (seq[:, -1, :].float() @ head["w"] + head["b"])[:, 0]
+        state["mean"] = mean
+        state["var"] = var.clamp(min=1e-6)
+        state["count"] = v.sum(-1).to(torch.int32).clamp(max=cfg.window)
+        return state
+
+    def flops_per_event(self) -> float:
+        """One cell step per event (vs a W-1-step rescan)."""
+        cfg = self.cfg
+        h = cfg.hidden
+        fl, in_dim = 0.0, 1
+        for _ in range(cfg.layers):
+            fl += 8.0 * h * (in_dim + h)
+            in_dim = h
+        return fl + 2.0 * h

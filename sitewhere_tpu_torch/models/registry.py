@@ -7,11 +7,16 @@ from __future__ import annotations
 
 from typing import Any
 
-from sitewhere_tpu_torch.models.lstm import LstmAnomalyModel, LstmConfig
+from sitewhere_tpu_torch.models.lstm import (
+    LstmAnomalyModel,
+    LstmConfig,
+    StreamingLstmModel,
+)
 from sitewhere_tpu_torch.models.zscore import ZScoreConfig, ZScoreModel
 
 MODEL_REGISTRY: dict[str, tuple[type, type]] = {
     "lstm": (LstmConfig, LstmAnomalyModel),
+    "lstm-stream": (LstmConfig, StreamingLstmModel),
     "zscore": (ZScoreConfig, ZScoreModel),
 }
 

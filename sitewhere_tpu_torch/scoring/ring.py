@@ -30,6 +30,41 @@ from sitewhere_tpu_torch.ops import lstm_kernel
 from sitewhere_tpu_torch.utils import grow_pow2, resolve_device
 
 
+def torch_dtype(name):
+    """`"float16"` → `torch.float16`; a dtype or None passes through."""
+    return getattr(torch, name) if isinstance(name, str) else name
+
+
+def check_ids(dev: np.ndarray, limit: int) -> None:
+    """Refuse, on the host, a device id outside `[0, limit)`: on the card
+    an out-of-range index is a device-side assert that ends the process's
+    CUDA context (JAX's scatter drops it instead), so every id is checked
+    before any launch. Callers keep ids in range by growing the ring
+    first (the session's regrow, the pool's `_pending_max` check)."""
+    if dev.size and (int(dev.min()) < 0 or int(dev.max()) >= limit):
+        raise IndexError(f"device ids {int(dev.min())}..{int(dev.max())} "
+                         f"outside the ring's rows [0, {limit})")
+
+
+def _gather_windows(values, count, cursor, dev):
+    """(x, valid) windows of rows `dev` of one ring: x chronological,
+    valid marking the newest `count` slots."""
+    w = values.shape[-1]
+    steps = torch.arange(w, device=values.device)
+    idx = (cursor[dev].long()[:, None] - w + steps[None, :]) % w
+    x = values[dev[:, None], idx]
+    valid = steps[None, :] >= (w - count[dev])[:, None]
+    return x, valid
+
+
+def _ring_rows(values: np.ndarray, count: np.ndarray, w: int):
+    """Host windows (chronological, left-padded) → ring form: the valid
+    suffix at positions 0..count-1, the cursor at the next slot."""
+    cnt = np.minimum(count.astype(np.int32), w)
+    idx = (np.arange(w)[None, :] + (w - cnt)[:, None]) % w
+    return np.take_along_axis(values.astype(np.float32), idx, axis=1), cnt
+
+
 class DeviceRing:
     """Ring of one scalar channel for up to `capacity` devices, resident
     on `device` (the card unless named)."""
@@ -41,8 +76,7 @@ class DeviceRing:
         self.capacity = grow_pow2(int(capacity), floor=1024)
         # narrow flush-path score readback (float16 halves the only
         # per-event device→host payload); settle upcasts on assignment
-        self.score_dtype = (getattr(torch, score_dtype)
-                            if isinstance(score_dtype, str) else score_dtype)
+        self.score_dtype = torch_dtype(score_dtype)
         self.faulted = False  # True after a dispatch failed mid-update
         self._alloc(self.capacity)
 
@@ -85,10 +119,7 @@ class DeviceRing:
         n, w = values.shape
         assert w == self.window
         self.ensure_capacity(start + n - 1 if n else 0)
-        cnt = np.minimum(count.astype(np.int32), w)
-        # shift each row left by (w - cnt) so valid data sits at 0..cnt-1
-        idx = (np.arange(w)[None, :] + (w - cnt)[:, None]) % w
-        ring_rows = np.take_along_axis(values.astype(np.float32), idx, axis=1)
+        ring_rows, cnt = _ring_rows(values, count, w)
         self.values[start:start + n] = torch.from_numpy(ring_rows).to(self.device)
         self.count[start:start + n] = torch.from_numpy(cnt).to(self.device)
         self.cursor[start:start + n] = torch.from_numpy(cnt % w).to(self.device)
@@ -97,14 +128,10 @@ class DeviceRing:
     # -- the fused step ----------------------------------------------------
 
     def _gather(self, dev: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        w = self.window
-        steps = torch.arange(w, device=self.device)
-        idx = (self.cursor[dev].long()[:, None] - w + steps[None, :]) % w
-        x = self.values[dev[:, None], idx]
-        valid = steps[None, :] >= (w - self.count[dev])[:, None]
-        return x, valid
+        return _gather_windows(self.values, self.count, self.cursor, dev)
 
     def _pad(self, dev: np.ndarray, v: np.ndarray, bucket: int):
+        check_ids(dev, self.capacity)
         n = dev.shape[0]
         out_dev = np.full(bucket, self.capacity, np.int64)  # scratch row
         out_v = np.zeros(bucket, np.float32)
@@ -141,3 +168,121 @@ class DeviceRing:
         """Device-resident (x, valid) windows for `dev` — the query path."""
         d = torch.from_numpy(np.asarray(dev, np.int64)).to(self.device)
         return self._gather(d)
+
+    def close(self) -> None:
+        """Release the ring's device memory; it is unusable afterwards."""
+        self.values = self.count = self.cursor = None
+
+
+class StackedDeviceRing:
+    """Per-tenant device rings stacked on a leading tenant axis — the
+    pooled twin of `DeviceRing`, resident on `device` (the card unless
+    named).
+
+    State is `values [T_cap, D_cap+1, window]`, `count`/`cursor`
+    `[T_cap, D_cap+1]`; one dispatch appends and scores every tenant:
+    the scatter and gather index flat rows `t * (D_cap + 1) + dev`, then
+    `model.score` runs vmapped over the tenant axis with each tenant's
+    params from the stack. The fused window kernel takes one weight set,
+    so the pooled path keeps `score`, as the reference's does. Padding
+    writes land in each tenant's scratch row `D_cap`.
+    """
+
+    def __init__(self, window: int, n_tenants: int, device_cap: int = 1024,
+                 score_dtype=None, device=None):
+        self.device = resolve_device(device)
+        self.window = int(window)
+        self.t_cap = int(n_tenants)
+        self.device_cap = grow_pow2(int(device_cap), floor=1024)
+        self.score_dtype = torch_dtype(score_dtype)
+        self.faulted = False
+        self._alloc()
+
+    def _alloc(self) -> None:
+        t, d, w, dev = self.t_cap, self.device_cap, self.window, self.device
+        self.values = torch.zeros((t, d + 1, w), dtype=torch.float32,
+                                  device=dev)
+        self.count = torch.zeros((t, d + 1), dtype=torch.int32, device=dev)
+        self.cursor = torch.zeros((t, d + 1), dtype=torch.int32, device=dev)
+
+    def ensure(self, n_tenants: int, max_device: int) -> None:
+        """Grow either axis (device-side). The tenant axis adopts
+        `n_tenants` exactly — it must equal the param stack's capacity
+        (vmap needs matching leading dims)."""
+        new_t = max(self.t_cap, n_tenants)
+        new_d = self.device_cap
+        if max_device >= new_d:
+            new_d = grow_pow2(max_device + 1, floor=new_d * 2)
+        if new_t == self.t_cap and new_d == self.device_cap:
+            return
+        old_t, old_d = self.t_cap, self.device_cap
+        old = (self.values, self.count, self.cursor)
+        self.t_cap, self.device_cap = new_t, new_d
+        self._alloc()
+        # drop each tenant's old scratch row; new rows and tenants start
+        # empty with a fresh scratch row
+        for new, prev in zip((self.values, self.count, self.cursor), old):
+            new[:old_t, :old_d] = prev[:, :-1]
+
+    def load_tenant(self, slot: int, values: np.ndarray,
+                    count: np.ndarray) -> None:
+        """Seed one tenant's rings from host window data (chronological,
+        left-padded — the `TelemetryStore.window` layout)."""
+        n, w = values.shape
+        assert w == self.window
+        self.ensure(slot + 1, n - 1 if n else 0)
+        ring_rows, cnt = _ring_rows(values, count, w)
+        self.values[slot, :n] = torch.from_numpy(ring_rows).to(self.device)
+        self.count[slot, :n] = torch.from_numpy(cnt).to(self.device)
+        self.cursor[slot, :n] = torch.from_numpy(cnt % w).to(self.device)
+        self.faulted = False
+
+    def clear_tenant(self, slot: int) -> None:
+        """Zero a departed tenant's rings (slot reuse must not leak)."""
+        self.values[slot] = 0.0
+        self.count[slot] = 0
+        self.cursor[slot] = 0
+
+    def update_and_score(self, model, stacked_params, dev: np.ndarray,
+                         v: np.ndarray) -> torch.Tensor:
+        """dev: [T_cap, B] int32 (scratch-row-padded, unique ids per
+        tenant row!), v: [T_cap, B] float32 → [T_cap, B] scores on the
+        device (asynchronous)."""
+        if dev.shape[0] != self.t_cap or v.shape != dev.shape:
+            raise ValueError(f"dispatch columns {dev.shape}/{v.shape} do "
+                             f"not match the ring's {self.t_cap} tenants")
+        check_ids(dev, self.device_cap + 1)  # the scratch row included
+        w, stride = self.window, self.device_cap + 1
+        pdev = torch.from_numpy(dev.astype(np.int64)).to(self.device)
+        pv = torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
+        tenant = torch.arange(self.t_cap, device=self.device)
+        rows = (pdev + stride * tenant[:, None]).reshape(-1)
+        values = self.values.view(-1, w)
+        count, cursor = self.count.view(-1), self.cursor.view(-1)
+        try:
+            pos = cursor[rows].long()
+            values.index_put_((rows, pos), pv.reshape(-1))
+            cursor.index_put_((rows,), ((pos + 1) % w).int())
+            count.index_put_((rows,), (count[rows] + 1).clamp_(max=w))
+            x, valid = _gather_windows(values, count, cursor, rows)
+            scores = torch.func.vmap(model.score)(
+                stacked_params, x.view(*dev.shape, w),
+                valid.view(*dev.shape, w))
+            if self.score_dtype is not None:
+                scores = scores.to(self.score_dtype)
+        except Exception:
+            self.faulted = True  # partial update; needs reseeding
+            raise
+        return scores
+
+    def windows(self, slot: int,
+                dev: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device-resident (x, valid) windows of tenant `slot`'s devices
+        `dev` — the query path."""
+        d = torch.from_numpy(np.asarray(dev, np.int64)).to(self.device)
+        return _gather_windows(self.values[slot], self.count[slot],
+                               self.cursor[slot], d)
+
+    def close(self) -> None:
+        """Release the rings' device memory; they are unusable afterwards."""
+        self.values = self.count = self.cursor = None

@@ -8,9 +8,10 @@ with scoring on the card:
 - fixed bucket shapes: batch sizes are padded up to a small set of
   buckets, each exercised at warmup, so no request pays a first-launch
   cost (kernel build, allocator growth);
-- device-resident history: per-device windows live on the card
-  (scoring/ring.py); a flush uploads only (device id, value) deltas
-  and one fused step appends + gathers + scores;
+- device-resident history: per-device windows (scoring/ring.py) or,
+  for a streaming model, per-device model state (scoring/stream.py)
+  live on the card; a flush uploads only (device id, value) deltas and
+  one step appends + gathers + scores;
 - pipelined settle: dispatch is asynchronous; each flush's scores start
   their copy to pinned host memory at dispatch, a small thread pool
   waits on each copy's own CUDA event, then delivery runs on the event
@@ -25,13 +26,11 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
-from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Awaitable, Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, ScoredBatch
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
@@ -40,24 +39,19 @@ from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import DeviceRing
 from sitewhere_tpu_torch.scoring.settle import SETTLE_POOL
 from sitewhere_tpu_torch.scoring.stream import (
+    StreamingRing,
     result_ready,
     result_to_host,
+    sparse_rows,
     start_to_host,
 )
 from sitewhere_tpu_torch.utils import resolve_device
 from sitewhere_tpu_torch.utils.retry import retry_backoff
+from sitewhere_tpu_torch.utils.timing import span as _span
 
 logger = logging.getLogger(__name__)
 
 Sink = Callable[[ScoredBatch], Awaitable[None]]
-
-
-def _span(name: str):
-    """A `torch.profiler` label for a host step of the hot path
-    (`scoring.take_pending`, `scoring.dispatch`, `scoring.update_and_score`);
-    only a flag check when no profiler runs."""
-    return (record_function(name) if torch.autograd._profiler_enabled()
-            else nullcontext())
 
 
 @dataclass(frozen=True)
@@ -77,6 +71,14 @@ class ScoringConfig:
     # device→host payload (z-like scores need ~3 significant digits);
     # "float32" restores exact readback
     score_dtype: str = "float16"
+    # "full": every score ships device→host (exact per-event scores for
+    # sinks and queries). "anomalies": threshold on the device and ship
+    # only the anomalous (position, score) pairs (streaming models only;
+    # see scoring/stream.streaming_step_sparse)
+    readback: str = "full"
+    # anomaly slots per flush in sparse mode; 0 → max(128, bucket/64).
+    # Overflow is counted (scoring.anomaly_overflow), never silent.
+    sparse_k: int = 0
 
     @property
     def backlog_events(self) -> int:
@@ -134,6 +136,7 @@ class ScoringSession:
         self.batch_size_hist = metrics.histogram(
             "scoring.batch_size", buckets=[float(b) for b in cfg.buckets])
         self.anomalies = metrics.counter("scoring.anomalies_detected")
+        self.anomaly_overflow = metrics.counter("scoring.anomaly_overflow")
         self.dropped = metrics.counter("scoring.admissions_dropped")
         self.sink_failures = metrics.counter("scoring.sink_failures")
         # flush-path dispatches (one inc per fused update+score call —
@@ -154,7 +157,24 @@ class ScoringSession:
             return {k: self._place(v) for k, v in params.items()}
         return params.to(self.device)
 
-    def _new_ring(self, capacity: int) -> DeviceRing:
+    def _new_ring(self, capacity: int):
+        """Window ring (raw history, per-event window rescore) or
+        streaming ring (resident model state, one step per event) — the
+        model declares which hot path it wants."""
+        if getattr(self.model, "streaming", False):
+            ring = StreamingRing(
+                self.model, capacity=capacity,
+                score_dtype=self.cfg.score_dtype,
+                sparse_threshold=(self.cfg.threshold
+                                  if self.cfg.readback == "anomalies"
+                                  else None),
+                sparse_k=self.cfg.sparse_k, device=self.device)
+            ring.bind_params(self.params)
+            return ring
+        if self.cfg.readback == "anomalies":
+            logger.warning("readback='anomalies' needs a streaming "
+                           "model; %s uses the window ring — full "
+                           "readback", type(self.model).__name__)
         return DeviceRing(self.model.cfg.window, capacity=capacity,
                           score_dtype=self.cfg.score_dtype, device=self.device)
 
@@ -219,6 +239,12 @@ class ScoringSession:
     def swap_params(self, new_params: dict) -> int:
         """Hot-swap trained params (checkpoint rollout); bumps version."""
         self.params = self._place(new_params)
+        if isinstance(self.ring, StreamingRing):
+            # streaming state (h/c/pred) is a function of the weights —
+            # carrying old-weight state into new-weight steps mis-scores
+            # every device until it washes out. Reseed from host history.
+            self.ring.bind_params(self.params)
+            self._load_ring()
         self.version += 1
         return self.version
 
@@ -427,18 +453,30 @@ class ScoringSession:
             self.scored_meter.mark(dev.shape[0])
             self.latency.observe_array(now - ingest)
             self.batch_latency.observe(now - t0)
-            scores = np.empty(dev.shape[0], np.float32)
-            for scores_u, (_, n, rpos) in zip(settled, dispatches):
-                if rpos is None:
-                    scores[:n] = scores_u[:n]
-                else:
-                    scores[rpos] = scores_u[:n]
-            is_anom = scores >= self.cfg.threshold
-            n_anom = int(is_anom.sum())
-            if n_anom:
-                self.anomalies.inc(n_anom)
-            scored = ScoredBatch(ctx, dev, scores, is_anom, ts,
-                                 model_version=self.version)
+            if settled and isinstance(settled[0], tuple):
+                # sparse anomaly readback: the anomalous subset only; every
+                # event was still scored on the device (`total_scored`)
+                fpos, a_scores = sparse_rows(
+                    ((s, n, rpos) for s, (_, n, rpos)
+                     in zip(settled, dispatches)), self.anomaly_overflow)
+                self.anomalies.inc(int(fpos.shape[0]))
+                scored = ScoredBatch(ctx, dev[fpos], a_scores,
+                                     np.ones(fpos.shape[0], bool), ts[fpos],
+                                     model_version=self.version,
+                                     total_scored=int(dev.shape[0]))
+            else:
+                scores = np.empty(dev.shape[0], np.float32)
+                for scores_u, (_, n, rpos) in zip(settled, dispatches):
+                    if rpos is None:
+                        scores[:n] = scores_u[:n]
+                    else:
+                        scores[rpos] = scores_u[:n]
+                is_anom = scores >= self.cfg.threshold
+                n_anom = int(is_anom.sum())
+                if n_anom:
+                    self.anomalies.inc(n_anom)
+                scored = ScoredBatch(ctx, dev, scores, is_anom, ts,
+                                     model_version=self.version)
             if self.tracer is not None:
                 for trace_id, n_ev, *_ in (traces or [(ctx.trace_id,
                                                        dev.shape[0])]):
@@ -564,12 +602,17 @@ class ScoringSession:
         batches = [await f for f in futs]
         if len(batches) == 1:
             return batches[0]
+        sparse = any(b.total_scored >= 0 for b in batches)
         return ScoredBatch(
             ctx, np.concatenate([b.device_index for b in batches]),
             np.concatenate([b.score for b in batches]),
             np.concatenate([b.is_anomaly for b in batches]),
             np.concatenate([b.ts for b in batches]),
-            model_version=self.version)
+            model_version=self.version,
+            # sparse chunks: the merged batch's scored count is the sum of
+            # the chunks' counts, not len(self) (-1 means full readback)
+            total_scored=(sum(max(b.total_scored, len(b))
+                              for b in batches) if sparse else -1))
 
     def _recover_ring(self) -> None:
         # a dispatch that failed mid-update leaves the ring inconsistent —
@@ -585,3 +628,7 @@ class ScoringSession:
         deadline = time.monotonic() + timeout
         while self.inflight > 0 and time.monotonic() < deadline:
             await asyncio.sleep(0.01)
+
+    def close(self) -> None:
+        """Release the ring's device memory (the session's end of life)."""
+        self.ring.close()

@@ -1,18 +1,23 @@
-"""Where a flush of the dedicated scoring session spends its time, on the card.
+"""Where a full-fleet flush spends its time, on the card.
 
-    python -m sitewhere_tpu_torch.tools.flush_profile [--flushes N] [--trace FILE]
+    python -m sitewhere_tpu_torch.tools.flush_profile [--path {session,stream,pool}]
+        [--flushes N] [--trace FILE]
 
-Builds the main path `chip_smoke.py` drives (`tools/main_path.py`),
-warms it, then runs N full-fleet flushes under `torch.profiler`. Host
-spans come from the session's own profiler labels (`scoring.take_pending`,
-`scoring.dispatch`, and `scoring.update_and_score` inside it) and a
-`flush` label put around `await session.flush()` here; device spans
-from the profiler's CUDA kernel and copy records. Prints the wall time
-of the flush and the share of it during which the device was busy
-(medians over the flushes), and the host time in each labelled step and
-the device time by kernel, K1 apart (means per flush). Writes the Chrome
-trace to FILE (default `build/flush_trace.json`). Needs one CUDA
-card.
+Builds one of the paths `chip_smoke.py` drives (`tools/main_path.py`):
+`session`, the dedicated windowed-`lstm` session (the default); `stream`,
+the dedicated `lstm-stream` session; `pool`, the `lstm-stream` pool with
+one 32,768-device tenant and one fleet-sized bucket (the bench's default
+serving configuration). It warms the path, then runs N full-fleet
+flushes under `torch.profiler`. Host spans come from the path's own
+profiler labels (the session's `scoring.take_pending`,
+`scoring.dispatch` and `scoring.update_and_score` inside it; the pool's
+`scoring.pool_take` and `scoring.dispatch`) and a `flush` label put
+around each awaited flush here; device spans from the profiler's CUDA
+kernel and copy records. Prints the wall time of the flush and the share
+of it during which the device was busy (medians over the flushes), and
+the host time in each labelled step and the device time by kernel, K1
+apart (means per flush). Writes the Chrome trace to FILE (default
+`build/flush_trace.json`). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -32,8 +37,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from sitewhere_tpu_torch.tools import main_path
 
-STEPS = ("flush", "scoring.take_pending", "scoring.dispatch",
-         "scoring.update_and_score")
+STEPS = {"session": ("flush", "scoring.take_pending", "scoring.dispatch",
+                     "scoring.update_and_score"),
+         "pool": ("flush", "scoring.pool_take", "scoring.dispatch")}
+STEPS["stream"] = STEPS["session"]
 
 
 def _union_us(spans) -> float:
@@ -45,19 +52,37 @@ def _union_us(spans) -> float:
     return total
 
 
-async def _run(n_flushes: int, trace: Path) -> dict:
-    path = main_path.build("profile")
-    session, t = path.session, path.t
+async def _flusher(which: str):
+    """(one_flush coroutine function, drain) for the chosen path."""
+    if which == "pool":
+        path = await main_path.build_pool("profile", "lstm-stream", 1,
+                                          main_path.FLEET, (main_path.FLEET,))
+        drain = path.pool.drain
+    else:
+        path = main_path.build(
+            "profile", "lstm-stream" if which == "stream" else "lstm")
+        drain = path.session.drain
+    t = path.t
 
     async def one_flush() -> float:
         nonlocal t
-        batch, _ = path.sim.tick(t=t)
+        if which == "pool":
+            for tid, tenant in path.tenants.items():
+                path.ingest(tid, tenant.sim.tick(t=t)[0])
+        else:
+            path.ingest(path.sim.tick(t=t)[0])
         t += main_path.TICK_S
-        path.ingest(batch)
         t0 = time.perf_counter()
         with record_function("flush"):
-            await session.flush()
+            await (path.flush() if which == "pool" else path.session.flush())
         return 1e3 * (time.perf_counter() - t0)
+
+    return one_flush, drain
+
+
+async def _run(which: str, n_flushes: int, trace: Path) -> dict:
+    one_flush, drain = await _flusher(which)
+    steps = STEPS[which]
 
     for _ in range(2):
         await one_flush()
@@ -66,12 +91,12 @@ async def _run(n_flushes: int, trace: Path) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         wall = [await one_flush() for _ in range(n_flushes)]
         torch.cuda.synchronize()
-    await session.drain()
+    await drain()
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
 
     events = prof.events()
-    host = {s: [] for s in STEPS}
+    host = {s: [] for s in steps}
     windows, device = [], []
     for e in events:
         span = (e.time_range.start, e.time_range.end)
@@ -96,7 +121,7 @@ async def _run(n_flushes: int, trace: Path) -> dict:
     n = len(windows)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     return {
-        "flushes": n, "events_per_flush": main_path.FLEET,
+        "path": which, "flushes": n, "events_per_flush": main_path.FLEET,
         "flush_wall_ms_p50": statistics.median(wall),
         "host_ms_per_flush": {s: sum(v) / 1e3 / n for s, v in host.items()},
         "device_ms_per_flush": sum(by_kernel.values()) / n,
@@ -108,6 +133,7 @@ async def _run(n_flushes: int, trace: Path) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=sorted(STEPS), default="session")
     ap.add_argument("--flushes", type=int, default=6)
     ap.add_argument("--trace", default="build/flush_trace.json")
     args = ap.parse_args(argv)
@@ -117,7 +143,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip(), flush=True)
-    stats = asyncio.run(_run(args.flushes, Path(args.trace)))
+    stats = asyncio.run(_run(args.path, args.flushes, Path(args.trace)))
     print(json.dumps(stats, indent=1), flush=True)
     return 0
 

@@ -1,21 +1,34 @@
-"""The port's main path at full width, as `chip_smoke.py` drives it.
+"""The port's serving paths at full width, as `chip_smoke.py` drives them.
 
-A dedicated `ScoringSession` scoring the windowed `lstm` model (W=64,
-h=64, 1 layer, bf16, random weights from seed 0) over a 32,768-device
-simulated fleet, buckets 256…16384, its store filled with W+4 ticks and
-the session warmed. `chip_smoke.py` and `tools/flush_profile.py` build
-it here, so both measure the same session. Needs one CUDA card.
+`build` makes a dedicated `ScoringSession` (the windowed `lstm` model by
+default, or `lstm-stream`) over a 32,768-device simulated fleet, buckets
+256…16384; `build_pool` makes a `SharedScoringPool` over `tenants`
+tenants of `devices` devices each, each tenant with its own weights (one
+seed per tenant). Both use W=64, h=64, 1 layer, bf16, random weights
+from seeds, fill every store with W+4 ticks and warm up before
+returning. `chip_smoke.py` and `tools/flush_profile.py` build them here,
+so both measure the same paths. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import asyncio
+import time
+from dataclasses import dataclass, field
 from typing import Any
 
-from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch
+import numpy as np
+import torch
+
+from sitewhere_tpu_torch.domain.batch import (
+    BatchContext,
+    MeasurementBatch,
+    ScoredBatch,
+)
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
 from sitewhere_tpu_torch.models import build_model
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
+from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool
 from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
 from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
 
@@ -24,6 +37,21 @@ BUCKETS = (256, 1024, 4096, 16384)
 WINDOW, HIDDEN = 64, 64
 FLEET = 32768
 TICK_S = 60.0
+THRESHOLD = 4.0
+
+
+def _wire(batch: MeasurementBatch, tenant: str) -> MeasurementBatch:
+    """One gateway batch through SWB1 encode → decode, as the service's
+    ingress hands it on."""
+    return MeasurementBatch.decode(
+        batch.encode(), BatchContext(tenant_id=tenant, source="gateway"))
+
+
+def _filled_store(sim: DeviceSimulator, devices: int) -> TelemetryStore:
+    store = TelemetryStore(history=128, initial_devices=devices)
+    for k in range(WINDOW + 4):
+        store.append_measurements(sim.tick(t=TICK_S * k)[0])
+    return store
 
 
 @dataclass
@@ -39,24 +67,120 @@ class MainPath:
 
     def ingest(self, batch: MeasurementBatch) -> None:
         """One gateway batch through SWB1 encode → decode → host store →
-        admit, as the service's ingress hands it to the session."""
-        wire = MeasurementBatch.decode(
-            batch.encode(), BatchContext(tenant_id=self.tenant,
-                                         source="gateway"))
+        admit."""
+        wire = _wire(batch, self.tenant)
         self.store.append_measurements(wire)
         self.session.admit(wire)
 
 
-def build(tenant: str) -> MainPath:
-    model = build_model("lstm", window=WINDOW, hidden=HIDDEN)
-    store = TelemetryStore(history=128, initial_devices=FLEET)
+def build(tenant: str, model: str = "lstm", **cfg: Any) -> MainPath:
+    """A warmed dedicated session on `model`; `cfg` overrides
+    `ScoringConfig` fields (e.g. `readback="anomalies"`)."""
+    scorer = build_model(model, window=WINDOW, hidden=HIDDEN)
     sim_cfg = SimConfig(num_devices=FLEET, seed=SEED)
     sim = DeviceSimulator(sim_cfg, tenant_id=tenant)
-    for k in range(WINDOW + 4):
-        store.append_measurements(sim.tick(t=TICK_S * k)[0])
+    store = _filled_store(sim, FLEET)
     metrics = MetricsRegistry()
-    session = ScoringSession(model, store, metrics,
-                             ScoringConfig(buckets=BUCKETS, capacity=FLEET))
+    session = ScoringSession(scorer, store, metrics,
+                             ScoringConfig(buckets=BUCKETS, capacity=FLEET,
+                                           threshold=THRESHOLD, seed=SEED,
+                                           **cfg))
     session.warmup()
-    return MainPath(model, store, sim, sim_cfg, metrics, session, tenant,
+    return MainPath(scorer, store, sim, sim_cfg, metrics, session, tenant,
                     TICK_S * (WINDOW + 4))
+
+
+@dataclass
+class PoolTenant:
+    store: TelemetryStore
+    sim: DeviceSimulator
+    sim_cfg: SimConfig
+    params: dict
+    delivered: list = field(default_factory=list)
+
+
+@dataclass
+class PoolPath:
+    model: Any
+    metrics: MetricsRegistry
+    pool: SharedScoringPool
+    tenants: dict[str, PoolTenant]
+    t: float  # time of the first tick after the store fill
+    arrived: asyncio.Event  # set by every delivery
+
+    def ingest(self, tenant: str, batch: MeasurementBatch) -> None:
+        """One gateway batch through SWB1 encode → decode → the tenant's
+        host store → admit."""
+        wire = _wire(batch, tenant)
+        self.tenants[tenant].store.append_measurements(wire)
+        self.pool.admit(tenant, wire)
+
+    async def flush(self, timeout: float = 60.0) -> dict[str, ScoredBatch]:
+        """Close the megabatch (now when it is due — every tenant holding
+        a full bucket — else at its deadline, by the pool's flusher) and
+        await the delivery of every pending event; returns each tenant's
+        scored events of this flush, in delivery order."""
+        want = {tid: e.pending_n for tid, e in self.pool.tenants.items()
+                if e.pending_n}
+        seen = {tid: len(self.tenants[tid].delivered) for tid in want}
+
+        def missing() -> bool:
+            return any(sum(max(b.total_scored, len(b)) for b in
+                           self.tenants[tid].delivered[seen[tid]:]) < n
+                       for tid, n in want.items())
+
+        self.pool.flush_nowait()
+        deadline = time.monotonic() + timeout
+        while missing():
+            self.arrived.clear()  # no await since the check: no race
+            try:
+                await asyncio.wait_for(self.arrived.wait(),
+                                       max(deadline - time.monotonic(), 0.0))
+            except asyncio.TimeoutError:
+                raise TimeoutError(
+                    f"pool flush not delivered in {timeout} s") from None
+        out = {}
+        for tid in want:
+            new = self.tenants[tid].delivered[seen[tid]:]
+            out[tid] = ScoredBatch(
+                new[0].ctx,
+                np.concatenate([b.device_index for b in new]),
+                np.concatenate([b.score for b in new]),
+                np.concatenate([b.is_anomaly for b in new]),
+                np.concatenate([b.ts for b in new]),
+                model_version=new[0].model_version)
+        return out
+
+
+async def build_pool(prefix: str, model: str, tenants: int, devices: int,
+                     buckets: tuple[int, ...],
+                     timeout: float = 300.0) -> PoolPath:
+    """A warmed pool on `model` with `tenants` tenants of `devices`
+    devices each (tenant i: weights and simulator from seed SEED + i)."""
+    scorer = build_model(model, window=WINDOW, hidden=HIDDEN)
+    metrics = MetricsRegistry()
+    pool = SharedScoringPool(scorer, metrics,
+                             PoolConfig(batch_buckets=buckets, seed=SEED))
+    members = {}
+    arrived = asyncio.Event()
+    for i in range(tenants):
+        tid = f"{prefix}{i}"
+        sim_cfg = SimConfig(num_devices=devices, seed=SEED + i)
+        sim = DeviceSimulator(sim_cfg, tenant_id=tid)
+        member = PoolTenant(_filled_store(sim, devices), sim, sim_cfg,
+                            scorer.init(torch.Generator().manual_seed(SEED + i)))
+
+        async def deliver(scored, member=member):
+            member.delivered.append(scored)
+            arrived.set()
+
+        pool.register(tid, member.store, THRESHOLD, deliver,
+                      params=member.params)
+        members[tid] = member
+    deadline = time.monotonic() + timeout
+    while not pool.ready:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"pool warmup not done in {timeout} s")
+        await asyncio.sleep(0.01)
+    return PoolPath(scorer, metrics, pool, members, TICK_S * (WINDOW + 4),
+                    arrived)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernel against its plain version, and the pooled
+streaming step against the same step on the CPU, on the card.
 
 Imports torch and the port only (no jax, so it runs on a machine with
 the card but without the JAX package):
@@ -132,3 +133,77 @@ def test_narrow_lstm_session_scores_on_card(cuda, hidden):
         await session.drain()
 
     asyncio.run(main())
+
+
+def _stacked_rings(device, tenants, batch, seed):
+    """A stacked streaming ring on `device` for `tenants` tenants (their
+    own weights, seeded from the same host windows) and its param stack."""
+    import numpy as np
+
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.parallel import TenantStack
+    from sitewhere_tpu_torch.scoring.stream import StackedStreamingRing
+
+    model = build_model("lstm-stream", device=device)
+    stack = TenantStack(model, device=device)
+    for t in range(tenants):
+        stack.add_tenant(f"t{t}", build_model("lstm-stream", device="cpu")
+                         .init(torch.Generator().manual_seed(seed + t)))
+    ring = StackedStreamingRing(model, stack.capacity, device_cap=batch,
+                                device=device)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(20.0, 2.0, (batch, 64)).astype(np.float32)
+    count = rng.integers(8, 65, batch)  # enough history to score
+    for t in range(tenants):
+        ring.load_tenant(t, x, count, stack.get_params(f"t{t}"))
+    return model, stack, ring
+
+
+@pytest.mark.parametrize("tenants", [1, 8])
+@pytest.mark.parametrize("batch", [1, 300, 4096])
+def test_stacked_streaming_ring_on_card_matches_cpu(cuda, batch, tenants):
+    """The pooled streaming step (gather → vmapped step_score → scatter)
+    on the card against the same ring on the CPU, at the default width
+    (W=64, h=64, bf16): seeded state, two steps' scores (the second with
+    spikes) and every state leaf within 1e-2 — the matmuls round to bf16
+    in the same place on both, and a different f32 summation order may
+    flip a rounding."""
+    import numpy as np
+
+    card = _stacked_rings(cuda, tenants, batch, seed=batch + tenants)
+    host = _stacked_rings("cpu", tenants, batch, seed=batch + tenants)
+    rng = np.random.default_rng(batch)
+    for step in range(2):
+        dev = np.stack([rng.permutation(batch) for _ in range(tenants)])
+        dev = dev.astype(np.int32)
+        v = rng.normal(20.0, 2.0, dev.shape).astype(np.float32)
+        v[:, ::7] += 30.0 * step
+        outs = [ring.update_and_score(model, stack.stacked, dev, v).cpu()
+                for model, stack, ring in (card, host)]
+        torch.testing.assert_close(outs[0], outs[1], atol=1e-2, rtol=0)
+        if step:
+            assert outs[0][:, ::7].min() > 4.0
+    for k, leaf in card[2].state.items():
+        torch.testing.assert_close(leaf.cpu(), host[2].state[k], atol=1e-2,
+                                   rtol=0, msg=k)
+
+
+def test_out_of_range_id_refused_before_launch(cuda):
+    """An id past the scratch row is refused on the host: no launch, no
+    device-side assert, the CUDA context and the state intact."""
+    import numpy as np
+
+    model, stack, ring = _stacked_rings(cuda, 2, 16, seed=0)
+    before = {k: v.clone() for k, v in ring.state.items()}
+    dev = np.full((stack.capacity, 4), ring.device_cap, np.int32)
+    dev[1, 2] = ring.device_cap + 1
+    with pytest.raises(IndexError):
+        ring.update_and_score(model, stack.stacked, dev,
+                              np.zeros(dev.shape, np.float32))
+    torch.cuda.synchronize()  # the context survived
+    for k, v in before.items():
+        assert torch.equal(ring.state[k], v), k
+    dev[1, 2] = 3
+    out = ring.update_and_score(model, stack.stacked, dev,
+                                np.zeros(dev.shape, np.float32))
+    assert out.shape == dev.shape and torch.isfinite(out.float()).all()

@@ -47,6 +47,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.scoring.server, sitewhere_tpu_torch.models\n"
         "import sitewhere_tpu_torch.sim.simulator, sitewhere_tpu_torch.convert\n"
         "import sitewhere_tpu_torch.ops.build\n"
+        "import sitewhere_tpu_torch.scoring.pool, sitewhere_tpu_torch.parallel\n"
+        "import sitewhere_tpu_torch.tools.main_path\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sitewhere_tpu')]\n"
         "print(bad)\n"
@@ -76,6 +78,34 @@ def test_entry_points_without_device_raise(no_card):
     model = build_model("lstm", device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ScoringSession(model, TelemetryStore(), MetricsRegistry())
+
+
+@pytest.mark.parametrize("entry", ["lstm-stream", "StreamingRing",
+                                   "StackedStreamingRing", "StackedDeviceRing",
+                                   "TenantStack", "SharedScoringPool"])
+def test_streaming_and_pool_entry_points_without_device_raise(no_card, entry):
+    from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.parallel import TenantStack
+    from sitewhere_tpu_torch.scoring.pool import SharedScoringPool
+    from sitewhere_tpu_torch.scoring.ring import StackedDeviceRing
+    from sitewhere_tpu_torch.scoring.stream import (
+        StackedStreamingRing,
+        StreamingRing,
+    )
+
+    model = build_model("lstm-stream", device="cpu", window=8, hidden=8)
+    make = {
+        "lstm-stream": lambda: build_model("lstm-stream"),
+        "StreamingRing": lambda: StreamingRing(model),
+        "StackedStreamingRing": lambda: StackedStreamingRing(model, 1),
+        "StackedDeviceRing": lambda: StackedDeviceRing(8, 1),
+        "TenantStack": lambda: TenantStack(model),
+        "SharedScoringPool": lambda: SharedScoringPool(model,
+                                                       MetricsRegistry()),
+    }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
 
 
 def test_kernel_build_is_keyed_on_source_and_stays_in_checkout(tmp_path,
