@@ -37,8 +37,30 @@ prints no result):
                 bucket 4096 (the bench's megabatch A/B shape), four fleet
                 ticks and an anomaly tick each;
   7. pool-window — the pool on the windowed `lstm`, 4 tenants × 8,192
-                devices, a fleet tick and an anomaly tick.
-Phases 5–7 check that every event is scored, every score finite, the
+                devices, a fleet tick and an anomaly tick;
+  8. pipeline-stream — the bench's default deployment through the
+                service runtime (`tools/pipeline.py`): six services, one
+                tenant of 32,768 devices, `lstm-stream` through the pool,
+                fast lane and egress engaged; six fleet ticks (one with
+                anomalies) submitted to the tenant's receiver. Every event
+                lands on the scored topic exactly once, telemetry counts
+                them, the inbound group commits to the decoded topic's
+                end, a sample agrees with the CPU reference, K1 launches
+                0; prints events/s (first submit → last scored record),
+                `scoring.e2e_latency_s` p50/p99 of that burst (queue
+                depth) and of 24 more ticks paced at half the burst's
+                rate (the bench's latency reading), dispatches and the
+                stages' host time;
+  9. pipeline-window — the same pipeline on the windowed `lstm` with
+                megabatch off (a dedicated session: K1 inside the
+                runtime); K1 launches == dispatches, the ring's windows
+                equal the store's, and a sample of the last tick agrees
+                with K1's plain version on the store's windows; then the
+                same paced window;
+ 10. demo     — `python -m sitewhere_tpu_torch.cli demo --devices 4096
+                --seconds 2` on the card: events persisted == sent,
+                model alerts > 0.
+Phases 5–8 check that every event is scored, every score finite, the
 dispatches are the occurrence rounds, injected anomalies stand out, and
 a sample of 1,024 devices per tenant agrees with an independent CPU
 reference (the streaming model stepped over the same events from its
@@ -88,6 +110,10 @@ SAMPLE = 1024
 # (tenants, devices a tenant, buckets) of the pooled phases
 POOLS = ((1, FLEET, (FLEET,)), (8, FLEET // 8, (FLEET // 8,)))
 WINDOW_POOL = (4, FLEET // 4, (FLEET // 4,))
+# fleet ticks through the service runtime, and the anomalous one
+PIPELINE_TICKS, PIPELINE_ANOMALY_AT = 6, 3
+# then the latency window: ticks offered at this share of the burst's rate
+PACED_TICKS, PACED_FRACTION = 24, 0.5
 
 
 def log(msg: str) -> None:
@@ -608,6 +634,172 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     return stats
 
 
+async def phase_pipeline(torch, label: str, model: str,
+                         megabatch: bool) -> dict:
+    """The bench's deployment through the service runtime: six fleet
+    ticks submitted to the tenant's receiver, scored through the fast
+    lane, the pool (or a dedicated session) and the egress stage."""
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    t_setup = time.perf_counter()
+    pipe = await pl.build(model, megabatch)
+    eng, rt = pipe.engine, pipe.rt
+    if (eng.fastlane is None or eng.egress is None
+            or (eng.pool_slot is None) == megabatch):
+        raise AssertionError(
+            f"{label}: fast lane {eng.fastlane is not None}, egress "
+            f"{eng.egress is not None}, pool slot {eng.pool_slot is not None}")
+    rng = np.random.default_rng(SEED + 4)
+    sample = np.sort(rng.choice(pl.FLEET, SAMPLE, replace=False))
+    streaming = model == "lstm-stream"
+    if streaming:
+        params = (eng.pool_slot.pool.stack.get_params(pipe.tenant)
+                  if megabatch else eng.session.params)
+        ref = StreamReference(torch, params, pipe.em.telemetry, sample)
+    plan = pl.ticks(pipe, PIPELINE_TICKS, PIPELINE_ANOMALY_AT)
+    payloads = [batch.encode() for batch, _ in plan]
+    consumer = pipe.scored_consumer()
+    torch.cuda.synchronize()
+    log(f"{label}: set-up (runtime, fleet registry, store fill, warmup) "
+        f"{time.perf_counter() - t_setup:.3f} s")
+
+    dispatches = rt.metrics.counter("scoring.dispatches")
+    per_round = rt.metrics.histogram("scoring.megabatch_tenants_per_dispatch")
+    d0, r0 = dispatches.value, (per_round.count, per_round.sum)
+    rt.metrics.histogram("scoring.e2e_latency_s").reset()
+    want = PIPELINE_TICKS * pl.FLEET
+    lstm_kernel.launches = 0
+    t0 = time.monotonic()
+    for payload in payloads:
+        if not await pipe.receiver.submit(payload):
+            raise AssertionError(f"{label}: a tick was shed at ingress")
+    got, t_last = await pl.collect_scored(consumer, want)
+    launches = lstm_kernel.launches
+    n_dispatch = int(dispatches.value - d0)
+    rounds = per_round.count - r0[0]
+    packed = (per_round.sum - r0[1]) / rounds if rounds else None
+    burst = pl.latency_ms(rt)
+
+    # drained: offsets committed through the decoded topic's end, and
+    # no scored record after the expected ones (a double delivery)
+    deadline = time.monotonic() + 60.0
+    while pipe.inbound_lag():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: the inbound group lags "
+                                 f"{pipe.inbound_lag()} records")
+        await asyncio.sleep(0.01)
+    await asyncio.sleep(0.2)
+    got += [rec.value for rec in consumer.poll_nowait(max_records=4096)]
+    table = pl.scored_table(got)
+    keys = {(d, ts) for batch, _ in plan
+            for d, ts in zip(batch.device_index.tolist(), batch.ts.tolist())}
+    twice = sum(1 for v in table.values() if v[2] > 1)
+    stored = pipe.em.telemetry.total_events
+    if set(table) != keys or twice or sum(map(len, got)) != want:
+        raise AssertionError(
+            f"{label}: {len(table)} scored keys for {len(keys)} events, "
+            f"{twice} delivered twice, {sum(map(len, got))} records")
+    if stored != (WINDOW + 4 + PIPELINE_TICKS) * pl.FLEET:
+        raise AssertionError(f"{label}: telemetry holds {stored} events")
+    scores = [np.array([table[k][0] for k in zip(
+        batch.device_index.tolist(), batch.ts.tolist())], np.float32)
+        for batch, _ in plan]
+    if not all(np.isfinite(sc).all() for sc in scores):
+        raise AssertionError(f"{label}: a score is not finite")
+    check_anomalies(label, scores[PIPELINE_ANOMALY_AT],
+                    plan[PIPELINE_ANOMALY_AT][1])
+
+    if streaming:
+        # every tick's sampled events against the CPU reference
+        errs = []
+        for (batch, _), sc in zip(plan, scores):
+            pos, want_sc = ref.step(batch.device_index, batch.value)
+            errs.append(check_close(label, sc[pos], want_sc))
+        err = max(errs)
+        if launches:
+            raise AssertionError(f"{label}: {launches} K1 launches")
+    else:
+        # the store is the durable copy: its windows, which now end at
+        # the last tick, must equal the ring's and score like them
+        # through K1's plain version
+        session = eng.session
+        x, valid = pipe.em.telemetry.window(sample, WINDOW)
+        rx, rv = session.ring.windows(sample)
+        rx, rv = rx.cpu().numpy(), rv.cpu().numpy()
+        if not (np.array_equal(rv, valid) and np.array_equal(rx[rv], x[valid])):
+            raise AssertionError(f"{label}: ring windows differ from the "
+                                 "store's")
+        dev = session.ring.device
+        ref_sc = plain_scores(torch, session.model, session.params,
+                              torch.from_numpy(x).to(dev),
+                              torch.from_numpy(valid).to(dev))
+        err = check_close(label, scores[-1][sample],
+                          ref_sc.float().cpu().numpy())
+        if launches == 0 or launches != n_dispatch:
+            raise AssertionError(f"{label}: K1 launches {launches} != "
+                                 f"dispatches {n_dispatch}")
+    if n_dispatch != PIPELINE_TICKS:
+        raise AssertionError(f"{label}: {n_dispatch} dispatches for "
+                             f"{PIPELINE_TICKS} fleet ticks")
+    paced = await pace_pipeline(pipe, consumer, want / (t_last - t0))
+    consumer.close()
+    stats = {"events": want, "events_per_s": want / (t_last - t0),
+             "burst": burst, "paced": paced, "dispatches": n_dispatch,
+             "tenants_per_dispatch": packed, "kernel_launches": launches,
+             "max_err": err, "stages": pl.stage_ms(rt)}
+    log(f"{label}: {json.dumps(stats)}")
+    await pipe.stop()
+    return stats
+
+
+async def pace_pipeline(pipe, consumer, burst_rate: float) -> dict:
+    """`scoring.e2e_latency_s` at a paced load, as the bench reads it
+    (`bench.py:2569-2599`): PACED_TICKS more fleet ticks, one every
+    FLEET / (PACED_FRACTION × the burst's events/s), so a tick does not
+    queue behind the one before; every event scored, every score
+    finite."""
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    payloads = [pipe.sim.tick(t=pipe.t + pl.TICK_S * (PIPELINE_TICKS + k))[0]
+                .encode() for k in range(PACED_TICKS)]
+    interval = pl.FLEET / (PACED_FRACTION * burst_rate)
+    pipe.rt.metrics.histogram("scoring.e2e_latency_s").reset()
+    next_t = time.monotonic()
+    for payload in payloads:
+        if not await pipe.receiver.submit(payload):
+            raise AssertionError("paced: a tick was shed at ingress")
+        next_t += interval
+        await asyncio.sleep(max(0.0, next_t - time.monotonic()))
+    got, _ = await pl.collect_scored(consumer, PACED_TICKS * pl.FLEET)
+    if (sum(map(len, got)) != PACED_TICKS * pl.FLEET
+            or not all(np.isfinite(b.score).all() for b in got)):
+        raise AssertionError(f"paced: {sum(map(len, got))} scores for "
+                             f"{PACED_TICKS * pl.FLEET} events, or not finite")
+    return {"ticks": PACED_TICKS, "interval_ms": 1e3 * interval,
+            **pl.latency_ms(pipe.rt)}
+
+
+def phase_demo() -> dict:
+    """The port's CLI demo on the card, its JSON report checked."""
+    import contextlib
+    import io
+
+    from sitewhere_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["demo", "--devices", "4096", "--seconds", "2"])
+    text = out.getvalue()
+    report = json.loads(text[text.index("{"):])
+    log(f"demo: {json.dumps(report)}")
+    if (rc != 0 or report["events_sent"] == 0
+            or report["events_persisted"] != report["events_sent"]
+            or report["model_alerts"] <= 0):
+        raise AssertionError(f"demo: exit {rc}, report {report}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -623,6 +815,11 @@ def main() -> int:
     tenants, devices, buckets = WINDOW_POOL
     asyncio.run(drive_pool(torch, f"pool-window-{tenants}x{devices}", "lstm",
                            tenants, devices, buckets, fleet_ticks=1))
+    asyncio.run(phase_pipeline(torch, "pipeline-stream", "lstm-stream",
+                               megabatch=True))
+    asyncio.run(phase_pipeline(torch, "pipeline-window", "lstm",
+                               megabatch=False))
+    phase_demo()
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

@@ -1,0 +1,321 @@
+"""Layered configuration: instance settings → tenant overlays.
+
+Capability parity with SiteWhere's config system [SURVEY.md §5.6]
+(`IInstanceSettings` env bindings → instance config → per-tenant config in
+Zk znodes/CRDs, hot-reload via watch): here the layers are frozen
+dataclasses loaded from env/YAML with an explicit per-tenant overlay dict,
+and "hot reload" is an explicit tenant-engine restart through the lifecycle
+state machine (no ZooKeeper).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+try:  # yaml is present in this image; gate anyway for minimal installs
+    import yaml
+except ImportError:  # pragma: no cover
+    yaml = None
+
+# The platform's own reserved internal tenant (docs/FLEET.md predictive
+# control): the fleet forecaster deploys under this id through the same
+# version-fenced model-update path and shared megabatch pool as customer
+# tenants (fleet/forecast.py). The id is reserved everywhere a tenant id
+# is accepted — it must never be placed on workers, counted in the
+# per-tenant lag matrix, or admitted through the fair-admission roster
+# (kernel/observe.per_tenant_lags, kernel/flow.FlowController), so the
+# platform's own scoring traffic never reads as customer load.
+RESERVED_TENANT = "tenant-0"
+
+
+@dataclass(frozen=True)
+class InstanceSettings:
+    """Instance-global settings (reference: `IInstanceSettings`)."""
+
+    instance_id: str = "swx1"
+    # bus
+    bus_default_partitions: int = 4
+    bus_retention: int = 4096
+    # REST facade
+    rest_host: str = "127.0.0.1"
+    rest_port: int = 8080
+    jwt_secret: str = "swx-dev-secret"
+    jwt_expiration_s: int = 3600
+    # scoring plane
+    trace_sample: int = 64     # record spans for every Nth trace [SURVEY §5.1]
+    # pipeline flight recorder (kernel/observe.py): the always-on
+    # telemetry beat samples event-loop lag, consumer-group lag, egress
+    # backlog, scoring occupancy, and flow mode every `interval_ms` into
+    # a bounded ring of `observe_ring` samples; loop lag past
+    # `observe_stall_ms` counts a stall (the PR-6 starved-loop class).
+    # `observe_enabled: false` (bench `--no-observe`) is the A/B lever.
+    observe_enabled: bool = True
+    observe_interval_ms: float = 250.0
+    observe_ring: int = 256
+    observe_stall_ms: float = 100.0
+    # fleet observability plane (docs/OBSERVABILITY.md): when export is
+    # on, every beat publishes its sample onto the bounded
+    # `<instance>.instance.telemetry` topic (per-stage span summaries
+    # ride along every `observe_export_stages_every`-th beat — walking
+    # the span rings per beat would cost more than the beat itself);
+    # the FleetObserver on the controller host folds the stream into
+    # the fleet-wide view. None = auto: on for fleet_managed workers,
+    # off elsewhere (a single-process runtime has nobody to tell).
+    observe_export: Optional[bool] = None
+    observe_export_stages_every: int = 8
+    # durable telemetry history (persistence/durable.py
+    # TelemetryHistory): per-tenant signal series compacted into
+    # `observe_history_window_s` windows under <data_dir>/telemetry —
+    # the train-from-history substrate the predictive autoscaler reads
+    # (ROADMAP item 2). Needs a data_dir; `observe_history: false`
+    # opts a durable runtime out.
+    observe_history: bool = True
+    observe_history_window_s: float = 10.0
+    # controller-host lever for the fleet MERGE specifically (the
+    # FleetObserver beside the FleetController): `observe_enabled`
+    # turns the whole recorder off; this turns off only the fleet-wide
+    # fold — bench `--no-fleet-observe` is the fleetobs A/B's off leg
+    fleet_observe: bool = True
+    scoring_batch_window_ms: float = 2.0
+    scoring_batch_buckets: tuple[int, ...] = (256, 1024, 4096, 16384)
+    # cross-tenant megabatched scoring (scoring/pool.py): when enabled,
+    # every tenant of one model architecture scores through the shared
+    # stacked-params pool — ONE dispatch per flush round for the
+    # whole fleet instead of one per tenant. `window_ms` is the
+    # megabatch close deadline (the ≤1 ms latency traded for the
+    # dispatch-rate collapse); `max_tenants` bounds tenants packed into
+    # one stacked dispatch (0 = every due tenant). Tenant
+    # `rule-processing: {megabatch: {enabled, window_ms, max_tenants}}`
+    # overrides. Off by default: single-tenant instances keep the
+    # dedicated per-tenant session (own compiled buckets, own cadence);
+    # enable it wherever many tenants share an architecture.
+    scoring_megabatch: bool = False
+    scoring_megabatch_window_ms: float = 1.0
+    scoring_megabatch_max_tenants: int = 0
+    # adaptive megabatch window (scoring/pool.py `_WindowTuner`): the
+    # live close deadline floats in [window_ms, 8×window_ms], keyed to
+    # the active-tenant count vs the observed tenants-per-dispatch
+    # occupancy — sparse fleets earn a wider aggregation window, dense
+    # ones converge back to the configured floor. Hysteresis + cooldown
+    # keep it from flapping (test-pinned). Tenant
+    # `megabatch: {autotune}` overrides.
+    scoring_megabatch_autotune: bool = True
+    # mesh-sharded megabatch serving: shard the shared pool's stacked
+    # dispatch over a {data, model} device mesh. 0/0 = no mesh (the one
+    # device operating point); any other value is refused by the shared
+    # pool until the mesh is ported (ROADMAP A.2). Tenant
+    # `rule-processing: {mesh: {data, model}}` overrides.
+    scoring_mesh_data: int = 0
+    scoring_mesh_model: int = 0
+    # engine spin-up bound: first launches (kernel builds, warmups) can
+    # take minutes
+    engine_ready_timeout_s: float = 300.0
+    # supervision (kernel/lifecycle.py SupervisorPolicy): a crashed
+    # service loop restarts with exponential backoff, at most
+    # `supervisor_max_restarts` times per `supervisor_window_s` sliding
+    # window; past the budget the component goes LIFECYCLE_ERROR.
+    # max_restarts=0 disables supervision (first crash is fatal).
+    supervisor_max_restarts: int = 5
+    supervisor_window_s: float = 60.0
+    supervisor_base_backoff_s: float = 0.05
+    supervisor_max_backoff_s: float = 5.0
+    # durability root (persistence/durable.py): when set, event history
+    # spills to <data_dir>/tenants/<tenant>/events/ and the device
+    # registry snapshots to <data_dir>/tenants/<tenant>/registry.snap;
+    # both are replayed/restored on boot. None = RAM-only (fastest).
+    data_dir: Optional[str] = None
+    durable_fsync_interval_s: float = 0.2
+    durable_segment_bytes: int = 4 << 20
+    durable_max_segments: int = 64
+    # historical replay plane (the JAX package's history/, not ported
+    # yet: ROADMAP A.1.3): a background compactor folds each tenant's sealed durable
+    # segments into per-(tenant, window) columnar cold-tier blocks the
+    # ReplayEngine streams back through the megabatch scoring path at
+    # full speed. `history_window_s` is the cold-tier time-window width
+    # (coarser than observe_history_window_s — these are event columns,
+    # not telemetry rollups); `history_block_events` caps events per
+    # block flush; `history_compact_interval_s` > 0 runs the compactor
+    # on that cadence inside the event-management engine (0 = on-demand:
+    # CLI/REST/bench drive compaction explicitly). Needs a data_dir.
+    history_window_s: float = 60.0
+    history_block_events: int = 65536
+    history_compact_interval_s: float = 0.0
+    # flow control (kernel/flow.py): per-tenant ingress quota defaults —
+    # a tenant's `flow:` config section overrides these. rate 0 =
+    # unlimited (admission is then shed-mode-gated only). burst 0 →
+    # max(2×rate, 64). Tenants share inbound processing fairly in
+    # proportion to `weight` whenever `flow_inbound_rate` caps the
+    # instance-wide inbound budget (0 = uncapped).
+    flow_default_rate: float = 0.0
+    flow_default_burst: float = 0.0
+    flow_default_weight: float = 1.0
+    flow_inbound_rate: float = 0.0
+    # overload shed-policy thresholds on scorer-backlog pressure [0..1]:
+    # ok → reject (shed at ingress) → degrade (cheap fallback scorer) →
+    # defer (spool to deferred-events); de-escalation below
+    # threshold × hysteresis (anti-flap)
+    flow_reject_at: float = 0.5
+    flow_degrade_at: float = 0.75
+    flow_defer_at: float = 0.9
+    flow_hysteresis: float = 0.8
+    flow_dlq_rate_max: float = 50.0   # DLQ events/s mapping to pressure 1.0
+    # egress fast lanes (kernel/egresslane.py): `egress_fused` engages
+    # the fused scored-publish stage (settle tasks enqueue, supervised
+    # shard loops publish + emit alerts off the flush path);
+    # `egress_lanes` is the default shard count for the egress stage AND
+    # the per-tenant consumer lanes (fast lane, staged inbound,
+    # persister, outbound fan-out) — N loops join one consumer group,
+    # splitting partitions. Tenant `egress: {fused, lanes}` overrides.
+    egress_fused: bool = True
+    egress_lanes: int = 1
+    # egress lane-count auto-tuner (kernel/egresslane.py): the stage
+    # watches the TelemetryBeat's signals — its own backlog, event-loop
+    # lag, the tenant's overload mode — and floats the ACTIVE shard
+    # count in [1, egress_autotune_max_lanes]: sustained backlog earns
+    # another lane, sustained loop lag (the measured 1-core trade:
+    # extra lanes deepen the dispatch queue) sheds one. Lane
+    # switches apply only while the stage is idle (per-key publish
+    # order holds by construction) and carry hysteresis + cooldown
+    # (test-pinned). Off by default — `egress: {autotune: true}` (or
+    # the bench's `--egress-autotune`) opts in; `egress_lanes` stays
+    # the static default and the tuner's starting point.
+    egress_autotune: bool = False
+    egress_autotune_max_lanes: int = 4
+    # fleet control plane (the JAX package's fleet/): `fleet_managed: true`
+    # marks a WORKER runtime whose tenant engines are driven by fleet
+    # placement records — the TenantEngineManager stands down (it must
+    # not spin engines off tenant-model-update broadcasts, or every
+    # worker would host every tenant and sharding would be fiction).
+    # Heartbeat cadence + the dead-after bound are the liveness contract
+    # between workers and the controller: a worker silent for
+    # `fleet_dead_after_s` is declared dead and its tenants reassign.
+    fleet_managed: bool = False
+    fleet_heartbeat_s: float = 1.0
+    fleet_dead_after_s: float = 5.0
+    fleet_interval_s: float = 0.5      # controller tick / poll cadence
+    # predictive control plane (fleet/forecast.py, docs/FLEET.md): the
+    # controller-host PredictivePlanner reads TelemetryHistory feature
+    # windows, scores them through the shared megabatch pool as the
+    # reserved internal tenant-0, and converts forecasts of per-tenant
+    # load `fleet_forecast_horizon_s` ahead into scale-up decisions
+    # BEFORE backlog forms (the ~13–19 s JAX spawn/first-compile bill a
+    # reactive spawn pays after the fact). Reactive logic stays the
+    # fallback floor: a confidence/staleness gate demotes to
+    # pure-reactive whenever the model is cold (no trained version),
+    # history is thin (< `min_windows` per tenant), the freshest
+    # forecast is stale (> `max_stale_s`), or the realized horizon
+    # error EMA exceeds `error_gate` (relative). `fleet_forecast:
+    # false` (bench `--no-forecast`) is the predictive A/B's off leg —
+    # the planner is then never built and the controller is byte-for-
+    # byte the PR-8 reactive loop.
+    fleet_forecast: bool = True
+    fleet_forecast_horizon_s: float = 15.0
+    fleet_forecast_window: int = 32         # model input steps (ctx+horizon)
+    fleet_forecast_interval_s: float = 1.0  # planner sampling cadence
+    fleet_forecast_min_windows: int = 8     # history-thin demotion bar
+    fleet_forecast_max_stale_s: float = 30.0
+    fleet_forecast_error_gate: float = 3.0  # relative horizon-error EMA bar
+    # controller-loop retrain cadence (PR-15's open thread): > 0 retrains
+    # the tenant-0 forecaster from the history tier every
+    # `fleet_forecast_retrain_s` seconds inside the planner tick
+    # (executor-offloaded — the controller loop keeps ticking), audit-
+    # logged into the autoscaler decision trail. 0 = on-demand only
+    # (bench setup / runbook `train_from_history`), the PR-15 behavior.
+    fleet_forecast_retrain_s: float = 0.0
+    # wire data-plane fast path (kernel/wire.py, docs/PERFORMANCE.md):
+    # `wire_prefetch` streams record batches broker→consumer under a
+    # credit window of `wire_prefetch_credit` records (poll() drains a
+    # local buffer — no RPC round trip per consumer round);
+    # `wire_pipeline` coalesces fire-and-forget produce/commit frames
+    # per event-loop tick into one multi-op batch with one drain
+    # (`wire_linger_ms` > 0 widens the window Kafka-style; 0 batches
+    # only what is already queued); `wire_inflight_cap` bounds un-acked
+    # fire-and-forget ops — past it the client reports `backlogged`
+    # and consumer loops pause through the egress commit barrier.
+    # All on by default; bench `--no-wire-fastpath` is the A/B off leg.
+    wire_prefetch: bool = True
+    wire_prefetch_credit: int = 256
+    wire_pipeline: bool = True
+    wire_linger_ms: float = 0.0
+    wire_inflight_cap: int = 256
+    # replicated tenant state (services/replication.py): publish the
+    # device-registry mutation stream + interleaved snapshots on the
+    # per-tenant registry-state topic, so an adopting worker rebuilds
+    # the registry from BUS REPLAY — no shared data_dir required
+    # (docs/FLEET.md). None = on for fleet_managed workers, off
+    # elsewhere; tenant `device-management: {replicate}` overrides.
+    # Set True on the process that SEEDS tenants (ingress/controller
+    # host) so bootstrap registrations reach the state topic too.
+    registry_replication: Optional[bool] = None
+    # log level
+    log_level: str = "INFO"
+    # the torch device the scoring plane runs on (models, sessions,
+    # pools): None means the CUDA card, and asking for the card where
+    # there is none raises — the CPU is used only when named ("cpu")
+    device: Optional[str] = None
+
+    @staticmethod
+    def from_env(**overrides: Any) -> "InstanceSettings":
+        env_map = {
+            "instance_id": os.environ.get("SWX_INSTANCE_ID"),
+            "rest_port": os.environ.get("SWX_REST_PORT"),
+            "jwt_secret": os.environ.get("SWX_JWT_SECRET"),
+            "data_dir": os.environ.get("SWX_DATA_DIR"),
+        }
+        kwargs: dict[str, Any] = {k: v for k, v in env_map.items() if v is not None}
+        if "rest_port" in kwargs:
+            kwargs["rest_port"] = int(kwargs["rest_port"])
+        kwargs.update(overrides)
+        return InstanceSettings(**kwargs)
+
+
+@dataclass(frozen=True)
+class TenantConfig:
+    """Per-tenant configuration overlay (reference: tenant config znodes).
+
+    Services read their section via `section()`; unknown keys are preserved
+    so service-specific config rides along without kernel changes.
+    """
+
+    tenant_id: str
+    name: str = ""
+    authorized_user_ids: tuple[str, ...] = ()
+    sections: dict[str, Any] = field(default_factory=dict, hash=False, compare=False)
+
+    def section(self, name: str, default: Optional[dict] = None) -> dict:
+        return dict(self.sections.get(name, default or {}))
+
+    def equivalent(self, other: object) -> bool:
+        """Semantic equality INCLUDING sections (dataclass `==` skips
+        them, and object identity breaks once configs cross the wire —
+        a broadcast record decodes to a copy). The engine-respin guard
+        keys on this: same content → keep the running engine."""
+        return (isinstance(other, TenantConfig)
+                and self.tenant_id == other.tenant_id
+                and self.name == other.name
+                and tuple(self.authorized_user_ids)
+                == tuple(other.authorized_user_ids)
+                and self.sections == other.sections)
+
+    def with_section(self, name: str, values: dict) -> "TenantConfig":
+        sections = dict(self.sections)
+        sections[name] = {**sections.get(name, {}), **values}
+        return dataclasses.replace(self, sections=sections)
+
+
+def load_yaml_config(path: str) -> tuple[InstanceSettings, list[TenantConfig]]:
+    """Load `instance:` settings and a `tenants:` list from one YAML file."""
+    if yaml is None:  # pragma: no cover
+        raise RuntimeError("pyyaml not available")
+    with open(path) as f:
+        doc = yaml.safe_load(f) or {}
+    inst = InstanceSettings.from_env(**(doc.get("instance") or {}))
+    tenants = []
+    for t in doc.get("tenants") or []:
+        t = dict(t)
+        sections = t.pop("sections", {})
+        tenants.append(TenantConfig(sections=sections, **t))
+    return inst, tenants

@@ -1,0 +1,155 @@
+"""Deterministic fault injection for chaos tests and `bench.py --chaos`.
+
+ADApt-style robustness (PAPERS.md) needs *provable* degradation
+behavior: the supervisor restarts crashed loops, the DLQ quarantines
+poison records, and this module is how both are exercised on demand.
+
+A `FaultInjector` is armed per *site* — a short string naming a code
+location that consults it (`"bus.poll"`, `"bus.produce"`,
+`"durable.flush"`, `"scoring.dispatch"`, `"inbound.handle"`, ...).
+`decide(site)` returns `"ok"`, `"raise"`, or `"delay"`; `check`/
+`acheck` turn that into a raised `FaultInjected` or a sleep at the
+call site.
+
+Determinism: every site draws from its own `random.Random` stream
+seeded by `(seed, site)`, so a fixed seed reproduces the same fault
+sequence per site regardless of how sites interleave across the event
+loop — the property the chaos tests assert.
+
+Cost: the injector is opt-in. Instrumented hot paths hold a reference
+that is `None` by default and guard with one `is not None` test, so a
+production pipeline pays nothing (acceptance: bench throughput with
+faults disabled is within noise of pre-PR).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import random
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+# every site a call site consults (the JAX package's central registry,
+# sitewhere_tpu/analysis/registry.py, copied: the port imports nothing
+# of it)
+FAULT_SITES = frozenset({
+    "bus.produce",        # kernel/bus.py EventBus.produce
+    "bus.poll",           # kernel/bus.py Consumer.poll_nowait
+    "inbound.handle",     # services/inbound_processing.py per-record handle
+    "fastlane.handle",    # kernel/fastlane.py fused per-record handle
+    "egress.publish",     # kernel/egresslane.py per-batch scored publish
+    "durable.flush",      # persistence/durable.py spill writer
+    "scoring.dispatch",   # scoring/server.py flush paths
+    "scoring.megabatch",  # scoring/pool.py megabatch admission
+    "scoring.mesh",       # scoring/pool.py mesh-sharded dispatch admission
+    "flow.admit",         # kernel/flow.py ingress admission
+    "flow.shed",          # kernel/flow.py shed-mode consult
+    "observe.beat",       # kernel/observe.py telemetry-beat sampler tick
+    "fleet.heartbeat",    # fleet/worker.py heartbeat publish
+    "fleet.rebalance",    # fleet/controller.py placement publish
+    "fence.adopt",        # services/device_management.py replay-on-adopt
+    "history.compact",    # history/store.py cold-tier compaction pass
+    "history.replay",     # history/replay.py block admission into the pool
+})
+
+
+class FaultInjected(RuntimeError):
+    """The exception an armed fault site raises."""
+
+
+@dataclass
+class _Site:
+    rate: float
+    mode: str                       # "raise" | "delay"
+    delay_s: float
+    max_faults: int                 # -1 = unbounded
+    rng: random.Random = field(repr=False, default=None)  # type: ignore
+    decided: int = 0
+    injected: int = 0
+
+
+class FaultInjector:
+    """Seeded, per-site fault decision source (no-op until armed)."""
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+        self.enabled = True
+        self._sites: dict[str, _Site] = {}
+
+    # -- arming -------------------------------------------------------------
+
+    def arm(self, site: str, *, rate: float = 1.0, mode: str = "raise",
+            delay_s: float = 0.01, max_faults: int = -1) -> "FaultInjector":
+        """Arm `site`: each decide() faults with probability `rate`
+        (capped at `max_faults` total injections when >= 0). Chainable."""
+        if mode not in ("raise", "delay"):
+            raise ValueError(f"unknown fault mode {mode!r}")
+        if __debug__:
+            # debug-mode cross-check against the static registry (swx
+            # lint FLT01 checks consults; this keeps the runtime and
+            # static views in sync): arming a site no code consults is
+            # a chaos test that silently tests nothing
+            if site not in FAULT_SITES:
+                logger.warning(
+                    "fault site %r is not in the central registry "
+                    "(FAULT_SITES) — "
+                    "no instrumented call site will consult it", site)
+        self._sites[site] = _Site(
+            rate=rate, mode=mode, delay_s=delay_s, max_faults=max_faults,
+            rng=random.Random(f"{self.seed}:{site}"))
+        return self
+
+    def disarm(self, site: Optional[str] = None) -> None:
+        if site is None:
+            self._sites.clear()
+        else:
+            self._sites.pop(site, None)
+
+    # -- consultation (the instrumented call sites) -------------------------
+
+    def decide(self, site: str) -> str:
+        s = self._sites.get(site)
+        if s is None or not self.enabled:
+            return "ok"
+        s.decided += 1
+        if 0 <= s.max_faults <= s.injected:
+            return "ok"
+        if s.rng.random() >= s.rate:
+            return "ok"
+        s.injected += 1
+        return s.mode
+
+    def check(self, site: str) -> None:
+        """Synchronous consult (thread contexts, e.g. the durable spill
+        writer): raises FaultInjected or sleeps the armed delay."""
+        d = self.decide(site)
+        if d == "raise":
+            raise FaultInjected(f"injected fault at {site!r} "
+                                f"(#{self._sites[site].injected})")
+        if d == "delay":
+            time.sleep(self._sites[site].delay_s)
+
+    async def acheck(self, site: str) -> None:
+        """Event-loop consult: raises FaultInjected or awaits the delay."""
+        d = self.decide(site)
+        if d == "raise":
+            raise FaultInjected(f"injected fault at {site!r} "
+                                f"(#{self._sites[site].injected})")
+        if d == "delay":
+            await asyncio.sleep(self._sites[site].delay_s)
+
+    # -- introspection ------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """Per-site decision/injection counts (chaos artifacts)."""
+        return {name: {"decided": s.decided, "injected": s.injected,
+                       "rate": s.rate, "mode": s.mode}
+                for name, s in sorted(self._sites.items())}
+
+    @property
+    def total_injected(self) -> int:
+        return sum(s.injected for s in self._sites.values())

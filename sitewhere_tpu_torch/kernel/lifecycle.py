@@ -1,0 +1,428 @@
+"""Lifecycle state machine for every runtime component.
+
+Capability parity with SiteWhere's lifecycle framework
+(`LifecycleComponent`, `LifecycleProgressMonitor`, `CompositeLifecycleStep`,
+`LifecycleStatus` — [SURVEY.md §2.1 "Lifecycle framework"]): components are
+initialized, started, and stopped through an explicit state machine with
+progress reporting, child-component composition, and error capture.
+
+Differences from the reference (deliberate, not accidental):
+- async-first: all transitions are coroutines on a single event loop, which
+  removes the reference's need for per-component locks [SURVEY.md §5.2].
+- transitions are validated against an explicit table; invalid transitions
+  raise instead of silently proceeding.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import enum
+import logging
+import time
+import traceback
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+logger = logging.getLogger(__name__)
+
+
+class LifecycleStatus(enum.Enum):
+    """Component lifecycle states (reference: `LifecycleStatus` enum)."""
+
+    STOPPED = "stopped"                # constructed or cleanly stopped
+    INITIALIZING = "initializing"
+    INITIALIZED = "initialized"
+    STARTING = "starting"
+    STARTED = "started"
+    PAUSED = "paused"
+    STOPPING = "stopping"
+    TERMINATED = "terminated"          # stopped and will never restart
+    INITIALIZATION_ERROR = "initialization_error"
+    LIFECYCLE_ERROR = "lifecycle_error"
+
+
+# states from which each transition may legally begin
+_CAN_INITIALIZE = {LifecycleStatus.STOPPED, LifecycleStatus.INITIALIZATION_ERROR,
+                   LifecycleStatus.LIFECYCLE_ERROR}
+_CAN_START = {LifecycleStatus.INITIALIZED, LifecycleStatus.PAUSED,
+              LifecycleStatus.STOPPED, LifecycleStatus.LIFECYCLE_ERROR}
+_CAN_STOP = {LifecycleStatus.STARTED, LifecycleStatus.PAUSED,
+             LifecycleStatus.LIFECYCLE_ERROR, LifecycleStatus.STARTING}
+
+
+class LifecycleException(Exception):
+    """Raised when a lifecycle transition fails or is illegal."""
+
+
+class LifecycleProgressMonitor:
+    """Collects step-by-step progress of a lifecycle transition.
+
+    Reference analog: `LifecycleProgressMonitor` with nested progress
+    contexts. Here: a flat list of (component_path, step, elapsed_s) records
+    plus an optional callback, which is all the REST surface needs.
+    """
+
+    def __init__(self, on_step: Optional[Callable[[str, str, float], None]] = None):
+        self.steps: list[tuple[str, str, float]] = []
+        self._on_step = on_step
+        self._t0 = time.monotonic()
+
+    def report(self, component: str, step: str) -> None:
+        elapsed = time.monotonic() - self._t0
+        self.steps.append((component, step, elapsed))
+        logger.debug("[lifecycle %7.3fs] %s: %s", elapsed, component, step)
+        if self._on_step:
+            self._on_step(component, step, elapsed)
+
+
+class LifecycleComponent:
+    """Base class for every runtime component.
+
+    Subclasses override the `_do_initialize/_do_start/_do_stop` hooks; the
+    public `initialize/start/stop` methods run the state machine, recurse
+    into children in declaration order (reverse order for stop), and capture
+    errors into the component's `error` field, moving it to an error state
+    (reference: error states on `LifecycleComponent`).
+    """
+
+    def __init__(self, name: str):
+        self.name = name
+        self.status = LifecycleStatus.STOPPED
+        self.error: Optional[BaseException] = None
+        self.error_trace: Optional[str] = None
+        self._children: list[LifecycleComponent] = []
+        self.parent: Optional[LifecycleComponent] = None
+
+    # -- composition -------------------------------------------------------
+
+    def remove_child(self, child: "LifecycleComponent") -> bool:
+        """Detach a (stopped) child from lifecycle management — the
+        inverse of add_child for dynamically-managed components (e.g.
+        event-source receivers that come and go live)."""
+        if child in self._children:
+            self._children.remove(child)
+            return True
+        return False
+
+    def add_child(self, child: "LifecycleComponent") -> "LifecycleComponent":
+        child.parent = self
+        self._children.append(child)
+        return child
+
+    @property
+    def children(self) -> tuple["LifecycleComponent", ...]:
+        return tuple(self._children)
+
+    @property
+    def path(self) -> str:
+        if self.parent is None:
+            return self.name
+        return f"{self.parent.path}/{self.name}"
+
+    # -- hooks (override in subclasses) ------------------------------------
+
+    async def _do_initialize(self, monitor: LifecycleProgressMonitor) -> None:
+        pass
+
+    async def _do_start(self, monitor: LifecycleProgressMonitor) -> None:
+        pass
+
+    async def _do_stop(self, monitor: LifecycleProgressMonitor) -> None:
+        pass
+
+    # -- state machine -----------------------------------------------------
+
+    async def initialize(self, monitor: Optional[LifecycleProgressMonitor] = None) -> None:
+        monitor = monitor or LifecycleProgressMonitor()
+        if self.status not in _CAN_INITIALIZE:
+            raise LifecycleException(
+                f"{self.path}: cannot initialize from {self.status.value}")
+        self.status = LifecycleStatus.INITIALIZING
+        self.error = None
+        self.error_trace = None
+        monitor.report(self.path, "initializing")
+        try:
+            await self._do_initialize(monitor)
+            for child in self._children:
+                await child.initialize(monitor)
+            self.status = LifecycleStatus.INITIALIZED
+            monitor.report(self.path, "initialized")
+        except BaseException as exc:  # noqa: BLE001 - recorded, then re-raised
+            self._record_error(exc, LifecycleStatus.INITIALIZATION_ERROR)
+            raise LifecycleException(f"{self.path}: initialize failed: {exc}") from exc
+
+    async def start(self, monitor: Optional[LifecycleProgressMonitor] = None) -> None:
+        monitor = monitor or LifecycleProgressMonitor()
+        if self.status == LifecycleStatus.STOPPED:
+            await self.initialize(monitor)
+        if self.status not in _CAN_START:
+            raise LifecycleException(
+                f"{self.path}: cannot start from {self.status.value}")
+        self.status = LifecycleStatus.STARTING
+        monitor.report(self.path, "starting")
+        try:
+            await self._do_start(monitor)
+            for child in self._children:
+                await child.start(monitor)
+            self.status = LifecycleStatus.STARTED
+            monitor.report(self.path, "started")
+        except BaseException as exc:  # noqa: BLE001
+            self._record_error(exc, LifecycleStatus.LIFECYCLE_ERROR)
+            raise LifecycleException(f"{self.path}: start failed: {exc}") from exc
+
+    async def stop(self, monitor: Optional[LifecycleProgressMonitor] = None) -> None:
+        monitor = monitor or LifecycleProgressMonitor()
+        if self.status in (LifecycleStatus.STOPPED, LifecycleStatus.TERMINATED,
+                           LifecycleStatus.INITIALIZED,
+                           LifecycleStatus.INITIALIZATION_ERROR):
+            # INITIALIZATION_ERROR: nothing was started, so there is nothing
+            # to stop — treating it as fatal would wedge the component
+            # forever (a tenant engine that failed init could never be
+            # replaced by a config-update restart)
+            return  # already not running
+        if self.status not in _CAN_STOP:
+            raise LifecycleException(
+                f"{self.path}: cannot stop from {self.status.value}")
+        self.status = LifecycleStatus.STOPPING
+        monitor.report(self.path, "stopping")
+        first_error: Optional[BaseException] = None
+        # children stop before the parent, in reverse declaration order
+        for child in reversed(self._children):
+            try:
+                await child.stop(monitor)
+            except BaseException as exc:  # noqa: BLE001 - keep stopping others
+                first_error = first_error or exc
+        try:
+            await self._do_stop(monitor)
+        except BaseException as exc:  # noqa: BLE001
+            first_error = first_error or exc
+        if first_error is not None:
+            self._record_error(first_error, LifecycleStatus.LIFECYCLE_ERROR)
+            raise LifecycleException(
+                f"{self.path}: stop failed: {first_error}") from first_error
+        self.status = LifecycleStatus.STOPPED
+        monitor.report(self.path, "stopped")
+
+    async def restart(self, monitor: Optional[LifecycleProgressMonitor] = None) -> None:
+        await self.stop(monitor)
+        await self.initialize(monitor)
+        await self.start(monitor)
+
+    async def terminate(self) -> None:
+        if self.status in _CAN_STOP:
+            await self.stop()
+        self.status = LifecycleStatus.TERMINATED
+
+    def _record_error(self, exc: BaseException, status: LifecycleStatus) -> None:
+        self.error = exc
+        # format the RECORDED exception, not "the currently handled
+        # one": callers outside an except block (the supervisor's
+        # done-callback) would otherwise store 'NoneType: None'
+        self.error_trace = "".join(traceback.format_exception(
+            type(exc), exc, exc.__traceback__))
+        self.status = status
+        logger.error("%s entered %s: %s", self.path, status.value, exc,
+                     exc_info=(type(exc), exc, exc.__traceback__))
+
+    # -- introspection -----------------------------------------------------
+
+    def state_tree(self) -> dict:
+        """Status of this component and all descendants (health endpoint)."""
+        return {
+            "name": self.name,
+            "status": self.status.value,
+            "error": repr(self.error) if self.error else None,
+            "children": [c.state_tree() for c in self._children],
+        }
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"<{type(self).__name__} {self.path} {self.status.value}>"
+
+
+@dataclass(frozen=True)
+class SupervisorPolicy:
+    """Restart policy for a supervised background loop.
+
+    A crashed loop is restarted with exponential backoff as long as the
+    restart budget holds: at most `max_restarts` crashes within the
+    sliding `window_s` window. One crash past the budget moves the
+    component to LIFECYCLE_ERROR — a permanently failing loop must
+    surface in health, not flap forever. `max_restarts=0` disables
+    supervision (first crash is fatal, the pre-supervision behavior).
+    """
+
+    max_restarts: int = 5
+    window_s: float = 60.0
+    base_backoff_s: float = 0.05
+    max_backoff_s: float = 5.0
+
+    def backoff(self, crash_n: int) -> float:
+        """Delay before restart number `crash_n` (1-based)."""
+        return min(self.base_backoff_s * (2.0 ** max(crash_n - 1, 0)),
+                   self.max_backoff_s)
+
+
+class BackgroundTaskComponent(LifecycleComponent):
+    """A lifecycle component that owns an asyncio task while STARTED.
+
+    Many services are 'a poll loop with a lifecycle' (reference: Kafka
+    consumer wrappers, [SURVEY.md §2.1 "Kafka integration"]); this base
+    manages task spawn/cancel so subclasses only write `_run()`.
+
+    Supervision: a crash in `_run()` no longer kills the loop for the
+    life of the process (the reference's k8s restarts a crashed
+    microservice pod; in-proc loops need the same story). The loop is
+    respawned with exponential backoff under a bounded restart budget
+    (`SupervisorPolicy`); past the budget the component transitions to
+    LIFECYCLE_ERROR, visible in `state_tree()` / the REST health
+    endpoint, and the `supervisor.restarts` counters (total and
+    per-component-path) record every respawn.
+    """
+
+    def __init__(self, name: str,
+                 supervisor: Optional[SupervisorPolicy] = None):
+        super().__init__(name)
+        self._task: Optional[asyncio.Task] = None
+        self._restart_task: Optional[asyncio.Task] = None
+        # None = resolve from the runtime's settings at first crash
+        # (so instance-level knobs apply without threading them through
+        # every service constructor); explicit policy wins.
+        self._supervisor = supervisor
+        self._crash_times: list[float] = []
+        self.restart_count = 0
+        self.last_crash: Optional[BaseException] = None
+
+    async def _run(self) -> None:  # pragma: no cover - override
+        raise NotImplementedError
+
+    async def _do_start(self, monitor: LifecycleProgressMonitor) -> None:
+        # a fresh start (including an operator restart out of
+        # LIFECYCLE_ERROR) begins with a clean restart budget
+        self._crash_times.clear()
+        self._spawn()
+
+    def _spawn(self) -> None:
+        self._task = asyncio.create_task(self._run(), name=self.path)
+        self._task.add_done_callback(self._on_task_done)
+
+    def _root(self):
+        """Top of the lifecycle tree this component hangs off. Tenant
+        engines are dict-managed (not lifecycle children), so their
+        subtree root exposes `.runtime` — follow it to the actual
+        ServiceRuntime for settings/metrics resolution."""
+        root = self
+        while root.parent is not None:
+            root = root.parent
+        return getattr(root, "runtime", root)
+
+    def _policy(self) -> SupervisorPolicy:
+        if self._supervisor is not None:
+            return self._supervisor
+        settings = getattr(self._root(), "settings", None)
+        if settings is not None and hasattr(settings,
+                                            "supervisor_max_restarts"):
+            self._supervisor = SupervisorPolicy(
+                max_restarts=settings.supervisor_max_restarts,
+                window_s=settings.supervisor_window_s,
+                base_backoff_s=settings.supervisor_base_backoff_s,
+                max_backoff_s=settings.supervisor_max_backoff_s)
+        else:
+            self._supervisor = SupervisorPolicy()
+        return self._supervisor
+
+    def _metrics(self):
+        """The instance metrics registry, if this component hangs off a
+        runtime that has one (duck-typed)."""
+        m = getattr(self._root(), "metrics", None)
+        return m if m is not None and hasattr(m, "counter") else None
+
+    def _on_task_done(self, task: asyncio.Task) -> None:
+        # a crashed loop must be visible in health, not silently dead
+        if task.cancelled():
+            return
+        exc = task.exception()
+        if exc is None:
+            return
+        self.last_crash = exc
+        if self.status is not LifecycleStatus.STARTED:
+            # crashed while stopping/stopped: _do_stop already surfaced
+            # it — recording LIFECYCLE_ERROR here would flip a cleanly
+            # stopped component back to error after the fact
+            logger.warning("%s: task ended with %s: %s while %s",
+                           self.path, type(exc).__name__, exc,
+                           self.status.value)
+            return
+        policy = self._policy()
+        now = time.monotonic()
+        self._crash_times = [t for t in self._crash_times
+                             if now - t < policy.window_s]
+        self._crash_times.append(now)
+        if len(self._crash_times) > policy.max_restarts:
+            # over budget: permanent, loud failure — no more respawns
+            self._record_error(exc, LifecycleStatus.LIFECYCLE_ERROR)
+            return
+        self.restart_count += 1
+        metrics = self._metrics()
+        if metrics is not None:
+            metrics.counter("supervisor.restarts").inc()
+            metrics.counter(f"supervisor.restarts:{self.path}").inc()
+        delay = policy.backoff(len(self._crash_times))
+        logger.warning(
+            "%s crashed (%s: %s); restart %d/%d in %.2fs",
+            self.path, type(exc).__name__, exc, len(self._crash_times),
+            policy.max_restarts, delay,
+            exc_info=(type(exc), exc, exc.__traceback__))
+        self._restart_task = asyncio.get_running_loop().create_task(
+            self._restart_after(delay), name=f"{self.path}/supervisor")
+
+    async def _restart_after(self, delay: float) -> None:
+        await asyncio.sleep(delay)
+        if self.status is LifecycleStatus.STARTED:
+            self._spawn()
+
+    async def _do_stop(self, monitor: LifecycleProgressMonitor) -> None:
+        if self._restart_task is not None:
+            self._restart_task.cancel()
+            try:
+                await self._restart_task
+            except asyncio.CancelledError:
+                pass
+            self._restart_task = None
+        if self._task is not None:
+            # cancel-until-dead: a single cancel() can be SWALLOWED when
+            # the await the task is parked on completes in the same loop
+            # tick (asyncio.wait_for's cancellation race, bpo-42130 —
+            # observed when a consumer-group peer's close() rebalances
+            # and wakes this loop's poll exactly as stop cancels it).
+            # The loop keeps running and `await task` would hang stop
+            # forever; re-cancel each beat until the task is truly done.
+            self._task.cancel()
+            while True:
+                done, _ = await asyncio.wait({self._task}, timeout=1.0)
+                if done:
+                    break
+                self._task.cancel()
+            try:
+                self._task.result()
+            except asyncio.CancelledError:
+                pass
+            except BaseException:  # noqa: BLE001 - task error surfaces here
+                logger.exception("%s: background task failed during stop", self.path)
+            self._task = None
+
+    def state_tree(self) -> dict:
+        out = super().state_tree()
+        out["restarts"] = self.restart_count
+        if self.last_crash is not None and self.error is None:
+            # a supervised crash that was recovered: visible, not fatal
+            out["last_crash"] = repr(self.last_crash)
+        return out
+
+
+class SupervisedTaskComponent(BackgroundTaskComponent):
+    """BackgroundTaskComponent with an explicit, per-component
+    `SupervisorPolicy` (components that need a tuned restart budget
+    rather than the instance defaults)."""
+
+    def __init__(self, name: str, policy: SupervisorPolicy):
+        super().__init__(name, supervisor=policy)

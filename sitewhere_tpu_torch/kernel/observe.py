@@ -1,0 +1,413 @@
+"""Pipeline flight recorder: the always-on telemetry beat + observe report.
+
+PR 6's three live-locks — a starved pool flusher, pegged slot-inflight
+pressure misread as overload, a sync-reject spin — were each found by
+hand, because nothing watched queue lag or event-loop health while the
+pipeline ran. This module is the instrument panel (the PMU streaming
+architecture, arXiv 2512.22231, is the pattern reference: a cheap
+always-on observer beside the stream, never in it), and ROADMAP item
+2's placement controller (ADApt, arXiv 2504.03698) reads exactly these
+backlog/lag signals as its replica-prediction inputs.
+
+`TelemetryBeat` is a supervised loop (one per ServiceRuntime,
+`observe: {enabled}` / `InstanceSettings.observe_enabled`) that wakes
+every `observe_interval_ms` and samples, into a bounded ring AND the
+metrics registry (so Prometheus exposition rides the existing
+`prometheus_text()` with zero new plumbing):
+
+- **event-loop lag**: the drift between when the beat asked to wake and
+  when the loop actually ran it. A loop that stops yielding — the PR-6
+  starvation class — shows up within ONE beat as a lag spike; past
+  `observe_stall_ms` it counts `observe.loop_stalls` and logs loudly.
+- **consumer lag** per group (committed offset vs head), via
+  `EventBus.group_lags()` — the backlog signal autoscaling needs.
+- **egress shard backlog** and **scoring occupancy** (pending/inflight)
+  per rule-processing engine.
+- **flow mode + pressure** per tenant (`FlowController.modes()`).
+
+Sampling cost is a handful of dict walks over per-tenant engines — no
+locks, no awaits inside the sample — so the beat is safe to leave on in
+production (the same-day A/B `ab_compare.py observe` pins the overhead
+within noise; docs/OBSERVABILITY.md).
+
+`observe_report()` combines the beat's latest state with the tracer's
+critical-path analysis (kernel/tracing.py) into the one dict served by
+`GET /api/instance/observe`, rendered by `swx top`, and stamped into
+bench artifacts as the `observe` block.
+
+Fleet observability (docs/OBSERVABILITY.md): when export is on
+(`observe_export`, auto for fleet workers) every beat also PUBLISHES
+its sample — plus the tracer's mergeable per-stage span summaries every
+Nth beat — onto the bounded `<instance>.instance.telemetry` topic, and
+the broker-host's `FleetObserver` (fleet/observer.py) folds the stream
+into the fleet-wide critical path / lag matrix / mesh occupancy view.
+When the runtime has a durable telemetry history
+(`persistence/durable.py TelemetryHistory`, `runtime.history`), each
+sample's per-tenant signals append into it — the windowed series
+ROADMAP item 2's predictive autoscaler trains from.
+"""
+
+from __future__ import annotations
+
+import inspect
+import logging
+import time
+from collections import deque
+from typing import Optional
+
+from sitewhere_tpu_torch.kernel.bus import TopicNaming
+from sitewhere_tpu_torch.kernel.lifecycle import BackgroundTaskComponent
+
+logger = logging.getLogger(__name__)
+
+
+def per_tenant_lags(lags: dict, roster=None) -> dict[str, int]:
+    """Fold a `group_lags()` map into per-tenant totals. Tenant
+    consumer groups are `{tenant}.{service}`; the control/observer
+    plane's own groups live under the reserved first segment `fleet`
+    (`fleet.controller`, `fleet.worker.*`, `fleet.observer.*`) — a
+    TENANT named e.g. `fleetops` still counts — and the platform's
+    reserved internal tenant (`config.RESERVED_TENANT`, the fleet
+    forecaster's tenant-0) is likewise dropped: its topics/groups are
+    the platform scoring itself, and counting them as customer load
+    would let the forecaster's own dispatch inflate the lag matrix it
+    forecasts from. Pass `roster` (the known tenant ids —
+    `ServiceRuntime.tenants` / the controller's roster) to also drop
+    NON-tenant groups that happen to contain a dot (service-internal
+    groups, meter groups): without it the first segment is taken on
+    faith. One implementation for the beat's history appends and the
+    FleetObserver's lag matrix."""
+    from sitewhere_tpu_torch.config import RESERVED_TENANT
+
+    out: dict[str, int] = {}
+    for group, by_topic in lags.items():
+        tid, _, rest = group.partition(".")
+        if not rest or tid == "fleet" or tid == RESERVED_TENANT:
+            continue
+        if roster is not None and tid not in roster:
+            continue
+        total = (sum(by_topic.values())
+                 if isinstance(by_topic, dict) else int(by_topic))
+        out[tid] = out.get(tid, 0) + total
+    return out
+
+
+class TelemetryBeat(BackgroundTaskComponent):
+    """The always-on sampler loop (child of the ServiceRuntime)."""
+
+    def __init__(self, runtime, interval_s: Optional[float] = None,
+                 ring: int = 0, stall_s: Optional[float] = None):
+        super().__init__("telemetry-beat")
+        self.runtime = runtime
+        settings = runtime.settings
+        self.interval_s = (interval_s if interval_s is not None
+                           else getattr(settings, "observe_interval_ms",
+                                        250.0) / 1e3)
+        self.stall_s = (stall_s if stall_s is not None
+                        else getattr(settings, "observe_stall_ms",
+                                     100.0) / 1e3)
+        self.samples: deque[dict] = deque(
+            maxlen=ring or getattr(settings, "observe_ring", 256))
+        metrics = runtime.metrics
+        self.beats = metrics.counter("observe.beats")
+        self.stalls = metrics.counter("observe.loop_stalls")
+        self.loop_lag = metrics.histogram(
+            "observe.loop_lag_s",
+            # lag lives in the 0.1 ms – 13 s band; the default 10 µs-up
+            # ladder wastes half its buckets below scheduler resolution
+            buckets=[1e-4 * (2 ** i) for i in range(17)])
+        self.lag_gauge = metrics.gauge("observe.consumer_lag")
+        self.backlog_gauge = metrics.gauge("observe.egress_backlog")
+        self.pending_gauge = metrics.gauge("observe.scoring_pending")
+        self.inflight_gauge = metrics.gauge("observe.scoring_inflight")
+        # per-suffix gauge keys seen on the previous beat: a group or
+        # tenant that disappears must have its gauge zeroed, not left
+        # reporting its last backlog forever
+        self._lag_groups: set[str] = set()
+        self._egress_tenants: set[str] = set()
+        # None until the first sample resolves whether this runtime's
+        # bus answers group_lags locally (in-proc) or as an awaitable
+        # (wire: the broker owns that signal) — resolved ONCE, so a
+        # wire-bus worker doesn't build-and-discard a coroutine per beat
+        self._lags_local: Optional[bool] = None
+        # telemetry export (fleet observability plane): every beat's
+        # sample rides the bounded instance telemetry topic; span-stage
+        # summaries ride every Nth beat (walking the span rings costs
+        # more than the sample itself). Auto: on for fleet workers.
+        export = getattr(settings, "observe_export", None)
+        if export is None:
+            export = bool(getattr(settings, "fleet_managed", False))
+        self._export_topic = (runtime.naming.instance_topic(
+            TopicNaming.INSTANCE_TELEMETRY) if export else None)
+        self._export_stages_every = max(int(getattr(
+            settings, "observe_export_stages_every", 8)), 1)
+        self.exports = metrics.counter("observe.exports")
+        # accept-rate history series state: last-seen `flow.admitted`
+        # counter value + sample time per tenant, differenced into an
+        # events/sec series each beat (the predictive control plane's
+        # demand signal — lag tells you what's queued, accept rate
+        # tells you what's still arriving)
+        self._accept_last: dict[str, float] = {}
+        self._accept_t: Optional[float] = None
+
+    async def _run(self) -> None:
+        import asyncio
+
+        runtime = self.runtime
+        interval = max(self.interval_s, 0.01)
+        next_t = time.monotonic() + interval
+        while True:
+            delay = next_t - time.monotonic()
+            if delay > 0:
+                await asyncio.sleep(delay)
+            # the probe itself: we asked to run at next_t; the gap is
+            # time the event loop spent NOT yielding to ready callbacks
+            # — a blocked loop (sync compile, spin, starvation) surfaces
+            # here within one beat. Measured BEFORE the chaos consult:
+            # a delay-mode observe.beat fault must suspend the beat, not
+            # masquerade as event-loop lag.
+            lag = max(time.monotonic() - next_t, 0.0)
+            if runtime.faults is not None:
+                # chaos seam: a crashed beat must restart under the
+                # supervisor like any service loop (acheck — a
+                # delay-mode fault suspends this coroutine, not the loop
+                # it exists to watch)
+                await runtime.faults.acheck("observe.beat")
+            self.sample(loop_lag_s=lag)
+            # re-anchor after a stall: chasing missed beats would burst
+            # N catch-up samples that all measure the same stall
+            next_t = max(next_t + interval,
+                         time.monotonic() + 0.2 * interval)
+
+    # -- sampling ------------------------------------------------------------
+
+    def sample(self, loop_lag_s: float = 0.0) -> dict:
+        """Take one sample NOW (the beat loop's tick; tests call it
+        directly). Synchronous on purpose — no await may separate the
+        signals inside one sample."""
+        runtime = self.runtime
+        self.beats.inc()
+        self.loop_lag.observe(loop_lag_s)
+        if loop_lag_s >= self.stall_s:
+            self.stalls.inc()
+            logger.warning(
+                "telemetry-beat: event loop lagged %.1f ms (stall "
+                "threshold %.1f ms) — a consumer loop is not yielding",
+                loop_lag_s * 1e3, self.stall_s * 1e3)
+        metrics = runtime.metrics
+        # consumer lag: committed offset vs head, per group (in-proc bus
+        # only; a wire-bus process reads lag on the broker process)
+        lags: dict[str, int] = {}
+        group_lags = getattr(runtime.bus, "group_lags", None)
+        if group_lags is not None and self._lags_local is not False:
+            try:
+                # event-weighted (kernel/bus.py): the history series the
+                # predictive planner trains on and the autoscaler's bar
+                # must share units — events, not record offsets
+                lag_map = group_lags(events=True)
+            except TypeError:  # wire-proxied bus: record units only
+                lag_map = group_lags()
+            if inspect.isawaitable(lag_map):
+                # wire bus: the broker process owns the committed/head
+                # view — sample lag there (fleet controller does)
+                lag_map.close()
+                lag_map = {}
+                self._lags_local = False
+            else:
+                self._lags_local = True
+            for group, by_topic in lag_map.items():
+                total = sum(by_topic.values())
+                lags[group] = total
+                metrics.gauge(f"observe.consumer_lag:{group}").set(total)
+        for gone in self._lag_groups - set(lags):
+            metrics.gauge(f"observe.consumer_lag:{gone}").set(0)
+        self._lag_groups = set(lags)
+        lag_max = max(lags.values(), default=0)
+        self.lag_gauge.set(lag_max)
+        # flow mode + pressure per tenant (the shed ladder's live state)
+        # — sampled BEFORE the engine walk so the egress lane tuner
+        # sees this beat's modes, not the previous beat's
+        flow = getattr(runtime, "flow", None)
+        modes = flow.modes() if flow is not None else {}
+        # egress backlog + scoring occupancy per rule-processing engine
+        egress: dict[str, int] = {}
+        scoring: dict[str, dict] = {}
+        pools: dict[int, object] = {}
+        rp = runtime.services.get("rule-processing")
+        if rp is not None:
+            for tid, eng in rp.engines.items():
+                stage = getattr(eng, "egress", None)
+                if stage is not None:
+                    egress[tid] = stage.backlog
+                    metrics.gauge(f"observe.egress_backlog:{tid}").set(
+                        stage.backlog)
+                    # the egress lane auto-tuner's observation hook
+                    # (kernel/egresslane.py): one beat's signals — the
+                    # stage's own backlog, this loop-lag probe, the
+                    # tenant's shed mode — drive the lane count
+                    stage.autotune_observe(
+                        loop_lag_s, self.stall_s,
+                        mode=(modes.get(tid) or {}).get("mode", "ok"))
+                sink = getattr(eng, "session", None) \
+                    or getattr(eng, "pool_slot", None)
+                if sink is not None:
+                    scoring[tid] = {"pending": sink.pending_n,
+                                    "inflight": getattr(sink, "inflight",
+                                                        0)}
+                    pool = getattr(sink, "pool", None)
+                    if pool is not None:
+                        pools[id(pool)] = pool
+        for gone in self._egress_tenants - set(egress):
+            metrics.gauge(f"observe.egress_backlog:{gone}").set(0)
+        self._egress_tenants = set(egress)
+        self.backlog_gauge.set(sum(egress.values()))
+        self.pending_gauge.set(sum(s["pending"] for s in scoring.values()))
+        self.inflight_gauge.set(
+            sum(s["inflight"] for s in scoring.values()))
+        # per-device mesh telemetry (scoring/pool.py mesh_stats): one
+        # block per shared pool — axis shape, tenant-row occupancy,
+        # live per-device tflops — so the SPMD dispatch path reports
+        # into every beat (and, via export, every worker heartbeat the
+        # fleet observer folds)
+        mesh = [pool.mesh_stats() for pool in pools.values()]
+        sample = {
+            "t": time.time(),
+            "loop_lag_ms": round(loop_lag_s * 1e3, 3),
+            "consumer_lag": lags,
+            "consumer_lag_max": lag_max,
+            "egress_backlog": egress,
+            "scoring": scoring,
+            "flow": modes,
+            "mesh": mesh,
+        }
+        self.samples.append(sample)
+        self._append_history(sample, lags, egress, scoring)
+        if self._export_topic is not None:
+            self._export(sample)
+        return sample
+
+    def _worker_key(self) -> str:
+        """This process's identity on the telemetry topic / in worker-
+        scoped history series: the fleet worker id when FleetWorker set
+        one (runtime.fence.worker_id), else the instance id (the
+        single-process / controller-host case)."""
+        fence = getattr(self.runtime, "fence", None)
+        return getattr(fence, "worker_id", None) \
+            or self.runtime.settings.instance_id
+
+    def _append_history(self, sample: dict, lags: dict, egress: dict,
+                        scoring: dict) -> None:
+        """Fold this sample's signals into the durable telemetry
+        history (persistence/durable.py), when the runtime has one:
+        per-tenant lag/egress-backlog/scoring-pending series plus this
+        worker's loop lag — ROADMAP item 2's training substrate."""
+        history = getattr(self.runtime, "history", None)
+        if history is None:
+            return
+        t = sample["t"]
+        # roster-filtered: the runtime's tenant map is the truth of
+        # what is a tenant — dotted non-tenant groups (service
+        # internals, ad-hoc meters) must not become phantom series
+        roster = getattr(self.runtime, "tenants", None) or None
+        for tid, v in per_tenant_lags(lags, roster=roster).items():
+            history.append(tid, "lag", float(v), t=t)
+        for tid, v in egress.items():
+            history.append(tid, "egress_backlog", float(v), t=t)
+        for tid, s in scoring.items():
+            history.append(tid, "scoring_pending",
+                           float(s.get("pending", 0)), t=t)
+        # accept rate: per-tenant admitted-events/sec from the flow
+        # counters' between-beat deltas (a counter restart — worker
+        # respawn — shows as a negative delta and is clamped to 0; the
+        # window the restart gap leaves stays a genuine history hole)
+        metrics = self.runtime.metrics
+        prev_t = self._accept_t
+        self._accept_t = t
+        for tid in (roster or ()):
+            cur = float(metrics.counter(f"flow.admitted:{tid}").value)
+            last = self._accept_last.get(tid)
+            self._accept_last[tid] = cur
+            if last is None or prev_t is None or t <= prev_t:
+                continue
+            history.append(tid, "accept_rate",
+                           max(cur - last, 0.0) / (t - prev_t), t=t)
+        history.append(self._worker_key(), "loop_lag_ms",
+                       sample["loop_lag_ms"], t=t)
+
+    def _export(self, sample: dict) -> None:
+        """Publish this beat onto the instance telemetry topic (keyed
+        by worker id: one worker's stream stays partition-ordered).
+        Fire-and-forget — a beat must never block on the broker — and
+        failure-tolerant: telemetry export is an appendix, losing a
+        beat record loses nothing the next beat doesn't resend."""
+        wid = self._worker_key()
+        n = int(self.beats.value)
+        record = {
+            "kind": "beat",
+            "worker": wid,
+            "seq": n,
+            "t": sample["t"],
+            "sample": sample,
+            "beat": {
+                "interval_ms": round(self.interval_s * 1e3, 1),
+                "beats": n,
+                "loop_stalls": int(self.stalls.value),
+                "loop_lag_p99_ms": round(
+                    self.loop_lag.quantile(0.99) * 1e3, 3),
+            },
+        }
+        if (n - 1) % self._export_stages_every == 0:
+            # first beat, then every Nth after (every=1 → every beat)
+            record["stages"] = self.runtime.tracer.stage_export()
+        trace_id = self.runtime.tracer.new_trace_id()
+        t0 = time.monotonic()
+        try:
+            self.runtime.bus.produce_nowait(self._export_topic, record,
+                                            key=wid)
+        except RuntimeError:
+            return  # no running loop (sync test harness): skip export
+        self.exports.inc()
+        # the export's own span family: the recorder's overhead is
+        # itself visible in the rings (sampled like any stage)
+        self.runtime.tracer.record(trace_id, "fleet.telemetry", wid,
+                                   t0, time.monotonic() - t0, 0)
+
+    # -- reporting -----------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The beat's aggregate view: loop-lag quantiles, stall count,
+        and the latest sample (None when no beat has fired yet)."""
+        last = self.samples[-1] if self.samples else None
+        return {
+            "interval_ms": round(self.interval_s * 1e3, 1),
+            "stall_threshold_ms": round(self.stall_s * 1e3, 1),
+            "beats": int(self.beats.value),
+            "loop_stalls": int(self.stalls.value),
+            "loop_lag_ms": {
+                "p50": round(self.loop_lag.quantile(0.50) * 1e3, 3),
+                "p99": round(self.loop_lag.quantile(0.99) * 1e3, 3),
+                "max": round(self.loop_lag._max * 1e3, 3),
+            },
+            "consumer_lag_max": (last or {}).get("consumer_lag_max", 0),
+            "ring": len(self.samples),
+            "last": last,
+        }
+
+
+def observe_report(runtime, tenant: Optional[str] = None) -> dict:
+    """The flight recorder's one-call report: critical path over sampled
+    traces + the telemetry beat's live state (+ fleet placement when
+    this process hosts the controller). Served by
+    `GET /api/instance/observe`, rendered by `swx top`, stamped into
+    bench artifacts."""
+    beat = getattr(runtime, "beat", None)
+    fleet = getattr(runtime, "fleet", None)
+    history = getattr(runtime, "history", None)
+    return {
+        "critical_path": runtime.tracer.critical_path(tenant=tenant),
+        "beat": beat.snapshot() if beat is not None else None,
+        "fleet": fleet.snapshot() if fleet is not None else None,
+        # durable telemetry history (persistence/durable.py): series/
+        # window/segment counts when this runtime persists its signals
+        "history": history.stats() if history is not None else None,
+    }

@@ -1,0 +1,359 @@
+"""Per-event pipeline tracing [SURVEY.md §5.1] — the trace spine of the
+pipeline flight recorder.
+
+The reference has no distributed tracing in core (logging only); the
+rebuild carries a trace context in every batch envelope
+(`BatchContext.trace_id`, stamped at the receiver) and records one SPAN
+per pipeline stage into bounded per-stage rings:
+
+    receiver → decode → enrich → persist → dispatch → score → egress.publish
+
+plus the off-ramp stages (deferred spool/replay, DLQ quarantine/replay).
+The stage inventory is `TRACE_STAGES` below —
+swxlint TRC01 resolves every recorded stage literal against it, exactly
+as MET01 does for metric names — and each stage is classified as
+*queue* (time spent waiting: receiver arrival → decode, admission →
+dispatch) or *service* (time spent working), so the critical-path
+report can answer "where does paced p99 live" with a queue-wait vs
+service-time split.
+
+Wire-hop spans (kernel/wire.py) keep their meaning across transport
+modes: `wire.produce` is the append RPC's service time, `wire.poll` the
+broker-append→delivery queue wait — under streaming prefetch the
+delivery instant is the deliver frame's ARRIVAL (credit delivery), so
+the hop's queue wait never absorbs time records spend in the consumer's
+own prefetch buffer (that residency shows up downstream, where it
+belongs).
+
+Sampling keeps the hot path honest: at 1M events/s nobody can afford a
+span per batch per stage, so only every `sample`-th trace id records
+(trace ids are dense counters, so modulo sampling is uniform). Spans
+ring per STAGE (one chatty stage — a busy egress shard, a flapping DLQ
+— can no longer evict every other stage's spans from a shared ring).
+The model plane's profiler story is `torch.profiler`
+(`python -m sitewhere_tpu_torch.tools.flush_profile`).
+
+`Tracer.spans()` / `Tracer.trace(trace_id)` are the query surface (REST
+exposes them, with tenant filtering and pagination); `record()` is the
+single write path (kept lean: the hot pipeline calls it per batch per
+stage).
+"""
+
+from __future__ import annotations
+
+import itertools
+import zlib
+from collections import deque
+from dataclasses import dataclass
+from typing import Iterable, Optional
+
+from sitewhere_tpu_torch.kernel.metrics import Histogram
+
+# trace stages in pipeline order (the JAX package's central registry,
+# sitewhere_tpu/analysis/registry.py, copied: the port imports nothing
+# of it). kind "queue" = waiting, "service" = working.
+TRACE_STAGES: tuple[tuple[str, str], ...] = (
+    ("event-sources.receive", "queue"),      # arrival → decode start
+    ("event-sources.decode", "service"),     # SWB1/JSON decode
+    # wire-bus hop (kernel/wire.py): a split deployment's broker hop —
+    # produce is the append RPC (service), poll is the broker-retention
+    # wait between the append and the consuming worker's delivery
+    # (queue). Recorded client-side on each side of the socket, so a
+    # cross-process trace's queue-vs-service split covers the hop that
+    # used to be dark (docs/OBSERVABILITY.md fleet observability).
+    # Under streaming prefetch (the default), wire.poll measures broker
+    # append → CREDIT DELIVERY (the deliver frame's arrival at the
+    # consumer process), not the poll RPC round trip — prefetch-buffer
+    # residency belongs to the consuming process's own stages.
+    ("wire.produce", "service"),             # produce RPC → broker append
+    ("wire.poll", "queue"),                  # broker append → delivery
+    ("inbound.enrich", "service"),           # mask validate + split
+    ("event-management.persist", "service"), # columnar store scatter
+    ("rule-processing.dispatch", "queue"),   # admission → dispatch
+    ("rule-processing.score", "service"),    # dispatch → scores on host
+    ("egress.publish", "service"),           # settled → published
+    ("flow.defer", "service"),               # overload spool publish
+    ("flow.replay", "queue"),                # deferred drain re-admission
+    ("dlq.quarantine", "service"),           # poison → dead-letter topic
+    ("dlq.replay", "service"),               # dead letter → original topic
+    # fleet observability plane (kernel/observe.py): the beat's export
+    # publish onto the instance telemetry topic — its own trace family,
+    # so the recorder's overhead is itself visible in the span rings
+    ("fleet.telemetry", "service"),          # beat snapshot → telemetry topic
+)
+
+
+
+@dataclass(frozen=True, slots=True)
+class Span:
+    trace_id: int
+    stage: str            # e.g. "event-sources.decode"
+    tenant_id: str
+    t_start: float        # monotonic
+    duration_s: float
+    n_events: int
+
+    def to_dict(self) -> dict:
+        return {"trace_id": self.trace_id, "stage": self.stage,
+                "tenant": self.tenant_id, "t_start": self.t_start,
+                "duration_ms": round(self.duration_s * 1e3, 3),
+                "n_events": self.n_events}
+
+
+class Tracer:
+    """Bounded per-stage span rings with modulo sampling. One per
+    runtime. `capacity` is the total span budget; each stage's ring gets
+    `stage_capacity` (default `capacity // 8`, min 64) so stages evict
+    only their own history."""
+
+    def __init__(self, capacity: int = 4096, sample: int = 64,
+                 stage_capacity: int = 0):
+        self.sample = max(int(sample), 1)
+        self.stage_capacity = (max(int(stage_capacity), 1)
+                               if stage_capacity
+                               else max(capacity // 8, 64))
+        self._rings: dict[str, deque[Span]] = {}
+        self._ids = itertools.count(1)
+        # fleet-wide id scope (set_origin): high bits of every id this
+        # process MINTS. 0 = unscoped (single-process deployments keep
+        # their small dense ids)
+        self._origin = 0
+
+    def set_origin(self, key: str) -> None:
+        """Scope trace ids minted HERE to this process: the high 31
+        bits become a hash of `key` (worker id), the low 32 bits stay
+        the dense counter. Two fleet processes can then never mint the
+        same id, so a fleet-merged trace view (`FleetObserver`,
+        `ApiServer` trace op) attributes every span unambiguously —
+        while `sampled()` stays a pure function of the id, so EVERY
+        process along a batch's journey makes the same record/skip
+        decision for a trace some other process stamped. Masked to 31
+        bits: the full id must stay inside the wire codec's i64."""
+        self._origin = (zlib.crc32(key.encode()) & 0x7FFFFFFF) << 32
+
+    @property
+    def origin(self) -> int:
+        return self._origin
+
+    def new_trace_id(self) -> int:
+        """Dense trace ids (stamped at the receiver), origin-scoped
+        when `set_origin` ran (fleet workers)."""
+        return self._origin | next(self._ids)
+
+    def sampled(self, trace_id: int) -> bool:
+        return trace_id > 0 and trace_id % self.sample == 0
+
+    def record(self, trace_id: int, stage: str, tenant_id: str,
+               t_start: float, duration_s: float, n_events: int = 0) -> None:
+        if not self.sampled(trace_id):
+            return
+        ring = self._rings.get(stage)
+        if ring is None:
+            ring = self._rings[stage] = deque(maxlen=self.stage_capacity)
+        ring.append(Span(trace_id, stage, tenant_id, t_start,
+                         duration_s, n_events))
+
+    # -- query surface -----------------------------------------------------
+
+    def _all(self) -> Iterable[Span]:
+        for ring in self._rings.values():
+            yield from ring
+
+    def stages(self) -> list[str]:
+        return sorted(self._rings)
+
+    def spans(self, stage: Optional[str] = None,
+              tenant: Optional[str] = None,
+              limit: int = 256, offset: int = 0) -> list[Span]:
+        """Newest-first span listing, filterable by stage and tenant,
+        paginated with (offset, limit) — the REST listing surface."""
+        if stage is not None:
+            source: Iterable[Span] = self._rings.get(stage, ())
+        else:
+            source = self._all()
+        out = [s for s in source
+               if tenant is None or s.tenant_id == tenant]
+        out.sort(key=lambda s: s.t_start, reverse=True)
+        if offset:
+            out = out[offset:]
+        return out[:limit] if limit >= 0 else out
+
+    def trace(self, trace_id: int,
+              tenant: Optional[str] = None) -> list[Span]:
+        """Every recorded span of one trace, in time order — the
+        pipeline's journey for one ingest batch, receiver →
+        egress.publish (plus any off-ramp spans it took)."""
+        return sorted((s for s in self._all()
+                       if s.trace_id == trace_id
+                       and (tenant is None or s.tenant_id == tenant)),
+                      key=lambda s: s.t_start)
+
+    def _stage_hist(self, spans: Iterable[Span]) -> tuple[Histogram, int,
+                                                          int, float]:
+        hist = Histogram("stage")
+        events = 0
+        count = 0
+        total = 0.0
+        for s in spans:
+            hist.observe(s.duration_s)
+            events += s.n_events
+            count += 1
+            total += s.duration_s
+        return hist, count, events, total
+
+    def stage_summary(self, tenant: Optional[str] = None) -> dict[str, dict]:
+        """Per-stage p50/p95/p99 duration + event counts over the
+        sampled spans (ops dashboard; quantiles via the same
+        `Histogram.quantile` the metrics registry uses — the old
+        mean/max pair hid exactly the tail this exists to show)."""
+        out: dict[str, dict] = {}
+        for stage in sorted(self._rings):
+            spans = [s for s in self._rings[stage]
+                     if tenant is None or s.tenant_id == tenant]
+            if not spans:
+                continue
+            hist, count, events, total = self._stage_hist(spans)
+            out[stage] = {
+                "count": count,
+                "p50_ms": round(hist.quantile(0.50) * 1e3, 3),
+                "p95_ms": round(hist.quantile(0.95) * 1e3, 3),
+                "p99_ms": round(hist.quantile(0.99) * 1e3, 3),
+                "mean_ms": round(total / count * 1e3, 3),
+                "max_ms": round(hist._max * 1e3, 3),
+                "events": events,
+            }
+        return out
+
+    def stage_export(self, tenant: Optional[str] = None) -> dict[str, dict]:
+        """Per-stage summary in MERGEABLE form: histogram bucket counts
+        beside count/events/total/max. Per-worker p99s cannot be
+        averaged into a fleet p99 — bucket-wise histogram merge keeps
+        fleet quantiles exact to bucket resolution, which is what the
+        telemetry export publishes and `merge_stage_exports` folds
+        (kernel/observe.py beat → fleet/observer.py)."""
+        out: dict[str, dict] = {}
+        for stage in sorted(self._rings):
+            spans = [s for s in self._rings[stage]
+                     if tenant is None or s.tenant_id == tenant]
+            if not spans:
+                continue
+            hist, count, events, total = self._stage_hist(spans)
+            out[stage] = {
+                "count": count,
+                "events": events,
+                "total_s": total,
+                "max_s": hist._max,
+                "buckets": list(hist.buckets),
+                "counts": list(hist.counts),
+            }
+        return out
+
+    def critical_path(self, tenant: Optional[str] = None) -> dict:
+        """The critical-path report over sampled traces: per-stage
+        quantiles in pipeline order, each stage classified queue vs
+        service (TRACE_STAGES), and the queue-wait
+        vs service-time p99 split — "where does paced p99 live".
+
+        Unregistered stages (tests, future drift) still report, with
+        kind "unknown"; TRC01 is the gate that keeps the live tree's
+        stages registered."""
+        kinds = dict(TRACE_STAGES)
+        order = {name: i for i, (name, _) in enumerate(TRACE_STAGES)}
+        summary = self.stage_summary(tenant=tenant)
+        stages: dict[str, dict] = {}
+        queue_p99 = service_p99 = 0.0
+        span_count = 0
+        for stage in sorted(summary, key=lambda s: order.get(s, 1000)):
+            kind = kinds.get(stage, "unknown")
+            row = {**summary[stage], "kind": kind}
+            stages[stage] = row
+            span_count += row["count"]
+            if kind == "queue":
+                queue_p99 += row["p99_ms"]
+            elif kind == "service":
+                service_p99 += row["p99_ms"]
+        return {
+            "stages": stages,
+            "span_count": span_count,
+            "queue_wait_p99_ms": round(queue_p99, 3),
+            "service_p99_ms": round(service_p99, 3),
+            "sample": self.sample,
+        }
+
+
+def merge_stage_exports(exports: Iterable[dict]) -> dict:
+    """Fold per-process `stage_export` dicts into ONE fleet critical
+    path: bucket counts merge additively per stage, quantiles are read
+    off the merged histogram, and the queue-vs-service split is
+    computed exactly as `Tracer.critical_path` does locally — the
+    fleet-level answer to "where does paced p99 live" when the spine
+    crosses worker processes (fleet/observer.py)."""
+    merged: dict[str, dict] = {}
+    for export in exports:
+        for stage, row in (export or {}).items():
+            agg = merged.get(stage)
+            if agg is None:
+                agg = merged[stage] = {
+                    "count": 0, "events": 0, "total_s": 0.0, "max_s": 0.0,
+                    "buckets": list(row.get("buckets") or ()),
+                    "counts": [0] * len(row.get("counts") or ()),
+                    "mixed": False,
+                }
+            agg["count"] += int(row.get("count", 0))
+            agg["events"] += int(row.get("events", 0))
+            agg["total_s"] += float(row.get("total_s", 0.0))
+            agg["max_s"] = max(agg["max_s"], float(row.get("max_s", 0.0)))
+            counts = row.get("counts") or ()
+            if agg["mixed"]:
+                continue
+            if len(counts) == len(agg["counts"]):
+                for i, c in enumerate(counts):
+                    agg["counts"][i] += int(c)
+            else:
+                # bucket-shape drift across versions: bucket fidelity
+                # is unrecoverable for this stage — flag it ONCE and
+                # report quantiles as the max upper bound below, the
+                # same answer whatever order exports arrive in
+                agg["mixed"] = True
+    kinds = dict(TRACE_STAGES)
+    order = {name: i for i, (name, _) in enumerate(TRACE_STAGES)}
+    stages: dict[str, dict] = {}
+    queue_p99 = service_p99 = 0.0
+    span_count = 0
+    for stage in sorted(merged, key=lambda s: order.get(s, 1000)):
+        agg = merged[stage]
+        if agg["mixed"]:
+            # count-only merge: the honest quantile is unknowable, so
+            # every quantile reports the conservative max upper bound
+            q50 = q95 = q99 = agg["max_s"]
+        else:
+            hist = Histogram("stage", buckets=agg["buckets"] or None)
+            hist.counts = list(agg["counts"]) + [0] * (
+                len(hist.buckets) + 1 - len(agg["counts"]))
+            hist.count = agg["count"]
+            hist._max = agg["max_s"]
+            q50, q95, q99 = (hist.quantile(0.50), hist.quantile(0.95),
+                             hist.quantile(0.99))
+        kind = kinds.get(stage, "unknown")
+        row = {
+            "count": agg["count"],
+            "p50_ms": round(q50 * 1e3, 3),
+            "p95_ms": round(q95 * 1e3, 3),
+            "p99_ms": round(q99 * 1e3, 3),
+            "mean_ms": round(agg["total_s"] / max(agg["count"], 1) * 1e3, 3),
+            "max_ms": round(agg["max_s"] * 1e3, 3),
+            "events": agg["events"],
+            "kind": kind,
+        }
+        stages[stage] = row
+        span_count += agg["count"]
+        if kind == "queue":
+            queue_p99 += row["p99_ms"]
+        elif kind == "service":
+            service_p99 += row["p99_ms"]
+    return {
+        "stages": stages,
+        "span_count": span_count,
+        "queue_wait_p99_ms": round(queue_p99, 3),
+        "service_p99_ms": round(service_p99, 3),
+    }

@@ -8,7 +8,8 @@
 - Bounded memory: ring over the time axis (length `history`), device axis
   grows by doubling.
 
-Host-only numpy; the scoring plane keeps its own device-resident copy of
+Host-only numpy (the JAX package's native C++ paths are ROADMAP A.3);
+the scoring plane keeps its own device-resident copy of
 the recent windows (scoring/ring.py) and re-seeds it from here.
 """
 
@@ -19,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 
-from sitewhere_tpu_torch.domain.batch import MeasurementBatch
+from sitewhere_tpu_torch.domain.batch import LocationBatch, MeasurementBatch
 from sitewhere_tpu_torch.utils import grow_pow2
 
 
@@ -93,6 +94,13 @@ class TelemetryTable:
         valid = np.arange(w)[None, :] >= (w - np.minimum(self.count[devices], w)[:, None])
         return out, valid
 
+    def window_ts(self, devices: np.ndarray, w: int) -> np.ndarray:
+        _check_indices(devices)
+        self._ensure_capacity(int(devices.max()) if devices.size else 0)
+        devices = devices.astype(np.int64, copy=False)
+        idx = (self.cursor[devices, None] - w + np.arange(w)[None, :]) % self.history
+        return self.ts[devices[:, None], idx]
+
     def latest(self, devices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Most recent (value, ts) per device; ts==0 where never written."""
         _check_indices(devices)
@@ -102,14 +110,70 @@ class TelemetryTable:
         return self.values[devices, idx], self.ts[devices, idx]
 
 
+class LocationTable:
+    """Ring buffer of GPS fixes per device (lat/lon/elev/ts)."""
+
+    def __init__(self, history: int = 64, initial_devices: int = 1024):
+        self.history = history
+        self.capacity = initial_devices
+        self.lat = np.zeros((initial_devices, history), np.float64)
+        self.lon = np.zeros((initial_devices, history), np.float64)
+        self.elev = np.zeros((initial_devices, history), np.float32)
+        self.ts = np.zeros((initial_devices, history), np.float64)
+        self.cursor = np.zeros(initial_devices, np.int64)
+        self.count = np.zeros(initial_devices, np.int64)
+
+    def _ensure_capacity(self, max_index: int) -> None:
+        if max_index < self.capacity:
+            return
+        new_cap = grow_pow2(max_index + 1, floor=self.capacity * 2)
+        for name in ("lat", "lon", "elev", "ts"):
+            old = getattr(self, name)
+            grown = np.zeros((new_cap, self.history), old.dtype)
+            grown[: self.capacity] = old
+            setattr(self, name, grown)
+        for name in ("cursor", "count"):
+            old = getattr(self, name)
+            grown = np.zeros(new_cap, old.dtype)
+            grown[: self.capacity] = old
+            setattr(self, name, grown)
+        self.capacity = new_cap
+
+    def append(self, batch: LocationBatch) -> None:
+        n = len(batch)
+        if n == 0:
+            return
+        dev = batch.device_index.astype(np.int64, copy=False)
+        self._ensure_capacity(int(dev.max()))
+        order = np.argsort(dev, kind="stable")
+        sd = dev[order]
+        uniq, start, counts = np.unique(sd, return_index=True, return_counts=True)
+        cum = np.arange(n, dtype=np.int64) - np.repeat(start, counts)
+        pos = (self.cursor[sd] + cum) % self.history
+        self.lat[sd, pos] = batch.latitude[order]
+        self.lon[sd, pos] = batch.longitude[order]
+        self.elev[sd, pos] = batch.elevation[order]
+        self.ts[sd, pos] = batch.ts[order]
+        self.cursor[uniq] = (self.cursor[uniq] + counts) % self.history
+        self.count[uniq] = np.minimum(self.count[uniq] + counts, self.history)
+
+    def latest(self, devices: np.ndarray):
+        devices = devices.astype(np.int64, copy=False)
+        self._ensure_capacity(int(devices.max()) if devices.size else 0)
+        idx = (self.cursor[devices] - 1) % self.history
+        return (self.lat[devices, idx], self.lon[devices, idx],
+                self.elev[devices, idx], self.ts[devices, idx])
+
+
 class TelemetryStore:
     """Per-tenant telemetry: one TelemetryTable per measurement channel
-    (`mtype`). Thread-safe for the append path."""
+    (`mtype`) plus one LocationTable. Thread-safe for the append path."""
 
     def __init__(self, history: int = 1024, initial_devices: int = 1024):
         self.history = history
         self.initial_devices = initial_devices
         self.channels: dict[int, TelemetryTable] = {}
+        self.locations = LocationTable(initial_devices=initial_devices)
         self._lock = threading.Lock()
 
     def channel(self, mtype: int) -> TelemetryTable:
@@ -136,6 +200,11 @@ class TelemetryStore:
                 with self._lock:
                     table.append(batch.device_index[mask], batch.value[mask],
                                  batch.ts[mask])
+        return len(batch)
+
+    def append_locations(self, batch: LocationBatch) -> int:
+        with self._lock:
+            self.locations.append(batch)
         return len(batch)
 
     def window(self, devices: np.ndarray, w: int,

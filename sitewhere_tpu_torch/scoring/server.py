@@ -79,6 +79,13 @@ class ScoringConfig:
     # anomaly slots per flush in sparse mode; 0 → max(128, bucket/64).
     # Overflow is counted (scoring.anomaly_overflow), never silent.
     sparse_k: int = 0
+    # cross-tenant megabatch handoff (scoring/pool.py): when the engine
+    # routes through the shared pool these become its PoolConfig's close
+    # deadline (0 → batch_window_ms), tenants-per-dispatch bound and
+    # window tuner switch; a dedicated session ignores them
+    megabatch_window_ms: float = 0.0
+    megabatch_max_tenants: int = 0
+    megabatch_autotune: bool = True
 
     @property
     def backlog_events(self) -> int:

@@ -1,0 +1,253 @@
+"""device-state service (reference: service-device-state, [SURVEY.md
+§2.2]): materialized latest-state per device — last measurement per
+channel, last location, last-seen timestamp, and missing-device detection.
+
+TPU-first: state is dense arrays indexed by device slot (grown on
+demand); merging an enriched batch is a vectorized scatter keeping only
+each device's newest event (segment-max by timestamp), and
+missing-device queries are one boolean reduction.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+import numpy as np
+
+from sitewhere_tpu_torch.config import TenantConfig
+from sitewhere_tpu_torch.domain.batch import LocationBatch, MeasurementBatch
+from sitewhere_tpu_torch.kernel.bus import FencedError, TopicNaming
+from sitewhere_tpu_torch.kernel.lifecycle import BackgroundTaskComponent
+from sitewhere_tpu_torch.kernel.service import Service, TenantEngine
+
+
+class DeviceStateEngine(TenantEngine):
+    def __init__(self, service: "DeviceStateService", tenant: TenantConfig):
+        super().__init__(service, tenant)
+        cap = 1024
+        self.capacity = cap
+        self.last_seen = np.zeros(cap, np.float64)
+        # per-channel last value: mtype -> (values[cap], ts[cap])
+        self.last_values: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self.last_location = np.zeros((cap, 3), np.float64)  # lat, lon, elev
+        self.last_location_ts = np.zeros(cap, np.float64)
+        self.merger = StateMerger(self)
+        self.add_child(self.merger)
+        presence = tenant.section("device-state", {}).get("presence")
+        self.presence: PresenceMonitor | None = None
+        if presence:
+            self.presence = PresenceMonitor(self, presence)
+            self.add_child(self.presence)
+
+    def _ensure(self, max_index: int) -> None:
+        if max_index < self.capacity:
+            return
+        cap = self.capacity
+        while cap <= max_index:
+            cap *= 2
+        grow = lambda a, shape: np.concatenate(  # noqa: E731
+            [a, np.zeros(shape, a.dtype)], axis=0)
+        self.last_seen = grow(self.last_seen, cap - self.capacity)
+        self.last_location = grow(self.last_location, (cap - self.capacity, 3))
+        self.last_location_ts = grow(self.last_location_ts, cap - self.capacity)
+        for mt, (v, t) in list(self.last_values.items()):
+            self.last_values[mt] = (grow(v, cap - self.capacity),
+                                    grow(t, cap - self.capacity))
+        self.capacity = cap
+
+    def _channel(self, mtype: int) -> tuple[np.ndarray, np.ndarray]:
+        ch = self.last_values.get(mtype)
+        if ch is None:
+            ch = (np.zeros(self.capacity, np.float64),
+                  np.zeros(self.capacity, np.float64))
+            self.last_values[mtype] = ch
+        return ch
+
+    # -- merge (hot) -------------------------------------------------------
+
+    def merge_measurements(self, batch: MeasurementBatch) -> None:
+        dev = batch.device_index.astype(np.int64, copy=False)
+        if dev.size == 0:
+            return
+        self._ensure(int(dev.max()))
+        np.maximum.at(self.last_seen, dev, batch.ts)
+        for mt in np.unique(batch.mtype):
+            mask = batch.mtype == mt
+            d, v, t = dev[mask], batch.value[mask], batch.ts[mask]
+            values, tss = self._channel(int(mt))
+            # keep newest per device: sort by ts then scatter (later wins)
+            order = np.argsort(t, kind="stable")
+            newer = t[order] >= tss[d[order]]
+            d2, v2, t2 = d[order][newer], v[order][newer], t[order][newer]
+            values[d2] = v2
+            tss[d2] = t2
+
+    def merge_locations(self, batch: LocationBatch) -> None:
+        dev = batch.device_index.astype(np.int64, copy=False)
+        if dev.size == 0:
+            return
+        self._ensure(int(dev.max()))
+        np.maximum.at(self.last_seen, dev, batch.ts)
+        order = np.argsort(batch.ts, kind="stable")
+        d = dev[order]
+        newer = batch.ts[order] >= self.last_location_ts[d]
+        d2 = d[newer]
+        self.last_location[d2, 0] = batch.latitude[order][newer]
+        self.last_location[d2, 1] = batch.longitude[order][newer]
+        self.last_location[d2, 2] = batch.elevation[order][newer]
+        self.last_location_ts[d2] = batch.ts[order][newer]
+
+    # -- queries -----------------------------------------------------------
+
+    def get_state(self, device_index: int) -> dict:
+        if device_index >= self.capacity or device_index < 0:
+            # reads never grow state: unknown slot → empty state
+            return {"device_index": device_index, "last_seen": 0.0,
+                    "channels": {}}
+        channels = {int(mt): {"value": float(v[device_index]),
+                              "ts": float(t[device_index])}
+                    for mt, (v, t) in self.last_values.items()
+                    if t[device_index] > 0}
+        out = {
+            "device_index": device_index,
+            "last_seen": float(self.last_seen[device_index]),
+            "channels": channels,
+        }
+        if self.last_location_ts[device_index] > 0:
+            lat, lon, elev = self.last_location[device_index]
+            out["location"] = {"lat": float(lat), "lon": float(lon),
+                               "elevation": float(elev),
+                               "ts": float(self.last_location_ts[device_index])}
+        return out
+
+    def missing_devices(self, older_than_s: float,
+                        now: float | None = None) -> np.ndarray:
+        """Indices of devices seen before but silent for `older_than_s`
+        (reference: device-state missing-device marking)."""
+        now = now if now is not None else time.time()
+        mask = (self.last_seen > 0) & (self.last_seen < now - older_than_s)
+        return np.nonzero(mask)[0]
+
+
+class StateMerger(BackgroundTaskComponent):
+    def __init__(self, engine: DeviceStateEngine):
+        super().__init__("state-merger")
+        self.engine = engine
+
+    async def _run(self) -> None:
+        engine = self.engine
+        runtime = engine.runtime
+        consumer = runtime.bus.subscribe(
+            engine.tenant_topic(TopicNaming.OUTBOUND_ENRICHED),
+            group=f"{engine.tenant_id}.device-state")
+        merged = runtime.metrics.meter("device_state.events_merged")
+        try:
+            while True:
+                for record in await consumer.poll(max_records=256, timeout=0.2):
+                    # poison quarantine: a batch the merge rejects goes
+                    # to the tenant DLQ; state merging keeps flowing
+                    try:
+                        batch = record.value
+                        if isinstance(batch, MeasurementBatch):
+                            engine.merge_measurements(batch)
+                            merged.mark(len(batch))
+                        elif isinstance(batch, LocationBatch):
+                            engine.merge_locations(batch)
+                            merged.mark(len(batch))
+                        # cold event lists don't update dense state
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as exc:  # noqa: BLE001 - quarantined
+                        await engine.dead_letter(record, exc, self.path)
+                try:
+                    consumer.commit(fence=engine.fence_token())
+                except FencedError:
+                    # ownership moved (epoch fencing): offsets stay for
+                    # the new owner; the fleet worker stops these engines
+                    engine.fence_lost()
+        finally:
+            consumer.close()
+
+
+class PresenceMonitor(BackgroundTaskComponent):
+    """Automated presence management (reference: device-state presence
+    manager marking assignments missing): on an interval, devices whose
+    `last_seen` is older than `missing_after_s` transition
+    present→missing, and a later event transitions them back — each
+    transition persisted as a DeviceStateChange (attribute "presence")
+    through event-management, so downstream consumers (connectors,
+    rules, REST queries) see presence like any other event.
+
+    Config (tenant section `device-state`):
+        presence:
+          missing_after_s: 3600     # silence that means "missing"
+          check_interval_s: 60
+    """
+
+    def __init__(self, engine: DeviceStateEngine, cfg: dict):
+        super().__init__("presence-monitor")
+        self.engine = engine
+        self.missing_after_s = float(cfg.get("missing_after_s", 3600.0))
+        self.check_interval_s = float(cfg.get("check_interval_s", 60.0))
+        self.missing: set[int] = set()   # indices currently marked missing
+        self._now = time.time            # test seam (simulated clocks)
+
+    async def _run(self) -> None:
+        engine = self.engine
+        runtime = engine.runtime
+        transitions = runtime.metrics.counter(
+            "device_state.presence_transitions")
+        em = await runtime.wait_for_engine("event-management",
+                                           engine.tenant_id)
+        dm = await runtime.wait_for_engine("device-management",
+                                           engine.tenant_id)
+        while True:
+            now = self._now()
+            gone = set(engine.missing_devices(self.missing_after_s,
+                                              now=now).tolist())
+            changes = []
+            for idx in sorted(gone - self.missing):
+                changes.append((idx, "present", "missing"))
+            for idx in sorted(self.missing - gone):
+                # last_seen only grows, so leaving the missing mask
+                # means a fresh event arrived: the device recovered
+                changes.append((idx, "missing", "present"))
+            if changes:
+                from sitewhere_tpu_torch.domain.events import DeviceStateChange
+
+                events = []
+                for idx, prev, new in changes:
+                    # bookkeeping FIRST — a device deleted from
+                    # device-management must not leave its index
+                    # re-emitting phantom transitions every cycle
+                    if new == "missing":
+                        self.missing.add(idx)
+                    else:
+                        self.missing.discard(idx)
+                    device = dm.get_device_by_index(idx)
+                    if device is None:
+                        continue
+                    assignments = dm.get_active_assignments_for_device(
+                        device.id)
+                    events.append(DeviceStateChange(
+                        device_id=device.id,
+                        assignment_id=assignments[0].id if assignments
+                        else "",
+                        attribute="presence", state_change_type="presence",
+                        previous_state=prev, new_state=new))
+                if events:
+                    await em.add_state_changes(events)
+                    transitions.inc(len(events))
+            await asyncio.sleep(self.check_interval_s)
+
+
+class DeviceStateService(Service):
+    identifier = "device-state"
+    multitenant = True
+
+    def create_tenant_engine(self, tenant: TenantConfig) -> DeviceStateEngine:
+        return DeviceStateEngine(self, tenant)
+
+    def state(self, tenant_id: str) -> DeviceStateEngine:
+        return self.engine(tenant_id)  # type: ignore[return-value]

@@ -1,0 +1,719 @@
+"""rule-processing service (reference: service-rule-processing,
+[SURVEY.md §2.2]): stream processing over enriched events.
+
+The reference's extension points are Siddhi CEP queries and Groovy stream
+processors; this port replaces them with PyTorch models on the CUDA card
+at the same hook point. This engine hosts both kinds of processor:
+
+- **model processor**: a `ScoringSession` (admission batching + bucketed
+  inference on the card). Anomalies become system DeviceAlerts via
+  event-management (the reference's rule actions emit events the same
+  way); every scored batch is also published to the scored-events topic.
+- **python hooks**: named async callables over enriched records — the
+  Groovy-script capability surface, with the same bindings style (the
+  hook receives the record plus an api handle object).
+
+Tenant config section `rule-processing`:
+  model: "zscore" | "lstm" | ... (registry name; null disables scoring)
+  model_config: {window: 64, hidden: 64, ...}
+  threshold: 4.0
+  batch_window_ms: 2.0
+  emit_alerts: true
+  shared: false          # true → score via the multi-tenant pool (config 4)
+  megabatch: {enabled: true, window_ms: 1.0, autotune: true}
+  mesh: {data: 4, model: 2}   # serving mesh for the shared pool: not
+                              # ported yet (ROADMAP A.2), raises
+
+The device every model, session and pool runs on is the instance's
+`InstanceSettings.device` (None = the CUDA card; "cpu" only when named).
+
+Two scoring modes [SURVEY.md §7 hard part b]:
+- dedicated (`shared: false`): a per-tenant `ScoringSession` — own
+  compiled buckets, own flush cadence; right for a few big tenants.
+- pooled (`shared: true`): all tenants of one architecture share a
+  `TenantStack` (params stacked on a tenant axis) and are scored in ONE
+  vmapped dispatch per flush — config 4's 100k-device multi-tenant
+  operating point.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from dataclasses import dataclass
+from typing import Awaitable, Callable, Optional
+
+import numpy as np
+
+from sitewhere_tpu_torch.config import TenantConfig
+from sitewhere_tpu_torch.domain.batch import AlertBatch, MeasurementBatch, ScoredBatch
+from sitewhere_tpu_torch.kernel.bus import FencedError, TopicNaming
+from sitewhere_tpu_torch.kernel.egresslane import (
+    EgressStage,
+    commit_barrier,
+    egress_autotune,
+    egress_fused,
+    egress_lanes,
+    egress_max_lanes,
+)
+from sitewhere_tpu_torch.kernel.fastlane import (
+    FastLane,
+    checkpoint_commit,
+    fastlane_enabled,
+)
+from sitewhere_tpu_torch.kernel.lifecycle import (
+    BackgroundTaskComponent,
+    LifecycleStatus,
+)
+from sitewhere_tpu_torch.kernel.service import Service, TenantEngine
+from sitewhere_tpu_torch.models.registry import build_model
+from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool, TenantSlot
+from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
+from sitewhere_tpu_torch.utils import resolve_device
+from sitewhere_tpu_torch.utils.roadmap import not_ported
+
+logger = logging.getLogger(__name__)
+
+Hook = Callable[[object, "RuleApi"], Awaitable[None]]
+
+
+def megabatch_enabled(tenant, runtime) -> bool:
+    """Should this tenant score through the cross-tenant megabatch pool
+    (scoring/pool.py) instead of a dedicated per-tenant session?
+
+    Pure function of config (tenant `rule-processing: {megabatch:
+    {enabled}}` — or a bare bool — over `InstanceSettings
+    .scoring_megabatch`), so the bench lever and tests pin it
+    deterministically, and every engine of one instance reaches the
+    same answer. `shared: true` (config 4) routes to the pool
+    regardless; this predicate is the megabatch opt-in for tenants that
+    would otherwise run dedicated."""
+    rp = tenant.section("rule-processing", {"model": "zscore"})
+    if not rp.get("model", "zscore"):
+        return False  # scoring disabled: nothing to batch
+    mb = rp.get("megabatch")
+    if isinstance(mb, bool):
+        return mb
+    if isinstance(mb, dict) and "enabled" in mb:
+        return bool(mb["enabled"])
+    return bool(getattr(runtime.settings, "scoring_megabatch", False))
+
+
+def anomaly_alerts(scored: ScoredBatch, model_name: Optional[str]) -> AlertBatch:
+    """Anomalous scored events → system alerts (source='model')."""
+    idx = np.nonzero(scored.is_anomaly)[0]
+    return AlertBatch(
+        ctx=scored.ctx,
+        device_index=scored.device_index[idx],
+        level=np.full(idx.shape[0], 2, np.uint8),  # ERROR
+        type=[f"anomaly.{model_name}"] * idx.shape[0],
+        message=[f"anomaly score {scored.score[i]:.2f} "
+                 f"(model v{scored.model_version})" for i in idx],
+        ts=scored.ts[idx],
+        source="model")
+
+
+@dataclass
+class RuleApi:
+    """Bindings handed to python hooks (reference: Groovy script bindings —
+    event + api handles, [SURVEY.md §2.1 script manager])."""
+
+    engine: "RuleProcessingEngine"
+
+    async def emit_alert(self, device_index: int, level: int, type: str,
+                         message: str) -> None:
+        em = self.engine.runtime.api("event-management").management(
+            self.engine.tenant_id)
+        batch = AlertBatch(
+            ctx=None, device_index=np.asarray([device_index], np.uint32),
+            level=np.asarray([level], np.uint8), type=[type],
+            message=[message], ts=np.asarray([time.time()]), source="rule")
+        em.add_alert_batch(batch)
+
+    def device_state(self, device_index: int) -> dict:
+        ds = self.engine.runtime.api("device-state").state(self.engine.tenant_id)
+        return ds.get_state(device_index)
+
+
+class RuleProcessingEngine(TenantEngine):
+    def __init__(self, service: "RuleProcessingService", tenant: TenantConfig):
+        super().__init__(service, tenant)
+        cfg = tenant.section("rule-processing", {"model": "zscore"})
+        self.model_name: Optional[str] = cfg.get("model", "zscore")
+        self.model_config: dict = cfg.get("model_config", {})
+        # cross-tenant megabatch (scoring/pool.py): routes this tenant
+        # through the shared stacked-params pool — one dispatch per
+        # flush round for every megabatched tenant of this architecture
+        self.megabatch: bool = megabatch_enabled(tenant, self.runtime)
+        mb_cfg = cfg.get("megabatch")
+        mb_cfg = mb_cfg if isinstance(mb_cfg, dict) else {}
+        settings = self.runtime.settings
+        self.scoring_cfg = ScoringConfig(
+            mtype=cfg.get("mtype", 0),
+            threshold=cfg.get("threshold", 4.0),
+            batch_window_ms=cfg.get("batch_window_ms",
+                                    settings.scoring_batch_window_ms),
+            buckets=tuple(cfg.get("buckets",
+                                  settings.scoring_batch_buckets)),
+            capacity=cfg.get("capacity", 0),
+            max_inflight=cfg.get("max_inflight", 64),
+            backlog_cap=cfg.get("backlog_cap", 0),
+            score_dtype=cfg.get("score_dtype", "float16"),
+            readback=cfg.get("readback", "full"),
+            sparse_k=cfg.get("sparse_k", 0),
+            # megabatch close deadline + tenants-per-dispatch bound; 0
+            # window when megabatch is off keeps legacy `shared: true`
+            # pools on their admission window unchanged
+            megabatch_window_ms=(float(mb_cfg.get(
+                "window_ms",
+                getattr(settings, "scoring_megabatch_window_ms", 1.0)))
+                if self.megabatch else 0.0),
+            megabatch_max_tenants=int(mb_cfg.get(
+                "max_tenants",
+                getattr(settings, "scoring_megabatch_max_tenants", 0))),
+            megabatch_autotune=bool(mb_cfg.get(
+                "autotune",
+                getattr(settings, "scoring_megabatch_autotune", True))),
+        )
+        self.emit_alerts: bool = cfg.get("emit_alerts", True)
+        self.shared: bool = cfg.get("shared", False)
+        # serving mesh: tenant `mesh: {data, model}` over the instance
+        # default — the shared pool refuses one (ROADMAP A.2)
+        self.mesh_spec: Optional[dict] = cfg.get("mesh")
+        if self.mesh_spec is None:
+            d = int(getattr(settings, "scoring_mesh_data", 0) or 0)
+            m = int(getattr(settings, "scoring_mesh_model", 0) or 0)
+            if d or m:
+                self.mesh_spec = {"data": d or None, "model": m or 1}
+        self.session: Optional[ScoringSession] = None
+        self.pool_slot: Optional[TenantSlot] = None
+        # fused egress stage (kernel/egresslane.py): scored publishes +
+        # alert emission run on supervised shard loops off the flush
+        # path; scored_sink is what every scored batch flows through
+        # (the stage when fused, the legacy inline publish otherwise).
+        # Declared FIRST so its shard children stop LAST — they must
+        # outlive the consumer loops to publish the final settles.
+        self.egress: Optional[EgressStage] = None
+        if self.model_name and egress_fused(tenant, self.runtime):
+            self.egress = EgressStage(
+                self, lanes=egress_lanes(tenant, self.runtime),
+                autotune=egress_autotune(tenant, self.runtime),
+                max_lanes=egress_max_lanes(tenant, self.runtime))
+            for shard in self.egress.shards:
+                self.add_child(shard)
+        self.scored_sink = (self.egress if self.egress is not None
+                            else self._deliver_scored)
+        # clean-handoff commit-through (docs/FLEET.md): lane loops
+        # cancelled by an engine stop stash their consumers here
+        # instead of closing them; _do_stop commits their delivered
+        # positions once the drain proves everything settled AND
+        # published — a clean release then hands off exactly-once
+        # (no replay of the last in-flight batch)
+        self._stopped_consumers: list = []
+        self.hooks: dict[str, Hook] = {}
+        # script manager: uploaded python scripts become hooks (reference:
+        # Groovy stream processors synced per tenant, SURVEY.md §2.1)
+        from sitewhere_tpu_torch.kernel.scripting import ScriptManager
+
+        self.scripts = ScriptManager(self.tenant_id)
+        for name, source in cfg.get("scripts", {}).items():
+            self.put_script(name, source)
+        if cfg.get("geofences"):
+            raise not_ported("tenant geofences", "A.1.4")
+        self.processor = RuleProcessor(self)
+        self.add_child(self.processor)
+        # fused ingress fast lane (kernel/fastlane.py): when the tenant's
+        # shape permits, this engine ALSO consumes the decoded topic and
+        # performs fair-admission + mask validation + scoring admit in
+        # one hop; inbound-processing evaluates the same predicate and
+        # skips its staged consumer for this tenant. With
+        # `egress: {lanes: N}` the lane is SHARDED: N consumer loops
+        # join the one `{tenant}.inbound-processing` group, splitting
+        # the decoded topic's partitions — flood-mode admission stops
+        # serializing on one loop, and a lane-count change resumes from
+        # the group's committed offsets.
+        self.fastlanes: list[FastLane] = []
+        self.fastlane: Optional[FastLane] = None
+        if fastlane_enabled(tenant, self.runtime):
+            self.fastlanes = [
+                FastLane(self, shard=i)
+                for i in range(egress_lanes(tenant, self.runtime))]
+            self.fastlane = self.fastlanes[0]
+            for lane in self.fastlanes:
+                self.add_child(lane)
+
+    async def _do_initialize(self, monitor) -> None:
+        if not self.model_name:
+            return
+        em = await self.runtime.wait_for_engine("event-management",
+                                                self.tenant_id)
+        if self.shared or self.megabatch:
+            # the shared-pool handoff: config 4 (`shared: true`) and the
+            # megabatch opt-in both land here — one stacked-params pool
+            # per architecture, one dispatch per flush round
+            pool = self.service.shared_pool(
+                self.model_name, self.model_config, self.scoring_cfg,
+                self.mesh_spec)
+            self.pool_slot = pool.register(
+                self.tenant_id, em.telemetry, self.scoring_cfg.threshold,
+                self.scored_sink)
+        else:
+            device = self.service.device
+            model = build_model(self.model_name, device=device,
+                                **self.model_config)
+            self.session = ScoringSession(
+                model, em.telemetry, self.runtime.metrics, self.scoring_cfg,
+                sink=self.scored_sink, tracer=self.runtime.tracer,
+                faults=self.runtime.faults, device=device)
+
+    async def _do_start(self, monitor) -> None:
+        if self.session is not None:
+            # warm up in the background: engine start must not block on
+            # the buckets' first launches
+            self.session.ready = False
+            self._warmup_task = asyncio.create_task(
+                self.session.warmup_async(), name=f"{self.path}/warmup")
+
+    async def _do_stop(self, monitor) -> None:
+        task = getattr(self, "_warmup_task", None)
+        if task is not None and not task.done():
+            task.cancel()
+        sink = self.session or self.pool_slot
+        if self.session is not None:
+            await self.session.drain(timeout=10.0)
+            self.session.close()
+        if self.pool_slot is not None:
+            # wait for THIS tenant's work only; other tenants' load must
+            # not stall a rolling restart
+            await self.pool_slot.drain(timeout=10.0)
+            self.pool_slot.pool.unregister(self.tenant_id)
+            self.pool_slot = None
+        if self.egress is not None:
+            # the shard loops (children, stopped just before this) drain
+            # their queues on the way down; this is the belt-and-braces
+            # wait for anything a straggling settle enqueued after
+            await self.egress.drain(timeout=5.0)
+        # commit-through: the lane loops died before their last
+        # checkpoint commit; with the drain complete (nothing pending,
+        # nothing unpublished) their HANDLED-through positions — the
+        # frontier of the last fully processed poll batch, never the
+        # raw delivered positions, which a cancellation mid-batch can
+        # leave past records nobody produced or admitted — are exactly
+        # the settled-and-published frontier. Committing them makes a
+        # clean handoff exactly-once instead of replaying the in-flight
+        # tail. A timed-out drain skips this (the unsettled tail must
+        # redeliver: at-least-once is the floor, never traded away).
+        idle = ((sink is None or getattr(sink, "idle", True))
+                and (self.egress is None or self.egress.idle))
+        if idle:
+            for consumer, handled in self._stopped_consumers:
+                if not handled:
+                    continue
+                try:
+                    consumer.commit(handled, fence=self.fence_token())
+                except FencedError:
+                    # zombie release: the new owner's offsets are the
+                    # truth now — commit nothing
+                    self.fence_lost()
+                    break
+        for consumer, _ in self._stopped_consumers:
+            consumer.close()
+        self._stopped_consumers.clear()
+
+    async def shed_route(self, batch: MeasurementBatch, sink,
+                         key: Optional[str] = None) -> None:
+        """Shed-mode routed scoring admit — ONE policy for the staged
+        consumer and the fused fast lane (kernel/fastlane.py), so the
+        lanes cannot diverge on it: ok → admit, degrade → host-side
+        fallback (model_version -1), defer → spool to the durable
+        deferred topic (drained back by the rule processor once
+        pressure clears). `flow.shed_mode` is also the "flow.shed"
+        chaos site — an injected fault propagates to the caller's
+        per-record quarantine like any other failure."""
+        flow = self.runtime.flow
+        shed = flow.shed_mode(self.tenant_id) if flow is not None else "ok"
+        if shed == "defer" and not hasattr(self.runtime.bus, "peek"):
+            # wire-bus process: the deferred drain can't run here (no
+            # poll_nowait), so spooling would strand events until
+            # retention trims them — degrade instead
+            shed = "degrade"
+        if shed == "defer":
+            t0 = time.monotonic()
+            await self.runtime.bus.produce(
+                self.tenant_topic(TopicNaming.DEFERRED_EVENTS), batch,
+                key=key, fence=self.fence_token())
+            # the deferred off-ramp is part of the event's journey: a
+            # sampled trace shows WHERE it left the scored path (and
+            # "flow.replay" later shows it coming back)
+            self.runtime.tracer.record(
+                batch.ctx.trace_id, "flow.defer", self.tenant_id,
+                t0, time.monotonic() - t0, len(batch))
+            flow.count_shed(self.tenant_id, "defer", len(batch))
+        elif shed == "degrade":
+            scored = self.degraded_score(batch)
+            flow.count_shed(self.tenant_id, "degrade", len(batch))
+            await self.scored_sink(scored)
+        else:
+            sink.admit(batch)
+
+    async def _deliver_scored(self, scored: ScoredBatch) -> None:
+        """LEGACY inline sink (`egress: {fused: false}`, the A/B
+        baseline): publish scored events + emit anomaly alerts right on
+        the settle path. The fused default routes through the
+        EgressStage instead (kernel/egresslane.py), which publishes and
+        emits alerts on supervised shard loops off the flush path."""
+        t0 = time.monotonic()
+        await self.runtime.bus.produce(
+            self.tenant_topic(TopicNaming.SCORED_EVENTS), scored,
+            key=scored.ctx.source, fence=self.fence_token())
+        # same stage name as the fused EgressStage records: traces stay
+        # comparable across the inline and fused egress configurations
+        self.runtime.tracer.record(
+            scored.ctx.trace_id, "egress.publish", self.tenant_id,
+            t0, time.monotonic() - t0, len(scored))
+        if self.emit_alerts and scored.is_anomaly.any():
+            em = self.runtime.api("event-management").management(self.tenant_id)
+            em.add_alert_batch(anomaly_alerts(scored, self.model_name))
+
+    def build_anomaly_alerts(self, scored: ScoredBatch) -> AlertBatch:
+        """The egress stage's alert builder (one place owns the
+        model-name attribution for both the inline and fused sinks)."""
+        return anomaly_alerts(scored, self.model_name)
+
+    # -- extension points --------------------------------------------------
+
+    def add_hook(self, name: str, hook: Hook) -> None:
+        """Register a python stream hook (Groovy-processor analog)."""
+        self.hooks[name] = hook
+
+    def remove_hook(self, name: str) -> None:
+        self.hooks.pop(name, None)
+
+    def put_script(self, name: str, source: str):
+        """Upload/update a script; it hot-reloads into the hook slot."""
+        script = self.scripts.put(name, source)
+        self.hooks[f"script:{name}"] = self.scripts.hook(name)
+        return script
+
+    def delete_script(self, name: str) -> None:
+        self.scripts.delete(name)
+        self.hooks.pop(f"script:{name}", None)
+
+    def swap_model_params(self, params: dict) -> int:
+        """Hot-swap scoring params (called on checkpoint rollout)."""
+        sink = self.session or self.pool_slot
+        if sink is None:
+            raise RuntimeError("no model session configured")
+        return sink.swap_params(params)
+
+    def degraded_score(self, batch: MeasurementBatch) -> ScoredBatch:
+        """Shed-path scoring (flow-control `degrade` mode): the cheap
+        host-side EWMA zscore fallback (kernel/flow.py) — no launch, no
+        device round-trip — so an overloaded tenant's events still get
+        approximate anomaly coverage while the real scorer drains."""
+        from sitewhere_tpu_torch.kernel.flow import DegradedZscore
+
+        if getattr(self, "_degraded", None) is None:
+            self._degraded = DegradedZscore()
+        mask = batch.mtype == self.scoring_cfg.mtype
+        dev = batch.device_index[mask]
+        scores = self._degraded.score(dev, batch.value[mask])
+        return ScoredBatch(
+            batch.ctx, dev, scores,
+            scores >= self.scoring_cfg.threshold, batch.ts[mask],
+            model_version=-1)   # -1: degraded fallback, not the model
+
+    async def forecast_device(self, device_index: int,
+                              include_attention: bool = False) -> dict:
+        """Model FORWARD forecast for one device (the query path). Raises
+        LookupError when the tenant's model has no forecast surface — as
+        the JAX package does for zscore and lstm. No model of the port
+        has one yet (the forecasters are ROADMAP A.4), so every
+        configured model raises here."""
+        if self.session is not None:
+            model = self.session.model
+        elif self.pool_slot is not None:
+            model = self.pool_slot.pool.model
+        else:
+            raise LookupError("no model session configured")
+        if getattr(model, "forecast", None) is None:
+            raise LookupError(
+                f"model {self.model_name!r} has no forecast surface")
+        raise not_ported(f"forecasts of model {self.model_name!r}", "A.4")
+
+
+class RuleProcessor(BackgroundTaskComponent):
+    def __init__(self, engine: RuleProcessingEngine):
+        super().__init__("rule-processor")
+        self.engine = engine
+
+    async def _run(self) -> None:
+        engine = self.engine
+        runtime = engine.runtime
+        tenant_id = engine.tenant_id
+        # sink: dedicated session or the shared pool's tenant slot —
+        # slots delegate flush_due/flush_nowait to the POOL, so this
+        # loop's turns drive the shared megabatch rounds exactly as
+        # they drive a session's flushes
+        sink = engine.session or engine.pool_slot
+        session = engine.session
+        api = RuleApi(engine)
+        if engine.emit_alerts:
+            await runtime.wait_for_engine("event-management", tenant_id)
+        # subscribe only after every prior await: a cancellation between
+        # subscribe and the try/finally would leak a group member that
+        # keeps its partitions assigned and silently starves the group
+        consumer = runtime.bus.subscribe(
+            engine.tenant_topic(TopicNaming.OUTBOUND_ENRICHED),
+            group=f"{tenant_id}.rule-processing")
+        # retention-overrun accounting: while paused on backpressure the
+        # bus keeps trimming, so at-least-once holds only within the
+        # retention window — records trimmed unread surface here
+        lost_counter = runtime.metrics.counter("scoring.bus_records_lost")
+        lost_seen = 0
+        # flow control (kernel/flow.py): every poll round feeds the
+        # scorer's backlog/inflight into the tenant's overload state;
+        # the resulting shed mode routes MeasurementBatches to the
+        # scorer (ok), the cheap fallback (degrade), or the deferred
+        # spool (defer) — and reopens ingress when pressure drains
+        flow = runtime.flow
+        deferred_topic = engine.tenant_topic(TopicNaming.DEFERRED_EVENTS)
+        deferred_consumer = None
+        # checkpointed commit state: (dispatch_count at snapshot, positions)
+        ckpt: Optional[tuple[int, dict]] = None
+        # the commit barrier composes the scoring sink with the fused
+        # egress stage (kernel/egresslane.py): offsets commit only once
+        # settles have PUBLISHED, not merely settled
+        barrier = commit_barrier(sink, engine.egress)
+        # handled-through frontier for the clean-handoff commit-through:
+        # a cancellation mid-batch must not let the stop path commit
+        # past records this loop never admitted
+        handled = None
+        cap = getattr(getattr(session, "cfg", None), "backlog_events", 0)
+        if not cap and engine.pool_slot is not None:
+            cap = engine.pool_slot.pool.cfg.backlog_events
+        # pool slots deliberately report max_inflight=0 (inflight
+        # pressure omitted): a slot's inflight counts STACKED dispatches
+        # the tenant rode, and every megabatched tenant rides every
+        # round — healthy pipelining pegs it at the pool cap for the
+        # whole fleet at once, which read as pressure 0.5 (= the reject
+        # threshold) and shed floods the scorer was absorbing. The
+        # per-tenant overload truth for a megabatched tenant is its OWN
+        # backlog (pending vs cap), reported above per poll round.
+        max_inflight = getattr(getattr(session, "cfg", None),
+                               "max_inflight", 0)
+
+        def report() -> str:
+            if flow is None or sink is None:
+                return "ok"
+            return flow.report_scorer(
+                tenant_id, pending=sink.pending_n, cap=cap,
+                inflight=getattr(sink, "inflight", 0),
+                max_inflight=max_inflight)
+
+        try:
+            while True:
+                mode = report()
+                if sink is not None and barrier.backlogged:
+                    # backpressure: the scorer's admission backlog — or
+                    # the egress stage's unpublished output — is at
+                    # capacity (warmup compile, regrow, overload). Stop
+                    # consuming — records stay in the bus uncommitted
+                    # (at-least-once within the retention window; past it
+                    # the consumer's lost_records counts the trim) instead
+                    # of being dropped after consume. Keep flushing so the
+                    # backlog drains (sessions AND pool slots: a slot's
+                    # flush drives the shared megabatch round).
+                    if sink.flush_due:
+                        sink.flush_nowait()
+                    await asyncio.sleep(
+                        max(sink.flush_wait_s, 0.001) if sink.ready else 0.05)
+                    continue
+                timeout = sink.flush_wait_s if sink else 0.2
+                records = await consumer.poll(max_records=64,
+                                              timeout=max(timeout, 0.001))
+                lost = getattr(consumer, "lost_records", 0)
+                if lost > lost_seen:
+                    lost_counter.inc(lost - lost_seen)
+                    lost_seen = lost
+                for record in records:
+                    # poison quarantine: an admit the scorer rejects
+                    # (malformed batch) dead-letters the record; the
+                    # tenant's scoring path keeps flowing
+                    try:
+                        value = record.value
+                        if sink is not None and isinstance(value,
+                                                           MeasurementBatch) \
+                                and not getattr(value.ctx, "fastlane",
+                                                False):
+                            # fastlane-flagged batches were already
+                            # admitted (and shed-routed) in the fused
+                            # hop; hooks below still run either way.
+                            # shed_route is the shared lane policy —
+                            # an injected "flow.shed" fault inside it
+                            # quarantines the record like any other
+                            # per-record failure
+                            await engine.shed_route(value, sink,
+                                                    key=record.key)
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as exc:  # noqa: BLE001 - quarantined
+                        await engine.dead_letter(record, exc, self.path)
+                        continue
+                    # snapshot: uploads may mutate hooks mid-await
+                    for name, hook in list(engine.hooks.items()):
+                        try:
+                            await hook(value, api)
+                        except Exception:  # noqa: BLE001 - hook errors isolated
+                            logger.exception("hook %s failed", name)
+                if records:
+                    handled = consumer.delivered_positions()
+                if sink is not None and sink.flush_due:
+                    # pipelined: dispatch now; the settled batch reaches
+                    # the scored sink (publish + alerts) without blocking
+                    # this consumer loop. Pool slots delegate to the
+                    # SHARED megabatch round — consumer turns drive the
+                    # stacked dispatch cadence exactly as they drive a
+                    # dedicated session's (the pool's background flusher
+                    # would starve behind N busy consumer loops)
+                    sink.flush_nowait()
+                # refresh the mode AFTER the poll/admit: the pre-poll
+                # value is stale by up to the poll timeout, and a drain
+                # decision made on it could replay records spooled within
+                # the same iteration (found by the forced-defer test)
+                mode = report()
+                if (mode == "ok" and flow is not None and sink is not None
+                        and not barrier.backlogged
+                        and hasattr(runtime.bus, "peek")):
+                    # overload cleared: drain a bounded slice of the
+                    # deferred spool back through the scorer. Bounded per
+                    # round so replay cannot re-trigger the overload it
+                    # deferred around; progress commits under a replay
+                    # group so restarts never duplicate.
+                    if deferred_consumer is None:
+                        deferred_consumer = runtime.bus.subscribe(
+                            deferred_topic,
+                            group=f"{tenant_id}.deferred-replay")
+                    replayed = deferred_consumer.poll_nowait(max_records=8)
+                    for rec in replayed:
+                        try:
+                            if not isinstance(rec.value, MeasurementBatch):
+                                continue
+                            t_rep = time.monotonic()
+                            sink.admit(rec.value)
+                            # spool → re-admission: the gap between the
+                            # "flow.defer" span and this one's t_start
+                            # is the time the batch sat deferred
+                            runtime.tracer.record(
+                                rec.value.ctx.trace_id, "flow.replay",
+                                tenant_id, t_rep,
+                                time.monotonic() - t_rep, len(rec.value))
+                            flow.count("deferred_replayed", tenant_id,
+                                       len(rec.value))
+                        except asyncio.CancelledError:
+                            raise
+                        except Exception as exc:  # noqa: BLE001
+                            await engine.dead_letter(rec, exc, self.path)
+                    if replayed:
+                        try:
+                            deferred_consumer.commit(
+                                fence=engine.fence_token())
+                        except FencedError:
+                            # this worker lost the tenant mid-replay:
+                            # report it (the fleet worker stops these
+                            # engines) and leave the spool offsets for
+                            # the new owner
+                            engine.fence_lost()
+                # at-least-once without commit starvation: when the sink
+                # is idle, commit directly; under steady pipelined load,
+                # the shared checkpoint barrier (kernel/fastlane.py —
+                # one implementation for both lanes) commits snapshots
+                # once everything dispatched before them has settled
+                # AND published. A crash redelivers the unsettled tail.
+                ckpt = await checkpoint_commit(consumer, barrier, ckpt,
+                                               fence=engine.fence)
+        finally:
+            if deferred_consumer is not None:
+                deferred_consumer.close()
+            if engine.status == LifecycleStatus.STOPPING:
+                # engine stop (release/handoff): hand the consumer +
+                # its handled-through positions to _do_stop for the
+                # post-drain commit-through; it closes it afterwards
+                engine._stopped_consumers.append((consumer, handled))
+            else:
+                # supervised restart: leave the group now — a fresh
+                # consumer joins on the next run, and a lingering dead
+                # member would starve its partitions
+                consumer.close()
+
+
+class RuleProcessingService(Service):
+    identifier = "rule-processing"
+    multitenant = True
+
+    def __init__(self, runtime):
+        super().__init__(runtime)
+        # every model, session and pool of this service lives here:
+        # the card unless the instance names another device (raises
+        # now, before any tenant, when the card is asked for and absent)
+        self.device = resolve_device(runtime.settings.device)
+        self._pools: dict[tuple, SharedScoringPool] = {}
+
+    def create_tenant_engine(self, tenant: TenantConfig) -> RuleProcessingEngine:
+        return RuleProcessingEngine(self, tenant)
+
+    def shared_pool(self, model_name: str, model_config: dict,
+                    scoring_cfg: ScoringConfig,
+                    mesh_spec: Optional[dict] = None) -> SharedScoringPool:
+        """Get-or-create the multi-tenant pool for one architecture
+        (config 4). Keyed by (model, config, channel): tenants selecting
+        the same architecture share one stacked-params scorer."""
+        if mesh_spec:
+            raise not_ported("a serving mesh for the shared pool", "A.2")
+        # canonical JSON keeps the key hashable for list/dict config values
+        import json
+
+        key = (model_name,
+               json.dumps(model_config, sort_keys=True, default=str),
+               scoring_cfg.mtype,
+               # ring-shaping knobs are baked into the compiled step:
+               # tenants differing in ANY of them must not share a pool
+               # (a silently-shared sparse_k would drop one tenant's
+               # overflow anomalies with no trace but a counter)
+               scoring_cfg.readback,
+               # sparse_k is inert in full mode — don't split pools on
+               # a leftover knob
+               (scoring_cfg.sparse_k
+                if scoring_cfg.readback == "anomalies" else 0),
+               scoring_cfg.score_dtype)
+        pool = self._pools.get(key)
+        if pool is None:
+            model = build_model(model_name, device=self.device,
+                                **model_config)
+            # megabatch shaping knobs (window, tenants-per-dispatch,
+            # inflight bound) are POOL-wide: the first registrant's
+            # values win — splitting pools on them would defeat the
+            # cross-tenant batching they exist for
+            pool = SharedScoringPool(
+                model, self.runtime.metrics,
+                PoolConfig(batch_buckets=scoring_cfg.buckets,
+                           batch_window_ms=scoring_cfg.batch_window_ms,
+                           mtype=scoring_cfg.mtype, seed=scoring_cfg.seed,
+                           max_inflight=scoring_cfg.max_inflight,
+                           backlog_cap=scoring_cfg.backlog_cap,
+                           score_dtype=scoring_cfg.score_dtype,
+                           readback=scoring_cfg.readback,
+                           sparse_k=scoring_cfg.sparse_k,
+                           megabatch_window_ms=scoring_cfg.megabatch_window_ms,
+                           max_tenants=scoring_cfg.megabatch_max_tenants,
+                           window_auto=scoring_cfg.megabatch_autotune),
+                tracer=self.runtime.tracer, faults=self.runtime.faults,
+                device=self.device)
+            self._pools[key] = pool
+        return pool
+
+    async def _do_stop(self, monitor) -> None:
+        for pool in self._pools.values():
+            pool.close()
+        self._pools.clear()

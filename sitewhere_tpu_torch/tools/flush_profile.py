@@ -1,16 +1,19 @@
 """Where a full-fleet flush spends its time, on the card.
 
-    python -m sitewhere_tpu_torch.tools.flush_profile [--path {session,stream,pool}]
-        [--flushes N] [--trace FILE]
+    python -m sitewhere_tpu_torch.tools.flush_profile
+        [--path {session,stream,pool,pipeline}] [--flushes N] [--trace FILE]
 
-Builds one of the paths `chip_smoke.py` drives (`tools/main_path.py`):
-`session`, the dedicated windowed-`lstm` session (the default); `stream`,
-the dedicated `lstm-stream` session; `pool`, the `lstm-stream` pool with
-one 32,768-device tenant and one fleet-sized bucket (the bench's default
-serving configuration). It warms the path, then runs N full-fleet
-flushes under `torch.profiler`. Host spans come from the path's own
-profiler labels (the session's `scoring.take_pending`,
-`scoring.dispatch` and `scoring.update_and_score` inside it; the pool's
+Builds one of the paths `chip_smoke.py` drives (`tools/main_path.py`,
+`tools/pipeline.py`): `session`, the dedicated windowed-`lstm` session
+(the default); `stream`, the dedicated `lstm-stream` session; `pool`, the
+`lstm-stream` pool with one 32,768-device tenant and one fleet-sized
+bucket (the bench's default serving configuration); `pipeline`, that
+pool inside the service runtime, a "flush" there being one fleet tick
+from the tenant's receiver to its last record on the scored topic. It
+warms the path, then runs N full-fleet flushes under `torch.profiler`.
+Host spans come from the path's own profiler labels (the session's
+`scoring.take_pending`, `scoring.dispatch` and
+`scoring.update_and_score` inside it; the pool's
 `scoring.pool_take` and `scoring.dispatch`) and a `flush` label put
 around each awaited flush here; device spans from the profiler's CUDA
 kernel and copy records. Prints the wall time of the flush and the share
@@ -35,12 +38,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from sitewhere_tpu_torch.tools import main_path
+from sitewhere_tpu_torch.tools import main_path, pipeline
 
 STEPS = {"session": ("flush", "scoring.take_pending", "scoring.dispatch",
                      "scoring.update_and_score"),
          "pool": ("flush", "scoring.pool_take", "scoring.dispatch")}
 STEPS["stream"] = STEPS["session"]
+STEPS["pipeline"] = STEPS["pool"]
 
 
 def _union_us(spans) -> float:
@@ -54,6 +58,8 @@ def _union_us(spans) -> float:
 
 async def _flusher(which: str):
     """(one_flush coroutine function, drain) for the chosen path."""
+    if which == "pipeline":
+        return await _pipeline_flusher()
     if which == "pool":
         path = await main_path.build_pool("profile", "lstm-stream", 1,
                                           main_path.FLEET, (main_path.FLEET,))
@@ -78,6 +84,24 @@ async def _flusher(which: str):
         return 1e3 * (time.perf_counter() - t0)
 
     return one_flush, drain
+
+
+async def _pipeline_flusher():
+    pipe = await pipeline.build()
+    consumer = pipe.scored_consumer()
+    t = pipe.t
+
+    async def one_flush() -> float:
+        nonlocal t
+        payload = pipe.sim.tick(t=t)[0].encode()
+        t += pipeline.TICK_S
+        t0 = time.perf_counter()
+        with record_function("flush"):
+            await pipe.receiver.submit(payload)
+            await pipeline.collect_scored(consumer, pipeline.FLEET)
+        return 1e3 * (time.perf_counter() - t0)
+
+    return one_flush, pipe.stop
 
 
 async def _run(which: str, n_flushes: int, trace: Path) -> dict:

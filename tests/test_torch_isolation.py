@@ -3,6 +3,7 @@ import neither jax nor the JAX package, and the port's entry points
 refuse to run silently on the CPU when no device is named."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -10,6 +11,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+# the tier-1 run shares the host's cores between test workers
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sitewhere_tpu_torch"
@@ -49,6 +53,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.ops.build\n"
         "import sitewhere_tpu_torch.scoring.pool, sitewhere_tpu_torch.parallel\n"
         "import sitewhere_tpu_torch.tools.main_path\n"
+        "import sitewhere_tpu_torch.kernel.service, sitewhere_tpu_torch.services\n"
+        "import sitewhere_tpu_torch.cli, sitewhere_tpu_torch.tools.pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sitewhere_tpu')]\n"
         "print(bad)\n"
@@ -106,6 +112,38 @@ def test_streaming_and_pool_entry_points_without_device_raise(no_card, entry):
     }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+
+
+def test_runtime_with_rule_processing_without_device_raises(no_card):
+    """The scoring service resolves its device when it is built: with no
+    card and no device named, the runtime refuses it at once."""
+    from sitewhere_tpu_torch.config import InstanceSettings
+    from sitewhere_tpu_torch.kernel.service import ServiceRuntime
+    from sitewhere_tpu_torch.services import RuleProcessingService
+
+    rt = ServiceRuntime(InstanceSettings())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RuleProcessingService(rt)
+    cpu = ServiceRuntime(InstanceSettings(device="cpu"))
+    assert RuleProcessingService(cpu).device.type == "cpu"
+
+
+def test_demo_cli_needs_the_card_or_the_cpu_named(no_card):
+    """`python -m sitewhere_tpu_torch.cli demo` with no card exits
+    non-zero naming the missing device; with `--cpu` it runs the
+    pipeline and prints its JSON report."""
+    cmd = [sys.executable, "-m", "sitewhere_tpu_torch.cli", "demo",
+           "--devices", "64", "--seconds", "1"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    out = subprocess.run(cmd + ["--cpu"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout[out.stdout.index("{"):])
+    assert report["events_sent"] > 0
+    assert report["events_persisted"] == report["events_sent"]
 
 
 def test_kernel_build_is_keyed_on_source_and_stays_in_checkout(tmp_path,

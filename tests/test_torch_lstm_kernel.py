@@ -23,6 +23,9 @@ from sitewhere_tpu_torch.ops.lstm_kernel import (
     lstm_window_final_plain,
 )
 
+# the tier-1 run shares the host's cores between test workers
+torch.set_num_threads(2)
+
 
 def _params(seed: int, hidden: int):
     p = jax.tree.map(np.asarray, lstm_init(jax.random.PRNGKey(seed), 1, hidden))

@@ -29,6 +29,9 @@ from sitewhere_tpu_torch.models import build_model
 from sitewhere_tpu_torch.models.common import lstm_scan as torch_lstm_scan
 from sitewhere_tpu_torch.ops.lstm_kernel import KERNEL_HIDDEN
 
+# the tier-1 run shares the host's cores between test workers
+torch.set_num_threads(2)
+
 
 def _np_params(jax_model, seed):
     return jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(seed)))

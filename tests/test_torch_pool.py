@@ -42,6 +42,9 @@ from sitewhere_tpu_torch.scoring.stream import (
 from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
 from tests.test_pipeline import wait_until
 
+# the tier-1 run shares the host's cores between test workers
+torch.set_num_threads(2)
+
 W, H = 32, 16
 
 

@@ -14,6 +14,7 @@ import asyncio
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sitewhere_tpu.domain.batch import BatchContext as JBatchContext
 from sitewhere_tpu.domain.batch import MeasurementBatch as JBatch
@@ -30,6 +31,9 @@ from sitewhere_tpu_torch.ops import lstm_kernel
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
 from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
+
+# the tier-1 run shares the host's cores between test workers
+torch.set_num_threads(2)
 
 
 def _fill_store(store, sim, ticks: int, t0: float = 0.0):
