@@ -59,7 +59,35 @@ prints no result):
                 same paced window;
  10. demo     — `python -m sitewhere_tpu_torch.cli demo --devices 4096
                 --seconds 2` on the card: events persisted == sent,
-                model alerts > 0.
+                model alerts > 0;
+ 11. native   — the telemetry store's host library (g++, built in phase
+                2) at 32,768 devices × history 256: six 32,768-event ticks
+                with in-batch duplicates and ring wraparound, the library
+                bit-equal to its numpy plain versions for append, window,
+                window_ts and latest; ms per append and per window for both;
+ 12. pipeline-durable — phase 8 with `data_dir` on a fresh directory (the
+                bench's `--durable`): burst events/s, persist ms a tick,
+                the spill log's written/dropped; then the runtime stops
+                and a fresh one starts on the directory: seconds from
+                start to ready (time to recover), the registry's
+                `restored_from`, every written event back in the store in
+                the first runtime's order, and one more tick scored and
+                sampled against the CPU reference;
+ 13. replay   — the bench's replay corpus (500,000 events over 32,768
+                devices, 60 s windows, blocks of 65,536) compacted into
+                the cold tier and replayed by `ReplayEngine` through a
+                `SharedScoringPool` on the card (`lstm-stream`, buckets
+                256/1024/4096/8192): one checked pass (every event scored
+                exactly once, a 1,024-device sample against the CPU
+                streaming model fed the same records from a cold state),
+                then timed passes; replay and compaction events/s;
+                `guard_swap` over the corpus promotes identical params and
+                refuses perturbed ones (over all of it: one window holds
+                ≈2 events a device, below the model's scoring floor);
+ 14. cli-replay — `python -m sitewhere_tpu_torch.cli replay --data-dir
+                <phase 12's directory> --tenant bench` on the card: exit 0,
+                as many events replayed and scored as the durable log
+                holds.
 Phases 5–8 check that every event is scored, every score finite, the
 dispatches are the occurrence rounds, injected anomalies stand out, and
 a sample of 1,024 devices per tenant agrees with an independent CPU
@@ -67,7 +95,7 @@ reference (the streaming model stepped over the same events from its
 host windows, or the windowed model's `score` on the host store's
 windows; atol 1e-2 plus 1e-3 relative). No CUDA kernel of the port runs
 on these paths (their steps are plain PyTorch), so K1's launch count
-must stay 0 there. Each path prints one stats line.
+must stay 0 there, and in phases 12–13. Each path prints one stats line.
 The second-to-last line is the `{"kernels": [...]}` record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -76,9 +104,12 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+from collections import Counter
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -114,10 +145,23 @@ WINDOW_POOL = (4, FLEET // 4, (FLEET // 4,))
 PIPELINE_TICKS, PIPELINE_ANOMALY_AT = 6, 3
 # then the latency window: ticks offered at this share of the burst's rate
 PACED_TICKS, PACED_FRACTION = 24, 0.5
+# the native store phase: ring length and ticks
+NATIVE_HISTORY, NATIVE_TICKS = 256, 6
+# timed passes over the bench's replay corpus (tools/replay_bench.py), and
+# the shadow gate's bar
+REPLAY_TRIALS, GATE_BAR = 3, 0.05
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def scratch_dir() -> str:
+    """The checkout's gitignored `build/`: the durable and replay phases'
+    data directories live (and are removed) under it."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(path, exist_ok=True)
+    return path
 
 
 def phase_device(torch) -> str:
@@ -139,8 +183,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     reports = build_all()
-    log(f"build: {len(reports)} kernel source(s) in "
-        f"{time.perf_counter() - t0:.3f} s")
+    log(f"build: {len(reports)} source(s) (CUDA kernels and the store's "
+        f"host library) in {time.perf_counter() - t0:.3f} s")
     for name, report in reports.items():
         # one line per compiled kernel: its template arguments (for
         # lstm_window: h, warps sharing a tile's units, tiles a CTA, rows
@@ -348,6 +392,10 @@ class StreamReference:
         self.params = params_from_numpy(params_to_numpy(params), "cpu")
         self.row = np.full(int(devices.max()) + 1, -1, np.int64)
         self.row[devices] = np.arange(devices.shape[0])
+        if store is None:
+            # a cold slot (a replay's): the ring's zero state
+            self.state = self.model.init_state(devices.shape[0])
+            return
         x, valid = store.window(devices, WINDOW)
         self.state = self.model.warm_state(self.params, torch.from_numpy(x),
                                            torch.from_numpy(valid))
@@ -634,16 +682,18 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     return stats
 
 
-async def phase_pipeline(torch, label: str, model: str,
-                         megabatch: bool) -> dict:
+async def phase_pipeline(torch, label: str, model: str, megabatch: bool,
+                         data_dir: str | None = None):
     """The bench's deployment through the service runtime: six fleet
     ticks submitted to the tenant's receiver, scored through the fast
-    lane, the pool (or a dedicated session) and the egress stage."""
+    lane, the pool (or a dedicated session) and the egress stage, with a
+    durable log and registry snapshots under `data_dir` when it is set.
+    Returns (stats, the stopped pipeline)."""
     from sitewhere_tpu_torch.ops import lstm_kernel
     from sitewhere_tpu_torch.tools import pipeline as pl
 
     t_setup = time.perf_counter()
-    pipe = await pl.build(model, megabatch)
+    pipe = await pl.build(model, megabatch, data_dir=data_dir)
     eng, rt = pipe.engine, pipe.rt
     if (eng.fastlane is None or eng.egress is None
             or (eng.pool_slot is None) == megabatch):
@@ -750,7 +800,7 @@ async def phase_pipeline(torch, label: str, model: str,
              "max_err": err, "stages": pl.stage_ms(rt)}
     log(f"{label}: {json.dumps(stats)}")
     await pipe.stop()
-    return stats
+    return stats, pipe
 
 
 async def pace_pipeline(pipe, consumer, burst_rate: float) -> dict:
@@ -800,6 +850,358 @@ def phase_demo() -> dict:
     return report
 
 
+def phase_native() -> dict:
+    """The store's host library against its numpy plain versions, bit
+    for bit, at the bench's store size."""
+    from sitewhere_tpu_torch.persistence import telemetry as tel
+    from sitewhere_tpu_torch.persistence.native import get_lib
+
+    get_lib()  # load the library outside the timed appends
+    rng = np.random.default_rng(SEED + 5)
+    native = tel.TelemetryTable(NATIVE_HISTORY, FLEET)
+    plain = tel.TelemetryTable(NATIVE_HISTORY, FLEET)
+    every = np.arange(FLEET, dtype=np.uint32)
+    append_ms = {"native": [], "plain": []}
+    seen = np.zeros(FLEET, np.int64)
+    # half of every tick lands on `hot` devices, ≈NATIVE_HISTORY events
+    # each (64 at the full fleet): their rings wrap
+    hot = max(FLEET // (2 * NATIVE_HISTORY), 1)
+    for k in range(NATIVE_TICKS):
+        # the other half over the whole fleet: in-batch duplicates
+        dev = np.concatenate([rng.integers(0, FLEET, FLEET // 2),
+                              rng.integers(0, hot, FLEET // 2)])
+        dev = rng.permutation(dev).astype(np.uint32)
+        val = rng.normal(20.0, 5.0, FLEET).astype(np.float32)
+        ts = TICK_S * k + np.sort(rng.random(FLEET))
+        seen += np.bincount(dev, minlength=FLEET)
+        for name, append in (("native", native.append),
+                             ("plain", lambda d, v, t: tel.append_plain(
+                                 plain, d, v, t))):
+            t0 = time.perf_counter()
+            append(dev, val, ts)
+            append_ms[name].append(1e3 * (time.perf_counter() - t0))
+        for field in ("values", "ts", "cursor", "count"):
+            if getattr(native, field).tobytes() != getattr(plain, field).tobytes():
+                raise AssertionError(f"native: append tick {k}: {field} "
+                                     "differs from the plain version")
+    wraps = int((seen > NATIVE_HISTORY).sum())
+    if wraps < hot:
+        raise AssertionError(f"native: only {wraps} rings wrapped")
+    t0 = time.perf_counter()
+    got = (*native.window(every, WINDOW), native.window_ts(every, WINDOW),
+           *native.latest(every))
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = (*tel.window_plain(plain, every, WINDOW),
+            tel.window_ts_plain(plain, every, WINDOW),
+            *tel.latest_plain(plain, every))
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for name, a, b in zip(("window", "valid", "window_ts", "latest value",
+                           "latest ts"), got, want):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"native: {name} differs from the plain "
+                                 "version")
+    stats = {"devices": FLEET, "history": NATIVE_HISTORY,
+             "ticks": NATIVE_TICKS, "events_per_tick": FLEET,
+             "rings_wrapped": wraps,
+             # the first tick also pays the tables' first-touch page faults
+             "append_ms": float(np.median(append_ms["native"])),
+             "append_plain_ms": float(np.median(append_ms["plain"])),
+             "append_ms_ticks": append_ms["native"],
+             "append_plain_ms_ticks": append_ms["plain"],
+             "reads_ms": native_ms, "reads_plain_ms": plain_ms}
+    log(f"native: bit-equal to the plain versions; {json.dumps(stats)}")
+    return stats
+
+
+def logged_events(data_dir: str) -> tuple[int, tuple]:
+    """The bench tenant's durable log read back on its own: (records,
+    (device_index, value, ts) of its measurements in log order)."""
+    from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch
+    from sitewhere_tpu_torch.persistence.durable import RT_MEASUREMENTS, SegmentLog
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    ctx = BatchContext(tenant_id=pl.TENANT, source="chip-smoke")
+    log_dir = os.path.join(data_dir, "tenants", pl.TENANT, "events")
+    records, cols = 0, ([], [], [])
+    for rtype, payload in SegmentLog(log_dir).replay():
+        records += 1
+        if rtype == RT_MEASUREMENTS:
+            b = MeasurementBatch.decode(payload, ctx)
+            for col, arr in zip(cols, (b.device_index, b.value, b.ts)):
+                col.append(arr)
+    return records, tuple(np.concatenate(c) for c in cols)
+
+
+async def phase_durable(torch, data_dir: str) -> int:
+    """Phase 8 spilling to `data_dir`, then a restart on it; returns the
+    events the durable log holds at the end."""
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.persistence.durable import (
+        load_snapshot,
+        save_snapshot,
+    )
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    label = "pipeline-durable"
+    stats, first = await phase_pipeline(torch, label, "lstm-stream", True,
+                                        data_dir)
+    spill = first.em.spi.durable
+    persist = stats["stages"]["event-management.persist"]
+    # two parts of a restart's work, timed alone: reading and decoding
+    # the log (the store's replay also appends it), loading the registry
+    t0 = time.perf_counter()
+    records, (dev, _, ts) = logged_events(data_dir)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snapshot = load_snapshot(os.path.join(data_dir, "tenants", pl.TENANT,
+                                          "registry.snap"))
+    snapshot_s = time.perf_counter() - t0
+    log(f"{label}: burst {stats['events_per_s']} events/s, persist "
+        f"{persist['mean_ms']} ms a tick ({persist['spans']} ticks), spill "
+        f"written {spill.written} dropped {spill.dropped} write errors "
+        f"{spill.write_errors}; the log holds {records} records, "
+        f"{dev.shape[0]} events")
+    if spill.write_errors or records != spill.written:
+        raise AssertionError(f"{label}: {records} records on disk for "
+                             f"{spill.written} written")
+    sent = (PIPELINE_TICKS + PACED_TICKS) * pl.FLEET
+    if not spill.dropped and dev.shape[0] != sent:
+        raise AssertionError(f"{label}: {dev.shape[0]} of {sent} events "
+                             "logged")
+
+    lstm_kernel.launches = 0
+    t0 = time.perf_counter()
+    pipe = await pl.build("lstm-stream", True, data_dir=data_dir)
+    ttr = time.perf_counter() - t0
+    dm = pipe.rt.api("device-management").management(pl.TENANT)
+    tel1, tel2 = first.em.telemetry, pipe.em.telemetry
+    # and the registry snapshot that the first runtime's snapshotter
+    # wrote once in set-up (collected on the loop, encoded and written in
+    # an executor thread), timed alone on the restored registry
+    t0 = time.perf_counter()
+    registry = dm.spi.to_snapshot()
+    collect_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as tmp:
+        t0 = time.perf_counter()
+        save_snapshot(os.path.join(tmp, "registry.snap"), registry)
+        save_s = time.perf_counter() - t0
+    log(f"{label}: restart ready in {ttr:.3f} s (time to recover): "
+        f"restored_from {dm.restored_from}, {dm.spi.device_count()} "
+        f"devices, {tel2.total_events} events replayed into the store; "
+        f"alone, the log's read + decode takes {read_s:.3f} s, the "
+        f"registry snapshot's load {snapshot_s:.3f} s, its collect "
+        f"{collect_s:.3f} s and encode + write {save_s:.3f} s")
+    if (dm.restored_from != "snapshot+wal" or snapshot is None
+            or dm.spi.device_count() != pl.FLEET
+            or tel2.total_events != dev.shape[0]):
+        raise AssertionError(f"{label}: restored {dm.restored_from}, "
+                             f"{dm.spi.device_count()} devices, "
+                             f"{tel2.total_events} events")
+    # every written event is back, per device in the first runtime's
+    # order: its windows with the dropped ticks left out
+    every = np.arange(pl.FLEET)
+    x1, v1 = tel1.window(every, pl.HISTORY)
+    keep = v1 & np.isin(tel1.channel(0).window_ts(every, pl.HISTORY),
+                        np.unique(ts))
+    k = int(tel2.channel(0).count.max())
+    x2, v2 = tel2.window(every, k)
+    if not (np.array_equal(keep.sum(1), v2.sum(1))
+            and np.array_equal(x1[keep], x2[v2])):
+        raise AssertionError(f"{label}: the restored windows differ from "
+                             "the first runtime's")
+
+    # one more tick through the restored pipeline, sampled against the
+    # CPU reference seeded from the restored store
+    rng = np.random.default_rng(SEED + 7)
+    sample = np.sort(rng.choice(pl.FLEET, SAMPLE, replace=False))
+    ref = StreamReference(torch, pipe.engine.pool_slot.pool.stack.get_params(
+        pipe.tenant), tel2, sample)
+    consumer = pipe.scored_consumer()
+    batch, _ = pipe.sim.tick(
+        t=first.t + TICK_S * (PIPELINE_TICKS + PACED_TICKS))
+    if not await pipe.receiver.submit(batch.encode()):
+        raise AssertionError(f"{label}: the tick was shed at ingress")
+    got, _ = await pl.collect_scored(consumer, pl.FLEET)
+    consumer.close()
+    table = pl.scored_table(got)
+    scores = np.array([table[key][0] for key in zip(
+        batch.device_index.tolist(), batch.ts.tolist())], np.float32)
+    pos, want = ref.step(batch.device_index, batch.value)
+    err = check_close(label, scores[pos], want)
+    if len(table) != pl.FLEET or lstm_kernel.launches:
+        raise AssertionError(f"{label}: {len(table)} scored after the "
+                             f"restart, {lstm_kernel.launches} K1 launches")
+    await pipe.stop()
+    records, (dev, _, _) = logged_events(data_dir)
+    summary = {"time_to_recover_s": ttr, "log_read_s": read_s,
+               "snapshot_load_s": snapshot_s,
+               "snapshot_collect_s": collect_s, "snapshot_save_s": save_s,
+               "restored_from": dm.restored_from,
+               "restored_events": int(tel2.total_events - pl.FLEET),
+               "spill_written": spill.written, "spill_dropped": spill.dropped,
+               "persist_ms": persist["mean_ms"],
+               "events_per_s": stats["events_per_s"],
+               "max_err_after_restart": err, "logged_events": int(dev.shape[0])}
+    log(f"{label}: {json.dumps(summary)}")
+    return int(dev.shape[0])
+
+
+async def phase_replay(torch) -> dict:
+    """The bench's replay corpus in the cold tier, replayed through the
+    pool on the card, checked, then timed; then the shadow gate."""
+    from sitewhere_tpu_torch.history import DivergenceGateError, ReplayEngine
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
+    from sitewhere_tpu_torch.tools import replay_bench as rb
+
+    label = "replay"
+    with tempfile.TemporaryDirectory(prefix="smoke-replay-",
+                                     dir=scratch_dir()) as root:
+        store, cols, comp, comp_s = rb.corpus(root)
+        log(f"{label}: compacted {comp['events']} events from "
+            f"{comp['segments']} segment(s) into {comp['blocks']} blocks in "
+            f"{comp_s:.3f} s ({comp['events'] / comp_s:.1f} events/s)")
+        if comp["events"] != rb.EVENTS:
+            raise AssertionError(f"{label}: {comp['events']} compacted")
+        pool, model = rb.pool()
+        params = model.init(torch.Generator().manual_seed(SEED + 6))
+        engine = ReplayEngine(pool)
+        try:
+            stats = await replay_passes(torch, engine, store, cols, params)
+            # the shadow gate over the whole corpus: one 60 s window holds
+            # ≈2 events a device, below the streaming model's 8-event
+            # scoring floor, so there every score is 0 under any params
+
+            async def sink(_scored) -> None:
+                return None
+
+            slot = pool.register(rb.TENANT, TelemetryStore(), rb.THRESHOLD,
+                                 sink, params=params)
+            v0 = slot.version
+            try:
+                await engine.guard_swap(
+                    slot, store, {k: {n: t + 0.5 for n, t in leaf.items()}
+                                  for k, leaf in params.items()},
+                    max_divergence=GATE_BAR)
+                raise AssertionError(f"{label}: perturbed params promoted")
+            except DivergenceGateError as exc:
+                refused = exc.report
+            if slot.version != v0:
+                raise AssertionError(f"{label}: a refused swap bumped the "
+                                     "version")
+            _, promoted = await engine.guard_swap(
+                slot, store, {k: dict(leaf) for k, leaf in params.items()},
+                max_divergence=GATE_BAR)
+            if not promoted["promoted"] or slot.version == v0:
+                raise AssertionError(f"{label}: identical params refused")
+            stats["gate"] = {
+                "events": promoted["events"],
+                "identical_max_abs": promoted["max_abs"],
+                "perturbed_max_abs": refused["max_abs"],
+                "perturbed_anomaly_flips": refused["anomaly_flips"],
+                "bar": GATE_BAR}
+            pool.unregister(rb.TENANT)
+        finally:
+            pool.close()
+            store.close()
+    if lstm_kernel.launches:
+        raise AssertionError(f"{label}: {lstm_kernel.launches} K1 launches")
+    stats["compact_events_per_s"] = comp["events"] / comp_s
+    log(f"{label}: {json.dumps(stats)}")
+    return stats
+
+
+async def replay_passes(torch, engine, store, cols, params) -> dict:
+    """One checked replay pass (cold: every bucket's first dispatch
+    lands here), then REPLAY_TRIALS timed ones."""
+    from sitewhere_tpu_torch.history import ScoreCollector
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import replay_bench as rb
+
+    label = "replay"
+    lstm_kernel.launches = 0
+    collect = ScoreCollector()
+    t0 = time.perf_counter()
+    first = await engine.replay(rb.TENANT, store, rb.THRESHOLD, params=params,
+                                collect=collect)
+    cold_s = time.perf_counter() - t0
+    dev_t, ts_t, sc_t, _ = collect.table()
+    dev = np.concatenate([c[0] for c in cols])
+    ts = np.concatenate([c[2] for c in cols])
+    order = np.lexsort((dev, ts))
+    # every corpus event scored exactly once, every score finite
+    if (first["events"] != rb.EVENTS or collect.total != rb.EVENTS
+            or not np.array_equal(dev_t, dev[order])
+            or not np.array_equal(ts_t, ts[order])
+            or not np.isfinite(sc_t).all()):
+        raise AssertionError(f"{label}: {collect.total} scores for "
+                             f"{rb.EVENTS} events")
+    # a sample against the streaming model on the CPU, fed each sampled
+    # device's records in log order from the ring's cold state
+    rng = np.random.default_rng(SEED + 8)
+    sample = np.sort(rng.choice(rb.DEVICES, SAMPLE, replace=False))
+    ref = StreamReference(torch, params, None, sample)
+    # the sampled devices' scores by (device, ts); a key two events share
+    # (ts collide at float64's resolution) is left out of the comparison
+    mine = np.isin(dev_t, sample)
+    keys = list(zip(dev_t[mine].tolist(), ts_t[mine].tolist()))
+    scores = dict(zip(keys, sc_t[mine].tolist()))
+    shared = {k for k, n in Counter(keys).items() if n > 1}
+    errs, compared = [], 0
+    for bdev, bval, bts in cols:
+        pos, want = ref.step(bdev, bval)
+        got = np.array([scores[k] for k in zip(bdev[pos].tolist(),
+                                               bts[pos].tolist())], np.float32)
+        ok = np.array([k not in shared for k in zip(bdev[pos].tolist(),
+                                                    bts[pos].tolist())])
+        errs.append(check_close(label, got[ok], want[ok]))
+        compared += int(ok.sum())
+    log(f"{label}: checked pass {first['events']} events, "
+        f"{first['windows']} windows in {cold_s:.3f} s; {len(sample)} "
+        f"devices ({compared} events) vs the CPU reference: max |err| "
+        f"{max(errs):.3e}")
+    rates = []
+    for _ in range(REPLAY_TRIALS):
+        t0 = time.perf_counter()
+        rep = await engine.replay(rb.TENANT, store, rb.THRESHOLD,
+                                  params=params)
+        elapsed = time.perf_counter() - t0
+        if rep["events"] != rb.EVENTS or rep["scored"] != rb.EVENTS:
+            raise AssertionError(f"{label}: a timed pass scored "
+                                 f"{rep['scored']} of {rep['events']}")
+        rates.append(rb.EVENTS / elapsed)
+    return {"events": rb.EVENTS, "devices": rb.DEVICES,
+            "windows": first["windows"], "checked_pass_s": cold_s,
+            "replay_events_per_s": max(rates),
+            "replay_events_per_s_median": float(np.median(rates)),
+            "trials": rates, "max_err": max(errs),
+            "anomalies": first["anomalies"]}
+
+
+def phase_cli_replay(data_dir: str, logged: int) -> dict:
+    """`cli replay` over the durable phase's directory on the card."""
+    import contextlib
+    import io
+
+    from sitewhere_tpu_torch import cli
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["replay", "--data-dir", data_dir, "--tenant",
+                       pl.TENANT])
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    report = json.loads(text[text.index("{"):])
+    log(f"cli-replay: exit {rc} in {seconds:.3f} s: {json.dumps(report)}")
+    if rc != 0 or report["events"] != logged or report["scored"] != logged:
+        raise AssertionError(f"cli-replay: exit {rc}, {report['events']} "
+                             f"replayed for {logged} logged")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -820,6 +1222,12 @@ def main() -> int:
     asyncio.run(phase_pipeline(torch, "pipeline-window", "lstm",
                                megabatch=False))
     phase_demo()
+    phase_native()
+    with tempfile.TemporaryDirectory(prefix="smoke-durable-",
+                                     dir=scratch_dir()) as data_dir:
+        logged = asyncio.run(phase_durable(torch, data_dir))
+        asyncio.run(phase_replay(torch))
+        phase_cli_replay(data_dir, logged)
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

@@ -1,9 +1,9 @@
 """`python -m sitewhere_tpu_torch.cli` — the port's entry point.
 
     python -m sitewhere_tpu_torch.cli demo [--devices N] [--seconds S] [--cpu]
+    python -m sitewhere_tpu_torch.cli replay --data-dir D --tenant T [--cpu]
 
-`demo` is the one command ported so far (the JAX package's `swx demo`):
-one process hosts the scored pipeline's six services (device-management,
+`demo` (the JAX package's `swx demo`): one process hosts the scored pipeline's six services (device-management,
 event-sources, inbound-processing, event-management, device-state,
 rule-processing), adds a tenant with a zscore rule, streams a simulated
 fleet with injected anomalies through the tenant's in-proc receiver for
@@ -12,7 +12,16 @@ services and creates its tenant through instance-management; this one
 adds it with `ServiceRuntime.add_tenant`, as the bench does. Scoring runs
 on the CUDA card; `--cpu` names the CPU instead. Without `--cpu` and
 with no card, it exits with "no CUDA device" — there is no probe and no
-fallback. The other commands (`run`, `simulate`, `replay`, `dlq`,
+fallback.
+
+`replay` (the JAX package's `swx replay`): open one tenant's durable log
+and cold tier under a stopped instance's `--data-dir`, compact the log
+(the active segment included), and stream the time range through a
+`SharedScoringPool` at full speed; prints the replay report as JSON. It
+scores on the card, or on the CPU with `--cpu`, as `demo` does.
+`--candidate` (the shadow-scoring gate over a checkpoint) needs the
+checkpoint store, ROADMAP A.4; `ReplayEngine.guard_swap` itself takes
+candidate params directly. The other commands (`run`, `simulate`, `dlq`,
 `quota`, `top`, `fleet`) are ROADMAP A.1.5.
 """
 
@@ -21,6 +30,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 import time
 
@@ -101,6 +111,63 @@ async def cmd_demo(args) -> int:
     return 0
 
 
+async def cmd_replay(args) -> int:
+    """Offline historical replay (history/): compact one tenant's
+    durable log into the cold tier and stream `[--since, --until)`
+    through a real SharedScoringPool at full speed. Runs against a
+    STOPPED instance's data_dir."""
+    from sitewhere_tpu_torch.history import (
+        EventHistoryStore,
+        ReplayEngine,
+        ScoreCollector,
+    )
+    from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.persistence.durable import SegmentLog
+    from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool
+
+    if args.candidate:
+        raise not_ported("replay --candidate (the checkpoint store)", "A.4")
+    device = "cpu" if args.cpu else None
+    # resolve the model first: with no card and no --cpu, fail before
+    # touching the data_dir
+    model = build_model(args.model, device=device, window=args.window)
+    settings = InstanceSettings.from_env()
+    tdir = os.path.join(args.data_dir, "tenants", args.tenant)
+    events_dir = os.path.join(tdir, "events")
+    history_dir = os.path.join(tdir, "history")
+    if not os.path.isdir(events_dir) and not os.path.isdir(history_dir):
+        print(f"replay: no durable log or cold tier under {tdir}",
+              file=sys.stderr)
+        return 2
+    metrics = MetricsRegistry()
+    source = SegmentLog(events_dir) if os.path.isdir(events_dir) else None
+    store = EventHistoryStore(
+        history_dir, source=source,
+        window_s=args.history_window or settings.history_window_s,
+        block_events=settings.history_block_events, metrics=metrics)
+    try:
+        if source is not None and not args.no_compact:
+            # the owning instance is stopped, so fold the ACTIVE
+            # segment too — "replay what just happened" must see it
+            report = store.compact(through_seq=source._seq)
+            print(f"compacted: {json.dumps(report)}", file=sys.stderr)
+        print(f"cold tier: {json.dumps(store.stats())}", file=sys.stderr)
+        pool = SharedScoringPool(model, metrics, PoolConfig(), device=device)
+        try:
+            report = await ReplayEngine(pool, metrics=metrics).replay(
+                args.tenant, store, args.threshold, since=args.since,
+                until=args.until, collect=ScoreCollector())
+            print(json.dumps(report), flush=True)
+            return 0
+        finally:
+            pool.close()
+    finally:
+        store.close()
+        if source is not None:
+            source.close()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m sitewhere_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -114,8 +181,33 @@ def main(argv=None) -> int:
                         help="REST port (the REST facade is not ported)")
     p_demo.add_argument("--cpu", action="store_true",
                         help="score on the CPU instead of the CUDA card")
+    p_replay = sub.add_parser(
+        "replay", help="compact a tenant's durable log into the cold tier "
+        "and replay a time range through the scoring pool")
+    p_replay.add_argument("--data-dir", required=True,
+                          help="instance data_dir (tenants/<id>/events "
+                               "and /history live under it)")
+    p_replay.add_argument("--tenant", required=True)
+    p_replay.add_argument("--since", type=float,
+                          help="epoch seconds (window start, inclusive)")
+    p_replay.add_argument("--until", type=float,
+                          help="epoch seconds (window start, exclusive)")
+    p_replay.add_argument("--model", default="zscore")
+    p_replay.add_argument("--window", type=int, default=64)
+    p_replay.add_argument("--threshold", type=float, default=6.0)
+    p_replay.add_argument("--history-window", type=float,
+                          help="cold-tier window width in seconds "
+                               "(default: history_window_s)")
+    p_replay.add_argument("--no-compact", action="store_true",
+                          help="replay the cold tier as-is (skip the "
+                               "compaction pass)")
+    p_replay.add_argument("--candidate",
+                          help="checkpoint root of a candidate model (the "
+                               "checkpoint store is not ported)")
+    p_replay.add_argument("--cpu", action="store_true",
+                          help="score on the CPU instead of the CUDA card")
     args = parser.parse_args(argv)
-    return asyncio.run({"demo": cmd_demo}[args.cmd](args))
+    return asyncio.run({"demo": cmd_demo, "replay": cmd_replay}[args.cmd](args))
 
 
 if __name__ == "__main__":

@@ -130,16 +130,16 @@ class InstanceSettings:
     durable_fsync_interval_s: float = 0.2
     durable_segment_bytes: int = 4 << 20
     durable_max_segments: int = 64
-    # historical replay plane (the JAX package's history/, not ported
-    # yet: ROADMAP A.1.3): a background compactor folds each tenant's sealed durable
-    # segments into per-(tenant, window) columnar cold-tier blocks the
+    # historical replay plane (history/): a background compactor
+    # folds each tenant's sealed durable segments into per-(tenant, window) columnar cold-tier blocks the
     # ReplayEngine streams back through the megabatch scoring path at
     # full speed. `history_window_s` is the cold-tier time-window width
     # (coarser than observe_history_window_s — these are event columns,
     # not telemetry rollups); `history_block_events` caps events per
     # block flush; `history_compact_interval_s` > 0 runs the compactor
     # on that cadence inside the event-management engine (0 = on-demand:
-    # CLI/REST/bench drive compaction explicitly). Needs a data_dir.
+    # `cli replay` and callers drive compaction explicitly). Needs a
+    # data_dir.
     history_window_s: float = 60.0
     history_block_events: int = 65536
     history_compact_interval_s: float = 0.0

@@ -1,0 +1,319 @@
+"""ReplayEngine: stream a cold-tier time range through the megabatch
+scoring path at full speed.
+
+The live plane's throughput ceiling is ingress — quota, DRR, pacing,
+per-batch Python in the consumer lanes. Replay has none of that: blocks
+come off `EventHistoryStore.read_range` as read-only zero-copy column
+views and go straight into `SharedScoringPool.admit_columns`, so the
+only per-event work left is the scorer's own dispatch. That makes
+replay the first workload whose ceiling is pure scoring dispatch
+(`chip_smoke.py`'s replay phase measures its rate on the card).
+
+Slot discipline: every replay registers a transient INTERNAL slot named
+`tenant-0.replay:<tenant>` — the reserved-tenant prefix keeps it out of
+the customer lag matrix (kernel/observe.py `per_tenant_lags` drops
+`tenant-0.*` groups), `internal=True` keeps it out of the adaptive
+window tuner, and the slot carries a fresh empty `TelemetryStore` so
+its ring slice starts from the same cold state a live engine boots
+with — score evolution over a window is then a pure function of
+(records, params), which is what makes replay-vs-live equivalence and
+the shadow-scoring diff meaningful at all.
+
+Version fence: a replay pinned to a live slot (`fence=`) snapshots that
+slot's model version up front and aborts with `ReplayFenceError` the
+moment a hot-swap lands mid-range — a replay must never mix model
+versions inside one window.
+
+Shadow-scoring regression rides on top: `compare()` replays one range
+under the live params and a candidate checkpoint and diffs the score
+tables; `guard_swap()` gates `TenantSlot.swap_params` promotion on that
+divergence report.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+
+from sitewhere_tpu_torch.config import RESERVED_TENANT
+from sitewhere_tpu_torch.domain.batch import BatchContext, ScoredBatch
+from sitewhere_tpu_torch.history.store import EventHistoryStore
+from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
+
+logger = logging.getLogger("sitewhere.history")
+
+
+class ReplayFenceError(RuntimeError):
+    """The fenced live slot hot-swapped params mid-replay; the partial
+    results mix model versions and must be discarded."""
+
+
+class DivergenceGateError(RuntimeError):
+    """Candidate params diverged from the live model past the promotion
+    bar; `report` carries the per-tenant divergence numbers."""
+
+    def __init__(self, message: str, report: dict):
+        super().__init__(message)
+        self.report = report
+
+
+class ScoreCollector:
+    """Deliver sink that retains every scored column for comparison.
+
+    Settle tasks deliver concurrently, so arrival order across
+    dispatches is nondeterministic — `table()` canonicalises with a
+    stable lexsort by (ts, device) so two replays of the same range are
+    byte-comparable."""
+
+    def __init__(self) -> None:
+        self._dev: list[np.ndarray] = []
+        self._ts: list[np.ndarray] = []
+        self._score: list[np.ndarray] = []
+        self._anom: list[np.ndarray] = []
+        self.versions: set[int] = set()
+        self.total = 0
+        self.anomalies = 0
+
+    async def __call__(self, scored: ScoredBatch) -> None:
+        n = int(scored.device_index.shape[0])
+        self.versions.add(int(scored.model_version))
+        if n == 0:
+            return
+        # copy out of the settle buffers (they are reused/freed after
+        # delivery returns)
+        self._dev.append(np.array(scored.device_index, np.uint32))
+        self._ts.append(np.array(scored.ts, np.float64))
+        self._score.append(np.array(scored.score, np.float32))
+        self._anom.append(np.array(scored.is_anomaly, bool))
+        self.total += n
+        self.anomalies += int(np.count_nonzero(scored.is_anomaly))
+
+    def table(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(device_index, ts, score, is_anomaly) columns in canonical
+        (ts, device) order."""
+        if not self._dev:
+            return (np.empty(0, np.uint32), np.empty(0, np.float64),
+                    np.empty(0, np.float32), np.empty(0, bool))
+        dev = np.concatenate(self._dev)
+        ts = np.concatenate(self._ts)
+        score = np.concatenate(self._score)
+        anom = np.concatenate(self._anom)
+        order = np.lexsort((dev, ts))
+        return dev[order], ts[order], score[order], anom[order]
+
+
+class _CountingSink:
+    """Default deliver sink: integrity counters only (scored totals,
+    anomaly count, model versions), NO column copies — a full-speed
+    replay must not spend its settle path memcpy-ing scores nobody
+    asked for. Pass a `ScoreCollector` as `collect` to keep them."""
+
+    def __init__(self) -> None:
+        self.versions: set[int] = set()
+        self.total = 0
+        self.anomalies = 0
+
+    async def __call__(self, scored: ScoredBatch) -> None:
+        self.versions.add(int(scored.model_version))
+        self.total += int(scored.device_index.shape[0])
+        self.anomalies += int(np.count_nonzero(scored.is_anomaly))
+
+
+class ReplayEngine:
+    """Drive cold-tier blocks through a `SharedScoringPool`."""
+
+    def __init__(self, pool, metrics=None, faults=None):
+        self.pool = pool
+        self.faults = faults
+        self.replay_events_c = (metrics.counter("history.replay_events")
+                                if metrics is not None else None)
+        self.replay_rate_g = (metrics.gauge("history.replay_rate")
+                              if metrics is not None else None)
+        self.divergence_g = (metrics.gauge("history.divergence_max")
+                             if metrics is not None else None)
+
+    async def replay(self, tenant_id: str, store: EventHistoryStore,
+                     threshold: float,
+                     since: Optional[float] = None,
+                     until: Optional[float] = None,
+                     params: Optional[dict] = None,
+                     fence=None,
+                     collect: Optional[ScoreCollector] = None,
+                     drain_timeout: float = 120.0) -> dict:
+        """Replay `[since, until)` for one tenant; returns a run report.
+
+        `params` pins the model weights for the whole run (None → the
+        pool's fresh-tenant init). `fence` is an optional live
+        `TenantSlot` to version-fence against. `collect` receives every
+        `ScoredBatch`; default is a copy-free counting sink.
+        """
+        slot_id = f"{RESERVED_TENANT}.replay:{tenant_id}"
+        collector = collect if collect is not None else _CountingSink()
+        fence_version = int(fence.version) if fence is not None else None
+        # fresh empty telemetry → clean ring slice (cold-start state)
+        slot = self.pool.register(slot_id, TelemetryStore(), threshold,
+                                  collector, params=params, internal=True)
+        mtype = self.pool.cfg.mtype
+        t0 = time.monotonic()
+        events = 0
+        windows = 0
+        try:
+            for w, cols in store.read_range(since, until):
+                if self.faults is not None:
+                    await self.faults.acheck("history.replay")
+                if fence is not None and int(fence.version) != fence_version:
+                    raise ReplayFenceError(
+                        f"model hot-swap landed mid-replay (v{fence_version}"
+                        f" -> v{int(fence.version)}) in window {w}")
+                mask = cols["mtype"] == mtype
+                if mask.all():
+                    dev, val, ts = (cols["device_index"], cols["value"],
+                                    cols["ts"])
+                else:
+                    dev, val, ts = (cols["device_index"][mask],
+                                    cols["value"][mask], cols["ts"][mask])
+                if dev.shape[0] == 0:
+                    continue
+                # conflict-free round packing: a historical window holds
+                # many events PER DEVICE, and the pool must split
+                # duplicate ids into sequential dispatch rounds
+                # (streaming state updates are per-device ordered) — an
+                # unpacked window splinters into ragged, scratch-padded
+                # rounds. Reorder by per-device occurrence rank (stable,
+                # so per-device order — the only order scoring state
+                # needs — is preserved) and admit each rank round as its
+                # own chunk: pool takes then align with round boundaries
+                # and every dispatch packs a dense, duplicate-free
+                # batch.
+                order = np.argsort(dev, kind="stable")
+                sd = dev[order]
+                start = np.flatnonzero(np.r_[True, sd[1:] != sd[:-1]])
+                rank = (np.arange(sd.size)
+                        - np.repeat(start, np.diff(np.r_[start, sd.size])))
+                if rank.max() > 0:
+                    packed = order[np.argsort(rank, kind="stable")]
+                    dev, val, ts = dev[packed], val[packed], ts[packed]
+                    bounds = np.cumsum(np.bincount(rank))
+                else:
+                    bounds = np.array([dev.size])
+                ctx = BatchContext(tenant_id=slot_id, source="replay",
+                                   ingest_monotonic=time.monotonic())
+                off = 0
+                for end in bounds:
+                    # backpressure: replay outruns the scorer by design
+                    # — hold the next round while the backlog is full
+                    while slot.backlogged:
+                        slot.flush_nowait()
+                        await asyncio.sleep(0.002)
+                    slot.admit_columns(dev[off:end], val[off:end],
+                                       ts[off:end], ctx)
+                    slot.flush_nowait()
+                    off = int(end)
+                events += int(dev.shape[0])
+                windows += 1
+                if self.replay_events_c is not None:
+                    self.replay_events_c.inc(dev.shape[0])
+                await asyncio.sleep(0)  # let settles interleave
+            # final partial megabatch + every in-flight settle
+            deadline = time.monotonic() + drain_timeout
+            while not slot.idle and time.monotonic() < deadline:
+                slot.flush_nowait()
+                await asyncio.sleep(0.005)
+            if fence is not None and int(fence.version) != fence_version:
+                raise ReplayFenceError(
+                    f"model hot-swap landed during replay drain "
+                    f"(v{fence_version} -> v{int(fence.version)})")
+        finally:
+            self.pool.unregister(slot_id)
+        elapsed = max(time.monotonic() - t0, 1e-9)
+        rate = events / elapsed
+        if self.replay_rate_g is not None:
+            self.replay_rate_g.set(rate)
+        logger.info("replay %s: %d events / %d windows in %.3fs "
+                    "(%.0f ev/s)", tenant_id, events, windows, elapsed, rate)
+        return {"tenant": tenant_id, "events": events, "windows": windows,
+                "scored": collector.total, "anomalies": collector.anomalies,
+                "elapsed_s": round(elapsed, 6), "rate": round(rate, 1),
+                "versions": sorted(collector.versions)}
+
+    # -- shadow-scoring regression ------------------------------------------
+
+    async def compare(self, tenant_id: str, store: EventHistoryStore,
+                      threshold: float, live_params: dict,
+                      candidate_params: dict,
+                      since: Optional[float] = None,
+                      until: Optional[float] = None,
+                      fence=None) -> dict:
+        """Replay one range under the live params and a candidate
+        checkpoint; return the per-tenant divergence report."""
+        live = ScoreCollector()
+        cand = ScoreCollector()
+        live_run = await self.replay(tenant_id, store, threshold,
+                                     since=since, until=until,
+                                     params=live_params, fence=fence,
+                                     collect=live)
+        cand_run = await self.replay(tenant_id, store, threshold,
+                                     since=since, until=until,
+                                     params=candidate_params, fence=fence,
+                                     collect=cand)
+        _, lts, lsc, lan = live.table()
+        _, cts, csc, can = cand.table()
+        if lsc.shape != csc.shape or not np.array_equal(lts, cts):
+            # the two legs scored different event sets — that is itself
+            # a regression (records dropped under one model)
+            report = {"tenant": tenant_id, "events": int(lsc.shape[0]),
+                      "candidate_events": int(csc.shape[0]),
+                      "max_abs": float("inf"), "mean_abs": float("inf"),
+                      "anomaly_flips": -1,
+                      "live": live_run, "candidate": cand_run}
+        else:
+            d = np.abs(lsc.astype(np.float64) - csc.astype(np.float64))
+            report = {"tenant": tenant_id, "events": int(lsc.shape[0]),
+                      "max_abs": float(d.max()) if d.size else 0.0,
+                      "mean_abs": float(d.mean()) if d.size else 0.0,
+                      "anomaly_flips": int(np.count_nonzero(lan != can)),
+                      "live": live_run, "candidate": cand_run}
+        if self.divergence_g is not None:
+            self.divergence_g.set(report["max_abs"])
+        return report
+
+    async def guard_swap(self, slot, store: EventHistoryStore,
+                         candidate_params: dict,
+                         since: Optional[float] = None,
+                         until: Optional[float] = None,
+                         threshold: Optional[float] = None,
+                         max_divergence: float = 0.5) -> tuple[int, dict]:
+        """Gate a `swap_params` promotion on shadow-scoring divergence.
+
+        Replays the range under the slot's CURRENT weights and the
+        candidate; promotes only if max |Δscore| stays under the bar
+        and neither leg dropped records. Raises `DivergenceGateError`
+        (with the report attached) otherwise. Returns
+        (new_version, report) on promotion."""
+        tid = slot.tenant_id
+        if threshold is None:
+            threshold = self.pool.tenants[tid].threshold
+        live_params = self.pool.stack.get_params(tid)
+        report = await self.compare(tid, store, threshold, live_params,
+                                    candidate_params, since=since,
+                                    until=until, fence=slot)
+        report["max_divergence"] = max_divergence
+        if not np.isfinite(report["max_abs"]) \
+                or report["max_abs"] > max_divergence:
+            report["promoted"] = False
+            raise DivergenceGateError(
+                f"candidate for {tid!r} diverged: max |dscore| "
+                f"{report['max_abs']:.4g} over bar {max_divergence:g} "
+                f"({report['anomaly_flips']} anomaly flips over "
+                f"{report['events']} events) — swap refused", report)
+        version = slot.swap_params(candidate_params)
+        report["promoted"] = True
+        report["version"] = int(version)
+        logger.info("shadow gate %s: max |dscore| %.4g <= %g over %d "
+                    "events — promoted to v%d", tid, report["max_abs"],
+                    max_divergence, report["events"], version)
+        return version, report

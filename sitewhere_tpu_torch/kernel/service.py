@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from typing import Any, Optional
 
 from sitewhere_tpu_torch.config import InstanceSettings, TenantConfig
@@ -368,9 +369,6 @@ class ServiceRuntime(LifecycleComponent):
         if bus is not None and not isinstance(bus, EventBus):
             raise not_ported("a bus other than the in-process EventBus",
                              "A.1.2")
-        if settings.data_dir:
-            raise not_ported("data_dir (durable logs, snapshots, "
-                             "replication, cold-tier history)", "A.1.3")
         super().__init__(f"instance-{settings.instance_id}")
         self.settings = settings
         self.naming = TopicNaming(settings.instance_id)
@@ -420,8 +418,16 @@ class ServiceRuntime(LifecycleComponent):
         # FleetObserver registers itself here on the broker host —
         # `GET /api/fleet/observe` / `swx top --fleet`
         self.fleet_observer = None
-        # durable telemetry history: needs a data_dir (not ported yet)
+        # durable telemetry history (persistence/durable.py): windowed
+        # per-tenant signal series under <data_dir>/telemetry — the
+        # beat appends every sample's signals (kernel/observe.py)
         self.history = None
+        if settings.data_dir and settings.observe_history:
+            from sitewhere_tpu_torch.persistence.durable import TelemetryHistory
+            self.history = TelemetryHistory(
+                os.path.join(settings.data_dir, "telemetry"),
+                window_s=settings.observe_history_window_s,
+                metrics=self.metrics)
         self.tenants: dict[str, TenantConfig] = {}
         # chaos seam: a FaultInjector (kernel/faults.py) installed via
         # install_faults(); None in production — every consulted site
@@ -611,6 +617,12 @@ class ServiceRuntime(LifecycleComponent):
         for service in reversed(list(self.services.values())):
             if service.multitenant:
                 await service.stop_tenant_engine(tenant_id)
+
+    async def _do_stop(self, monitor: LifecycleProgressMonitor) -> None:
+        if self.history is not None:
+            # flush the open telemetry windows to disk (the readback
+            # across a restart is the whole point of the tier)
+            self.history.close()
 
     def health(self) -> dict:
         return self.state_tree()

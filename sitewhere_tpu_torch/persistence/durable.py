@@ -1,0 +1,594 @@
+"""Durable event persistence: segmented spill log + entity snapshots.
+
+The reference's event-management component is backed by a *durable*
+event store (Mongo/InfluxDB/Cassandra behind `IDeviceEventManagement`,
+[SURVEY.md §2.2]), and its recovery story treats that store as the
+source of truth when stream retention has expired ([SURVEY.md §5.4]).
+This module is the port's copy of the JAX package's, with the same
+on-disk formats byte for byte (record framing `_REC`, segment names
+`_SEG_FMT`, WAL framing, snapshot framing `_SNAP`), so either package
+restarts from a directory the other wrote:
+
+- The **hot store stays the columnar RAM ring** (vectorized append,
+  model-shaped reads — persistence/telemetry.py). Durability is a
+  sequential appendix, not a different data path.
+- A **segmented record log** spills every persisted batch to disk:
+  hot batches in their existing SWB1 wire form (`batch.encode()` —
+  domain/batch.py), cold events via the restricted codec
+  (kernel/codec.py). One background thread owns all disk IO; the
+  ingest hot path only enqueues object references.
+- **Replay on boot** re-appends the log into the columnar store before
+  services come up, so scoring warmup (`ScoringSession.warmup` seeds
+  the device ring from the host store) resumes from recovered history
+  with no extra machinery.
+- **Entity snapshots** (device registry etc.) are whole-store codec
+  blobs written atomically (tmp + fsync + rename) by a debounced
+  background task.
+
+Offsets note: with the in-proc bus, topics die with the process — the
+durable log IS the resume story, exactly like the reference recovering
+from its event store when its broker's retention has lapsed.
+
+Crash window: the writer fsyncs every `fsync_interval_s` (default
+0.2 s) — a hard kill can lose at most that much of the newest history
+(same contract as Cassandra's default periodic commitlog sync). The
+torn tail is detected by per-record CRC and truncated on replay.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import queue
+import struct
+import threading
+import time
+import zlib
+from collections import deque
+from typing import Callable, Iterator, Optional
+
+from sitewhere_tpu_torch.kernel import codec
+
+logger = logging.getLogger(__name__)
+
+# record framing: len u32 | crc32(payload) u32 | rtype u8
+_REC = struct.Struct("<IIB")
+RT_MEASUREMENTS = 1
+RT_LOCATIONS = 2
+RT_COLD = 3
+RT_TELEMETRY = 4   # TelemetryHistory compacted window rows
+
+_SEG_FMT = "events-{:08d}.seg"
+
+
+class SegmentLog:
+    """Append-only segmented record log with CRC framing.
+
+    Single-writer (the owning thread), multi-segment, bounded: when
+    `max_segments` is exceeded the oldest segment is deleted — the RAM
+    ring only holds `history` points per device, so unbounded disk
+    history buys nothing the training snapshot can use.
+    """
+
+    def __init__(self, directory: str, segment_bytes: int = 4 << 20,
+                 max_segments: int = 64,
+                 fsync_interval_s: float = 0.2):
+        self.dir = directory
+        self.segment_bytes = int(segment_bytes)
+        self.max_segments = int(max_segments)
+        self.fsync_interval_s = float(fsync_interval_s)
+        os.makedirs(directory, exist_ok=True)
+        existing = self._segments()
+        self._seq = (existing[-1][0] + 1) if existing else 1
+        self._file = None
+        self._file_bytes = 0
+        self._dirty = False
+        self._last_fsync = 0.0
+
+    # -- segment bookkeeping ----------------------------------------------
+
+    def _segments(self) -> list[tuple[int, str]]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("events-") and name.endswith(".seg"):
+                try:
+                    out.append((int(name[7:-4]), os.path.join(self.dir, name)))
+                except ValueError:
+                    continue
+        out.sort()
+        return out
+
+    def _open_active(self) -> None:
+        path = os.path.join(self.dir, _SEG_FMT.format(self._seq))
+        self._file = open(path, "ab")
+        self._file_bytes = self._file.tell()
+
+    def _rotate(self) -> None:
+        self._sync(force=True)
+        self._file.close()
+        self._seg_prune()
+        self._seq += 1
+        self._open_active()
+
+    def _seg_prune(self) -> None:
+        segs = self._segments()
+        excess = len(segs) - self.max_segments
+        for _, path in segs[:max(excess, 0)]:
+            try:
+                os.remove(path)
+            except OSError:
+                logger.warning("could not prune segment %s", path,
+                               exc_info=True)
+
+    # -- write path (owning thread only) -----------------------------------
+
+    def append(self, rtype: int, payload: bytes) -> None:
+        if self._file is None:
+            self._open_active()
+        hdr = _REC.pack(len(payload), zlib.crc32(payload), rtype)
+        self._file.write(hdr)
+        self._file.write(payload)
+        self._file_bytes += len(hdr) + len(payload)
+        self._dirty = True
+        if self._file_bytes >= self.segment_bytes:
+            self._rotate()
+
+    def _sync(self, force: bool = False) -> None:
+        if self._file is None or not self._dirty:
+            return
+        now = time.monotonic()
+        if not force and now - self._last_fsync < self.fsync_interval_s:
+            self._file.flush()
+            return
+        self._file.flush()
+        os.fsync(self._file.fileno())
+        self._dirty = False
+        self._last_fsync = now
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._sync(force=True)
+            self._file.close()
+            self._file = None
+
+    # -- replay ------------------------------------------------------------
+
+    def replay(self) -> Iterator[tuple[int, memoryview]]:
+        """Yield (rtype, payload) across all segments in order. A torn or
+        corrupt record ends replay for that segment (CRC guard); the
+        active segment's well-formed prefix is always recovered."""
+        for seq, path in self._segments():
+            with open(path, "rb") as f:
+                data = f.read()
+            mv = memoryview(data)
+            off = 0
+            while off + _REC.size <= len(mv):
+                ln, crc, rtype = _REC.unpack_from(mv, off)
+                start = off + _REC.size
+                end = start + ln
+                if end > len(mv):
+                    logger.warning("torn record at %s+%d (want %d bytes, "
+                                   "have %d) — truncating replay of this "
+                                   "segment", path, off, ln, len(mv) - start)
+                    break
+                payload = mv[start:end]
+                if zlib.crc32(payload) != crc:
+                    logger.warning("CRC mismatch at %s+%d — truncating "
+                                   "replay of this segment", path, off)
+                    break
+                yield rtype, payload
+                off = end
+
+
+class DurableEventLog:
+    """Thread-offloaded spill writer over a SegmentLog.
+
+    `submit()` is called from the service event loop and only enqueues;
+    the writer thread encodes (SWB1 / codec) and appends. The queue is
+    bounded: if the disk can't keep up, the newest batch is dropped and
+    counted (`dropped`) rather than stalling ingest — durability is a
+    best-effort appendix on this rig, never backpressure on the hot
+    path. The port keeps this contract exactly: no backpressure, no
+    extra or later fsyncs."""
+
+    def __init__(self, directory: str, segment_bytes: int = 4 << 20,
+                 max_segments: int = 64, fsync_interval_s: float = 0.2,
+                 queue_max: int = 4096, faults=None):
+        self.log = SegmentLog(directory, segment_bytes=segment_bytes,
+                              max_segments=max_segments,
+                              fsync_interval_s=fsync_interval_s)
+        self._q: queue.Queue = queue.Queue(maxsize=queue_max)
+        self.dropped = 0
+        self.written = 0
+        self.write_errors = 0
+        # chaos seam (kernel/faults.py "durable.flush"): consulted from
+        # the writer thread; None in production
+        self._faults = faults
+        self._thread = threading.Thread(
+            target=self._run, name=f"swx-spill:{os.path.basename(directory)}",
+            daemon=True)
+        self._closed = threading.Event()
+        self._thread.start()
+
+    # -- producer side (event loop) ----------------------------------------
+
+    def submit(self, rtype: int, obj) -> None:
+        try:
+            self._q.put_nowait((rtype, obj))
+        except queue.Full:
+            self.dropped += 1
+            if self.dropped in (1, 100, 10_000):
+                logger.warning("spill queue full — dropped %d record(s); "
+                               "disk is not keeping up with ingest",
+                               self.dropped)
+
+    # -- writer thread ------------------------------------------------------
+
+    def _encode(self, rtype: int, obj) -> bytes:
+        if rtype in (RT_MEASUREMENTS, RT_LOCATIONS):
+            return obj.encode()
+        return codec.encode(obj)
+
+    def _run(self) -> None:
+        while not self._closed.is_set() or not self._q.empty():
+            try:
+                rtype, obj = self._q.get(
+                    timeout=self.log.fsync_interval_s)
+            except queue.Empty:
+                try:
+                    self.log._sync()
+                except OSError:  # disk fault: keep the thread alive
+                    logger.warning("spill fsync failed", exc_info=True)
+                continue
+            try:
+                if self._faults is not None:
+                    self._faults.check("durable.flush")
+                self.log.append(rtype, self._encode(rtype, obj))
+                self.written += 1
+                # unconditional: _sync rate-limits its own fsync, but
+                # the flush must happen per record — otherwise sustained
+                # ingest (queue never empty) leaves data in the
+                # userspace buffer until segment rotation and a kill -9
+                # loses far more than the fsync_interval_s window
+                self.log._sync()
+            except Exception:  # noqa: BLE001 - spill must never kill
+                # ingest, and a writer thread that dies on a disk fault
+                # would silently end ALL durability while the process
+                # keeps reporting itself durable
+                self.write_errors += 1
+                logger.warning("spill write failed; record lost "
+                               "(%d so far)", self.write_errors,
+                               exc_info=True)
+        try:
+            self.log.close()
+        except OSError:
+            logger.warning("spill close failed", exc_info=True)
+
+    def close(self, timeout: float = 10.0) -> None:
+        self._closed.set()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            logger.warning(
+                "spill writer still draining after %.0fs — a clean "
+                "shutdown may lose queued records (disk too slow?)",
+                timeout)
+
+    def replay(self, handler: Callable[[int, memoryview], None]) -> int:
+        """Feed every recovered record to `handler`; returns count."""
+        n = 0
+        for rtype, payload in self.log.replay():
+            try:
+                handler(rtype, payload)
+                n += 1
+            except Exception:  # noqa: BLE001 - one bad record ≠ no recovery
+                logger.warning("replay handler failed for a record; "
+                               "skipping", exc_info=True)
+        return n
+
+
+# -- durable telemetry history (the fleet observability plane's cold tier) --
+
+
+class TelemetryHistory:
+    """Windowed, compacted telemetry time-series over a `SegmentLog`.
+
+    The flight recorder's live signals (per-tenant consumer lag, egress
+    backlog, scoring occupancy, loop lag) die with their bounded rings;
+    a predictive autoscaler needs exactly those series as its training
+    substrate. This store keeps them: `append()` folds raw
+    points into the CURRENT `window_s` aggregation window per
+    (tenant, signal) series — count/sum/min/max/last — and a window
+    that closes is appended as one codec row to the segment log (CRC
+    framing, bounded segments, torn-tail-tolerant replay: the
+    `SegmentLog` contract). Reads never touch disk: the replay on init
+    rebuilds a bounded in-memory index (`max_windows` per series), so
+    `history()` is a deque slice.
+
+    Hot-path discipline: `append()` is a dict update; disk IO happens
+    only when a window CLOSES (once per `window_s` per series, from the
+    telemetry beat / fleet observer loop — never from the event hot
+    path), and fsync stays rate-limited by the log's
+    `fsync_interval_s`. The crash bound is the open window plus at most
+    one fsync interval of closed rows — telemetry history is an
+    appendix, not a transaction log.
+    """
+
+    def __init__(self, directory: str, window_s: float = 10.0,
+                 segment_bytes: int = 1 << 20, max_segments: int = 64,
+                 max_windows: int = 4096, metrics=None):
+        self.window_s = max(float(window_s), 0.001)
+        self.max_windows = int(max_windows)
+        self.log = SegmentLog(directory, segment_bytes=segment_bytes,
+                              max_segments=max_segments)
+        self._open: dict[tuple[str, str], dict] = {}
+        self._series: dict[tuple[str, str], deque] = {}
+        self._windows_counter = (metrics.counter("observe.history_windows")
+                                 if metrics is not None else None)
+        self.replayed = self._replay_index()
+
+    # -- write path ----------------------------------------------------------
+
+    def append(self, tenant: str, signal: str, value: float,
+               t: Optional[float] = None) -> None:
+        """Fold one point into its series' current window (wall-clock
+        `t`, default now). Out-of-order points older than the open
+        window fold into it anyway — sub-window ordering is below this
+        store's resolution by design."""
+        t = time.time() if t is None else float(t)
+        w = (t // self.window_s) * self.window_s
+        key = (tenant, signal)
+        cur = self._open.get(key)
+        if cur is not None and w > cur["window"]:
+            self._close(key, cur)
+            cur = None
+        if cur is None:
+            self._open[key] = {"tenant": tenant, "signal": signal,
+                               "window": w, "count": 1,
+                               "sum": float(value), "min": float(value),
+                               "max": float(value), "last": float(value)}
+            return
+        cur["count"] += 1
+        cur["sum"] += float(value)
+        cur["min"] = min(cur["min"], float(value))
+        cur["max"] = max(cur["max"], float(value))
+        cur["last"] = float(value)
+
+    def _close(self, key: tuple[str, str], row: dict) -> None:
+        ring = self._series.get(key)
+        if ring is None:
+            ring = self._series[key] = deque(maxlen=self.max_windows)
+        ring.append(dict(row))
+        if self._windows_counter is not None:
+            self._windows_counter.inc()
+        try:
+            self.log.append(RT_TELEMETRY, codec.encode(row))
+            self.log._sync()  # rate-limited by fsync_interval_s
+        except OSError:
+            logger.warning("telemetry history append failed; window "
+                           "kept in memory only", exc_info=True)
+
+    def flush(self) -> None:
+        """Close every OPEN window to the index + disk (shutdown, test
+        barriers). The next append on a flushed series starts a fresh
+        window — two rows for one window merge at read time."""
+        for key, row in list(self._open.items()):
+            self._close(key, row)
+        self._open.clear()
+
+    def close(self) -> None:
+        self.flush()
+        self.log.close()
+
+    # -- read path -----------------------------------------------------------
+
+    def _replay_index(self) -> int:
+        n = 0
+        for rtype, payload in self.log.replay():
+            if rtype != RT_TELEMETRY:
+                continue
+            try:
+                row = codec.decode(payload)
+            except Exception:  # noqa: BLE001 - one bad row ≠ no history
+                logger.warning("telemetry history: undecodable row "
+                               "skipped", exc_info=True)
+                continue
+            key = (row.get("tenant"), row.get("signal"))
+            ring = self._series.get(key)
+            if ring is None:
+                ring = self._series[key] = deque(maxlen=self.max_windows)
+            ring.append(row)
+            n += 1
+        return n
+
+    def series(self) -> list[tuple[str, str]]:
+        """Every (tenant, signal) series with at least one closed or
+        open window."""
+        return sorted(set(self._series) | set(self._open))
+
+    def history(self, tenant: str, signal: str, *,
+                since: float = 0.0, until: Optional[float] = None,
+                limit: int = -1) -> list[dict]:
+        """Window rows for one series, oldest first. Window semantics:
+        a row covers [window, window + window_s); `since` is inclusive
+        and `until` exclusive ON WINDOW START, so
+        `history(t, s, since=w0, until=w0 + n*window_s)` returns
+        exactly n windows' rows when all were written. The OPEN window
+        rides along (live tail); rows sharing a window start (a flush
+        split one) are merged."""
+        rows = list(self._series.get((tenant, signal), ()))
+        cur = self._open.get((tenant, signal))
+        if cur is not None:
+            rows.append(dict(cur))
+        by_window: dict[float, dict] = {}
+        for row in rows:
+            w = row["window"]
+            agg = by_window.get(w)
+            if agg is None:
+                by_window[w] = dict(row)
+            else:
+                agg["count"] += row["count"]
+                agg["sum"] += row["sum"]
+                agg["min"] = min(agg["min"], row["min"])
+                agg["max"] = max(agg["max"], row["max"])
+                agg["last"] = row["last"]  # rows arrive oldest-first
+        out = [by_window[w] for w in sorted(by_window)
+               if w >= since and (until is None or w < until)]
+        if limit >= 0:
+            out = out[-limit:] if limit else []
+        return out
+
+    def stats(self) -> dict:
+        return {
+            "series": len(self.series()),
+            "windows": sum(len(r) for r in self._series.values()),
+            "open_windows": len(self._open),
+            "replayed": self.replayed,
+            "segments": len(self.log._segments()),
+            "window_s": self.window_s,
+        }
+
+
+# -- registry write-ahead log -----------------------------------------------
+
+_WAL_REC = struct.Struct("<II")  # len u32 | crc32(payload) u32
+
+
+class WriteAheadLog:
+    """Tiny WAL for registry mutations between snapshots.
+
+    Append = write + flush (the OS has it: a hard PROCESS kill loses
+    nothing past the LAST APPENDED RECORD — the crash bound the
+    snapshot interval can't give). Fsync is GROUP-COMMITTED: coalesced
+    to one per event-loop tick via call_soon, so a registration burst
+    (thousands of journaled mutations in one tight batch) pays ONE
+    device sync instead of one per mutation — a per-append fsync
+    measured long enough to starve the fleet heartbeat past
+    `dead_after` and get the worker falsely fenced, the exact failure
+    this subsystem exists to contain. Host power loss is bounded by
+    the last completed tick's fsync. Replay tolerates a torn tail (CRC
+    guard, same contract as SegmentLog); `reset()` truncates once a
+    snapshot covers every appended record
+    (services/device_management.py wires the snapshotter's on_saved
+    callback to it)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._file = open(path, "ab")
+        self.appended = 0
+        self._fsync_pending = False
+
+    @property
+    def closed(self) -> bool:
+        return self._file is None
+
+    def append(self, payload: bytes) -> None:
+        if self._file is None:
+            # a closed WAL must fail LOUDLY through the caller's OSError
+            # handling, never as an AttributeError that escapes it
+            raise OSError(f"wal {self.path} is closed")
+        self._file.write(_WAL_REC.pack(len(payload), zlib.crc32(payload)))
+        self._file.write(payload)
+        self._file.flush()
+        self.appended += 1
+        self._schedule_fsync()
+
+    def _schedule_fsync(self) -> None:
+        if self._fsync_pending:
+            return
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            self._fsync()  # no loop (thread/test context): sync now
+            return
+        self._fsync_pending = True
+        loop.call_soon(self._fsync)
+
+    def _fsync(self) -> None:
+        self._fsync_pending = False
+        if self._file is not None:
+            try:
+                os.fsync(self._file.fileno())
+            except OSError:
+                logger.warning("wal %s: fsync failed", self.path,
+                               exc_info=True)
+
+    def replay(self) -> list[bytes]:
+        """Every well-formed record, oldest first; a torn/corrupt tail
+        ends replay (the in-flight append a crash interrupted)."""
+        try:
+            with open(self.path, "rb") as f:
+                data = f.read()
+        except FileNotFoundError:
+            return []
+        mv = memoryview(data)
+        out: list[bytes] = []
+        off = 0
+        while off + _WAL_REC.size <= len(mv):
+            ln, crc = _WAL_REC.unpack_from(mv, off)
+            start = off + _WAL_REC.size
+            end = start + ln
+            if end > len(mv):
+                logger.warning("wal %s: torn record at +%d — truncating "
+                               "replay", self.path, off)
+                break
+            payload = bytes(mv[start:end])
+            if zlib.crc32(payload) != crc:
+                logger.warning("wal %s: CRC mismatch at +%d — truncating "
+                               "replay", self.path, off)
+                break
+            out.append(payload)
+            off = end
+        return out
+
+    def reset(self) -> None:
+        """Drop every record (a snapshot now covers them all)."""
+        if self._file is None:
+            raise OSError(f"wal {self.path} is closed")
+        self._file.truncate(0)
+        self._file.seek(0)
+        self._file.flush()
+        os.fsync(self._file.fileno())
+
+    def close(self) -> None:
+        if self._file is not None:
+            self._fsync()  # settle any group-committed tail
+            self._file.close()
+            self._file = None  # type: ignore[assignment]
+
+
+# -- entity snapshots -------------------------------------------------------
+
+_SNAP = struct.Struct("<II")  # len u32 | crc32 u32
+
+
+def save_snapshot(path: str, obj) -> None:
+    """Atomic whole-object snapshot: codec blob + CRC, tmp+fsync+rename."""
+    payload = codec.encode(obj)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_SNAP.pack(len(payload), zlib.crc32(payload)))
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def load_snapshot(path: str):
+    """Load a snapshot or return None (missing/torn/corrupt — a bad
+    snapshot is treated as absent, never as a crash)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except FileNotFoundError:
+        return None
+    if len(data) < _SNAP.size:
+        logger.warning("snapshot %s truncated; ignoring", path)
+        return None
+    ln, crc = _SNAP.unpack_from(data, 0)
+    payload = data[_SNAP.size:_SNAP.size + ln]
+    if len(payload) != ln or zlib.crc32(payload) != crc:
+        logger.warning("snapshot %s failed CRC; ignoring", path)
+        return None
+    return codec.decode(payload)

@@ -50,14 +50,12 @@ from sitewhere_tpu_torch.domain.model import (
     User,
     Zone,
 )
+from sitewhere_tpu_torch.persistence.durable import (
+    RT_COLD,
+    RT_LOCATIONS,
+    RT_MEASUREMENTS,
+)
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
-
-# durable-log record types (the JAX package's persistence/durable.py;
-# the durable tier itself is ROADMAP A.1.3): the spill/replay hooks
-# below tag each record with one of these
-RT_MEASUREMENTS = 1
-RT_LOCATIONS = 2
-RT_COLD = 3
 
 
 def _page(items: list, page: int, page_size: int) -> list:

@@ -1,16 +1,22 @@
 """Columnar telemetry store: per-tenant `[device, time]` ring buffers.
 
-- **Append is vectorized**: one `MeasurementBatch` of N events lands with
-  a handful of numpy scatter ops regardless of N, including correct
-  in-batch per-device ordering (stable sort + per-device cumcount).
+- **Append is one pass in C++**: the store's host library
+  (`csrc/swx_native.cpp`, bound in persistence/native.py and built with
+  g++ at first use) lands a `MeasurementBatch` of N events with a
+  cursor-chasing loop that keeps in-batch per-device order by
+  construction, with the GIL released.
 - **Reads are model-shaped**: `window(devices, W)` returns a `[D, W]`
   array — the scoring ring's seed and the query path's input.
 - Bounded memory: ring over the time axis (length `history`), device axis
   grows by doubling.
 
-Host-only numpy (the JAX package's native C++ paths are ROADMAP A.3);
-the scoring plane keeps its own device-resident copy of
-the recent windows (scoring/ring.py) and re-seeds it from here.
+`append_plain`, `window_plain`, `window_ts_plain` and `latest_plain` are
+the library's plain versions in numpy (stable sort + per-device cumcount
+for the append): the tests and the chip check hold the two bit-equal,
+and nothing on the serving path calls them. There is no fallback: a
+library that cannot be built raises. The scoring plane keeps its own
+device-resident copy of the recent windows (scoring/ring.py) and
+re-seeds it from here.
 """
 
 from __future__ import annotations
@@ -21,14 +27,74 @@ from typing import Optional
 import numpy as np
 
 from sitewhere_tpu_torch.domain.batch import LocationBatch, MeasurementBatch
+from sitewhere_tpu_torch.persistence.native import get_lib
 from sitewhere_tpu_torch.utils import grow_pow2
 
 
 def _check_indices(dev: np.ndarray) -> None:
     """Device indices are dense non-negative slots; a negative index would
-    silently alias a ring row under numpy — a caller bug, so fail loudly."""
+    wrap to ~4e9 under the native paths' uint32 cast (out-of-bounds C++
+    write) and silently alias a ring row under numpy — both are caller
+    bugs, so fail loudly."""
     if dev.size and int(dev.min()) < 0:
         raise ValueError(f"negative device index: {int(dev.min())}")
+
+
+# -- the host library's plain versions (numpy) ---------------------------------
+
+def append_plain(table: "TelemetryTable", dev: np.ndarray,
+                 values: np.ndarray, ts: np.ndarray) -> None:
+    """`TelemetryTable.append` in numpy: stable sort + per-device
+    cumcount keeps in-batch per-device order."""
+    n = dev.shape[0]
+    if n == 0:
+        return
+    _check_indices(dev)
+    table._ensure_capacity(int(dev.max()))
+    dev = dev.astype(np.int64, copy=False)
+    order = np.argsort(dev, kind="stable")
+    sd = dev[order]
+    uniq, start, counts = np.unique(sd, return_index=True, return_counts=True)
+    # position of each event within its device's run in this batch
+    cum = np.arange(n, dtype=np.int64) - np.repeat(start, counts)
+    pos = (table.cursor[sd] + cum) % table.history
+    table.values[sd, pos] = values[order]
+    table.ts[sd, pos] = ts[order]
+    table.cursor[uniq] = (table.cursor[uniq] + counts) % table.history
+    table.count[uniq] = np.minimum(table.count[uniq] + counts, table.history)
+    table.total_appended += n
+
+
+def window_plain(table: "TelemetryTable", devices: np.ndarray,
+                 w: int) -> tuple[np.ndarray, np.ndarray]:
+    """`TelemetryTable.window` in numpy."""
+    _check_indices(devices)
+    table._ensure_capacity(int(devices.max()) if devices.size else 0)
+    devices = devices.astype(np.int64, copy=False)
+    idx = (table.cursor[devices, None] - w + np.arange(w)[None, :]) % table.history
+    out = table.values[devices[:, None], idx]
+    valid = np.arange(w)[None, :] >= (w - np.minimum(table.count[devices], w)[:, None])
+    return out, valid
+
+
+def window_ts_plain(table: "TelemetryTable", devices: np.ndarray,
+                    w: int) -> np.ndarray:
+    """`TelemetryTable.window_ts` in numpy."""
+    _check_indices(devices)
+    table._ensure_capacity(int(devices.max()) if devices.size else 0)
+    devices = devices.astype(np.int64, copy=False)
+    idx = (table.cursor[devices, None] - w + np.arange(w)[None, :]) % table.history
+    return table.ts[devices[:, None], idx]
+
+
+def latest_plain(table: "TelemetryTable",
+                 devices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """`TelemetryTable.latest` in numpy."""
+    _check_indices(devices)
+    table._ensure_capacity(int(devices.max()) if devices.size else 0)
+    devices = devices.astype(np.int64, copy=False)
+    idx = (table.cursor[devices] - 1) % table.history
+    return table.values[devices, idx], table.ts[devices, idx]
 
 
 class TelemetryTable:
@@ -60,24 +126,19 @@ class TelemetryTable:
         self.capacity = new_cap
 
     def append(self, dev: np.ndarray, values: np.ndarray, ts: np.ndarray) -> None:
-        """Ring append preserving in-batch per-device order (stable sort +
-        per-device cumcount)."""
+        """Ring append preserving in-batch per-device order: one
+        cursor-chasing pass in the host library (GIL released)."""
         n = dev.shape[0]
         if n == 0:
             return
         _check_indices(dev)
         self._ensure_capacity(int(dev.max()))
-        dev = dev.astype(np.int64, copy=False)
-        order = np.argsort(dev, kind="stable")
-        sd = dev[order]
-        uniq, start, counts = np.unique(sd, return_index=True, return_counts=True)
-        # position of each event within its device's run in this batch
-        cum = np.arange(n, dtype=np.int64) - np.repeat(start, counts)
-        pos = (self.cursor[sd] + cum) % self.history
-        self.values[sd, pos] = values[order]
-        self.ts[sd, pos] = ts[order]
-        self.cursor[uniq] = (self.cursor[uniq] + counts) % self.history
-        self.count[uniq] = np.minimum(self.count[uniq] + counts, self.history)
+        get_lib().swx_telemetry_append(
+            self.values, self.ts, self.cursor, self.count,
+            self.capacity, self.history,
+            np.ascontiguousarray(dev, np.uint32),
+            np.ascontiguousarray(values, np.float32),
+            np.ascontiguousarray(ts, np.float64), n)
         self.total_appended += n
 
     def window(self, devices: np.ndarray, w: int) -> tuple[np.ndarray, np.ndarray]:
@@ -88,26 +149,39 @@ class TelemetryTable:
         """
         _check_indices(devices)
         self._ensure_capacity(int(devices.max()) if devices.size else 0)
-        devices = devices.astype(np.int64, copy=False)
-        idx = (self.cursor[devices, None] - w + np.arange(w)[None, :]) % self.history
-        out = self.values[devices[:, None], idx]
-        valid = np.arange(w)[None, :] >= (w - np.minimum(self.count[devices], w)[:, None])
-        return out, valid
+        n = devices.shape[0]
+        out = np.empty((n, w), np.float32)
+        valid = np.empty((n, w), np.uint8)
+        if n:
+            get_lib().swx_window_gather(
+                self.values, self.cursor, self.count, self.history,
+                np.ascontiguousarray(devices, np.uint32), n, w, out, valid)
+        return out, valid.view(bool)
 
     def window_ts(self, devices: np.ndarray, w: int) -> np.ndarray:
         _check_indices(devices)
         self._ensure_capacity(int(devices.max()) if devices.size else 0)
-        devices = devices.astype(np.int64, copy=False)
-        idx = (self.cursor[devices, None] - w + np.arange(w)[None, :]) % self.history
-        return self.ts[devices[:, None], idx]
+        n = devices.shape[0]
+        out = np.empty((n, w), np.float64)
+        if n:
+            get_lib().swx_window_ts_gather(
+                self.ts, self.cursor, self.history,
+                np.ascontiguousarray(devices, np.uint32), n, w, out)
+        return out
 
     def latest(self, devices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Most recent (value, ts) per device; ts==0 where never written."""
         _check_indices(devices)
         self._ensure_capacity(int(devices.max()) if devices.size else 0)
-        devices = devices.astype(np.int64, copy=False)
-        idx = (self.cursor[devices] - 1) % self.history
-        return self.values[devices, idx], self.ts[devices, idx]
+        n = devices.shape[0]
+        val_out = np.empty(n, np.float32)
+        ts_out = np.empty(n, np.float64)
+        if n:
+            get_lib().swx_latest(self.values, self.ts, self.cursor,
+                                 self.history,
+                                 np.ascontiguousarray(devices, np.uint32), n,
+                                 val_out, ts_out)
+        return val_out, ts_out
 
 
 class LocationTable:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from typing import Sequence
 
@@ -29,8 +30,9 @@ from sitewhere_tpu_torch.kernel.egresslane import egress_lanes
 from sitewhere_tpu_torch.kernel.fastlane import produce_settled
 from sitewhere_tpu_torch.kernel.lifecycle import BackgroundTaskComponent
 from sitewhere_tpu_torch.kernel.service import Service, TenantEngine
+from sitewhere_tpu_torch.history import EventHistoryStore
+from sitewhere_tpu_torch.persistence.durable import DurableEventLog
 from sitewhere_tpu_torch.persistence.memory import InMemoryDeviceEventManagement
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -43,13 +45,10 @@ class _Skip(Exception):
 class EventManagementEngine(TenantEngine):
     def __init__(self, service: "EventManagementService", tenant: TenantConfig):
         super().__init__(service, tenant)
-        cfg = tenant.section("event-management", {})
-        # the event store is RAM-only here: the durable spill log and
-        # its cold tier (data_dir) are not ported yet
-        if cfg.get("data_dir", self.runtime.settings.data_dir):
-            raise not_ported("the durable event log and cold-tier history "
-                             "(data_dir)", "A.1.3")
         self.spi: InMemoryDeviceEventManagement = None  # type: ignore[assignment]
+        # cold tier over the durable log (history/); None unless this
+        # tenant persists to disk
+        self.history_store = None
         # `egress: {lanes: N}` (kernel/egresslane.py) shards the persist
         # consumer: N loops in the one `{tenant}.event-management`
         # group split the inbound topic's partitions (per-device order
@@ -68,9 +67,59 @@ class EventManagementEngine(TenantEngine):
         cfg = self.tenant.section("event-management", {})
         dm = await self.runtime.wait_for_engine("device-management",
                                                 self.tenant_id)
+        durable = None
+        settings = self.runtime.settings
+        data_dir = cfg.get("data_dir", settings.data_dir)
+        if data_dir:
+            durable = DurableEventLog(
+                os.path.join(data_dir, "tenants", self.tenant_id, "events"),
+                segment_bytes=cfg.get("durable_segment_bytes",
+                                      settings.durable_segment_bytes),
+                max_segments=cfg.get("durable_max_segments",
+                                     settings.durable_max_segments),
+                fsync_interval_s=cfg.get("durable_fsync_interval_s",
+                                         settings.durable_fsync_interval_s),
+                faults=self.runtime.faults)
+        # with a durable log, the store replays it here, before any
+        # consumer runs
         self.spi = InMemoryDeviceEventManagement(
             dm, history=cfg.get("history", 1024),
-            cold_retention=cfg.get("cold_retention", 100_000))
+            cold_retention=cfg.get("cold_retention", 100_000),
+            durable=durable)
+        if durable is None:
+            return
+        if durable.log._segments():
+            logger.info("event-management[%s]: replayed durable log "
+                        "(%d events now in store)", self.tenant_id,
+                        self.spi.telemetry.total_events)
+        # historical replay plane: the cold tier lives beside the
+        # durable log it compacts. Maintenance runs on its own thread
+        # (disk+numpy — same off-loop split as the durable writer);
+        # interval 0 leaves compaction on-demand (`cli replay`, tests)
+        self.history_store = EventHistoryStore(
+            os.path.join(data_dir, "tenants", self.tenant_id, "history"),
+            source=durable.log,
+            window_s=cfg.get("history_window_s", settings.history_window_s),
+            block_events=cfg.get("history_block_events",
+                                 settings.history_block_events),
+            metrics=self.runtime.metrics,
+            faults=self.runtime.faults)
+        interval = cfg.get("history_compact_interval_s",
+                           settings.history_compact_interval_s)
+        if interval and interval > 0:
+            self.history_store.start_maintenance(float(interval))
+
+    async def _do_stop(self, monitor) -> None:
+        await super()._do_stop(monitor)
+        loop = asyncio.get_running_loop()
+        if self.history_store is not None:
+            # stop the compaction thread before the durable log closes
+            # under it
+            await loop.run_in_executor(None, self.history_store.close)
+        if self.spi is not None and self.spi.durable is not None:
+            # drain + fsync the spill queue off-loop so a clean shutdown
+            # loses nothing (hard kills are bounded by fsync_interval_s)
+            await loop.run_in_executor(None, self.spi.durable.close)
 
     # -- API surface for other services / REST -----------------------------
 

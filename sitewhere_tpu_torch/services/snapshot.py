@@ -1,0 +1,68 @@
+"""Generic debounced entity-store snapshotting.
+
+One loop per bound store: every `interval_s`, if the store's mutation
+epoch moved, collect the snapshot ON the event loop (shallow list
+copies — nothing can mutate mid-iteration) and hand codec-encode +
+atomic file IO to the executor. Writes are lock-serialized against the
+stop-time save (task cancellation doesn't stop a worker thread already
+writing). Used by device-management (per-tenant registry; the JAX
+package's asset- and instance-management snapshotters belong to
+services that are ROADMAP A.1.4); restore is the owning service's job
+at initialize time
+(persistence/durable.load_snapshot).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+from typing import Callable
+
+from sitewhere_tpu_torch.kernel.lifecycle import BackgroundTaskComponent
+from sitewhere_tpu_torch.persistence.durable import save_snapshot
+
+
+class StoreSnapshotter(BackgroundTaskComponent):
+    def __init__(self, name: str, path: str,
+                 epoch_fn: Callable[[], int],
+                 collect_fn: Callable[[], dict],
+                 interval_s: float = 1.0,
+                 on_saved: Callable[[int], None] = None):
+        super().__init__(name)
+        self.snap_path = path
+        self._epoch = epoch_fn
+        self._collect = collect_fn
+        self.interval_s = interval_s
+        self._lock = threading.Lock()
+        # called (on the event loop / the save_now caller's thread) with
+        # the mutation epoch a just-written snapshot covers — the
+        # registry WAL resets itself here (persistence/durable.py
+        # WriteAheadLog: records ≤ a persisted snapshot are obsolete)
+        self._on_saved = on_saved
+        # the mutation epoch the newest written snapshot covers
+        self.saved_epoch = -1
+
+    def _write(self, snap: dict) -> None:
+        with self._lock:
+            save_snapshot(self.snap_path, snap)
+
+    def save_now(self) -> None:
+        """Synchronous collect+write (clean-shutdown path)."""
+        epoch = self._epoch()
+        self._write(self._collect())
+        self.saved_epoch = epoch
+        if self._on_saved is not None:
+            self._on_saved(epoch)
+
+    async def _run(self) -> None:
+        loop = asyncio.get_event_loop()
+        while True:
+            await asyncio.sleep(self.interval_s)
+            epoch = self._epoch()
+            if epoch == self.saved_epoch:
+                continue
+            snap = self._collect()
+            await loop.run_in_executor(None, self._write, snap)
+            self.saved_epoch = epoch
+            if self._on_saved is not None:
+                self._on_saved(epoch)

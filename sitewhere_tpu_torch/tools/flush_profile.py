@@ -1,7 +1,8 @@
 """Where a full-fleet flush spends its time, on the card.
 
     python -m sitewhere_tpu_torch.tools.flush_profile
-        [--path {session,stream,pool,pipeline}] [--flushes N] [--trace FILE]
+        [--path {session,stream,pool,pipeline,replay}] [--flushes N]
+        [--trace FILE]
 
 Builds one of the paths `chip_smoke.py` drives (`tools/main_path.py`,
 `tools/pipeline.py`): `session`, the dedicated windowed-`lstm` session
@@ -9,8 +10,10 @@ Builds one of the paths `chip_smoke.py` drives (`tools/main_path.py`,
 `lstm-stream` pool with one 32,768-device tenant and one fleet-sized
 bucket (the bench's default serving configuration); `pipeline`, that
 pool inside the service runtime, a "flush" there being one fleet tick
-from the tenant's receiver to its last record on the scored topic. It
-warms the path, then runs N full-fleet flushes under `torch.profiler`.
+from the tenant's receiver to its last record on the scored topic;
+`replay`, the bench's replay workload (`tools/replay_bench.py`), a
+"flush" there being one `ReplayEngine` pass over the whole 500,000-event
+cold tier through its pool. It warms the path, then runs N full-fleet flushes under `torch.profiler`.
 Host spans come from the path's own profiler labels (the session's
 `scoring.take_pending`, `scoring.dispatch` and
 `scoring.update_and_score` inside it; the pool's
@@ -28,9 +31,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,6 +50,7 @@ STEPS = {"session": ("flush", "scoring.take_pending", "scoring.dispatch",
          "pool": ("flush", "scoring.pool_take", "scoring.dispatch")}
 STEPS["stream"] = STEPS["session"]
 STEPS["pipeline"] = STEPS["pool"]
+STEPS["replay"] = STEPS["pool"]
 
 
 def _union_us(spans) -> float:
@@ -60,6 +66,8 @@ async def _flusher(which: str):
     """(one_flush coroutine function, drain) for the chosen path."""
     if which == "pipeline":
         return await _pipeline_flusher()
+    if which == "replay":
+        return _replay_flusher()
     if which == "pool":
         path = await main_path.build_pool("profile", "lstm-stream", 1,
                                           main_path.FLEET, (main_path.FLEET,))
@@ -104,6 +112,34 @@ async def _pipeline_flusher():
     return one_flush, pipe.stop
 
 
+def _replay_flusher():
+    from sitewhere_tpu_torch.history import ReplayEngine
+    from sitewhere_tpu_torch.ops.build import BUILD_ROOT
+    from sitewhere_tpu_torch.tools import replay_bench
+
+    # the corpus lives under the checkout's gitignored build/
+    BUILD_ROOT.parent.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="replay-profile-", dir=BUILD_ROOT.parent)
+    store, _, _, _ = replay_bench.corpus(root)
+    pool, model = replay_bench.pool()
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = ReplayEngine(pool)
+
+    async def one_flush() -> float:
+        t0 = time.perf_counter()
+        with record_function("flush"):
+            await engine.replay(replay_bench.TENANT, store,
+                                replay_bench.THRESHOLD, params=params)
+        return 1e3 * (time.perf_counter() - t0)
+
+    async def drain() -> None:
+        pool.close()
+        store.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    return one_flush, drain
+
+
 async def _run(which: str, n_flushes: int, trace: Path) -> dict:
     one_flush, drain = await _flusher(which)
     steps = STEPS[which]
@@ -144,8 +180,12 @@ async def _run(which: str, n_flushes: int, trace: Path) -> dict:
         busy.append(_union_us(inside) / (hi - lo))
     n = len(windows)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    if which == "replay":
+        from sitewhere_tpu_torch.tools.replay_bench import EVENTS as events
+    else:
+        events = main_path.FLEET
     return {
-        "path": which, "flushes": n, "events_per_flush": main_path.FLEET,
+        "path": which, "flushes": n, "events_per_flush": events,
         "flush_wall_ms_p50": statistics.median(wall),
         "host_ms_per_flush": {s: sum(v) / 1e3 / n for s, v in host.items()},
         "device_ms_per_flush": sum(by_kernel.values()) / n,

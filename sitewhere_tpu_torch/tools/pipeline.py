@@ -14,7 +14,12 @@ tenant's scored-events topic. W+4 ticks of warm history go straight into
 the store, then the ring reloads from it (as the bench does). Every
 trace is sampled (`trace_sample=1`) so the stages' host time reads off
 the tracer. Runs on the CUDA card. `FLEET` is read when `build` runs,
-so setting it sizes the whole pipeline.
+so setting it sizes the whole pipeline. With `data_dir` (the bench's
+`--durable DIR`) the runtime spills every persisted batch to a durable
+log and snapshots its registry there, and `build` returns once the new
+fleet's registry snapshot is on disk; a `build` on a directory that
+already holds them restores the store and the registry instead of
+registering the fleet again.
 """
 
 from __future__ import annotations
@@ -73,13 +78,14 @@ class Pipeline:
         await self.rt.stop()
 
 
-async def build(model: str = "lstm-stream",
-                megabatch: bool = True) -> Pipeline:
-    """The bench's default deployment (`model`, `megabatch` as its
-    `--model` / `--megabatch` levers), warmed and ready to take ticks."""
+async def build(model: str = "lstm-stream", megabatch: bool = True,
+                data_dir: str | None = None) -> Pipeline:
+    """The bench's default deployment (`model`, `megabatch`, `data_dir`
+    as its `--model` / `--megabatch` / `--durable` levers), warmed and
+    ready to take ticks."""
     devices = FLEET
     rt = build_runtime(InstanceSettings(
-        instance_id="bench", trace_sample=1,
+        instance_id="bench", trace_sample=1, data_dir=data_dir,
         # the bench's shed policy: reject at ingress only
         flow_degrade_at=10.0, flow_defer_at=10.0))
     await rt.start()
@@ -100,20 +106,25 @@ async def build(model: str = "lstm-stream",
         },
     }), timeout=WARMUP_TIMEOUT_S)
     dm = rt.api("device-management").management(TENANT)
-    dm.bootstrap_fleet(DeviceType(token="thermo", name="Thermometer"),
-                       devices)
     em = rt.api("event-management").management(TENANT)
     sim_cfg = SimConfig(num_devices=devices, seed=SEED)
     sim = DeviceSimulator(sim_cfg, tenant_id=TENANT)
-    for k in range(WINDOW + 4):
-        em.telemetry.append_measurements(sim.tick(t=TICK_S * k)[0])
+    if dm.restored_from is None:
+        dm.bootstrap_fleet(DeviceType(token="thermo", name="Thermometer"),
+                           devices)
+        for k in range(WINDOW + 4):
+            em.telemetry.append_measurements(sim.tick(t=TICK_S * k)[0])
     engine = rt.api("rule-processing").engine(TENANT)
     sink = engine.session or engine.pool_slot
+    # a registry just registered on a data_dir: its first snapshot (the
+    # whole fleet, seconds of codec encode beside the loop) is set-up,
+    # not part of the traffic that follows
+    snapshot = data_dir is not None and dm.restored_from is None
     deadline = time.monotonic() + WARMUP_TIMEOUT_S
-    while not sink.ready:
+    while not sink.ready or (snapshot and not dm.snapshot_current):
         if time.monotonic() > deadline:
-            raise TimeoutError(
-                f"scoring warmup not done in {WARMUP_TIMEOUT_S} s")
+            raise TimeoutError(f"scoring warmup or the registry snapshot "
+                               f"not done in {WARMUP_TIMEOUT_S} s")
         await asyncio.sleep(0.01)
     # the warm history entered the store directly: reseed the ring
     sink.reload_history()

@@ -7,7 +7,6 @@ from __future__ import annotations
 ITEMS = {
     "A.1.1": "protocol receivers",
     "A.1.2": "wire bus, remote services and serve-bus",
-    "A.1.3": "durability, history and replay (data_dir)",
     "A.1.4": "the other services, REST and geofences",
     "A.1.5": "the other CLI commands",
     "A.2": "mesh sharding, multi-GPU",

@@ -55,6 +55,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.tools.main_path\n"
         "import sitewhere_tpu_torch.kernel.service, sitewhere_tpu_torch.services\n"
         "import sitewhere_tpu_torch.cli, sitewhere_tpu_torch.tools.pipeline\n"
+        "import sitewhere_tpu_torch.history, sitewhere_tpu_torch.persistence.native\n"
+        "import sitewhere_tpu_torch.services.replication\n"
+        "import sitewhere_tpu_torch.services.snapshot\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sitewhere_tpu')]\n"
         "print(bad)\n"
@@ -144,6 +147,22 @@ def test_demo_cli_needs_the_card_or_the_cpu_named(no_card):
     report = json.loads(out.stdout[out.stdout.index("{"):])
     assert report["events_sent"] > 0
     assert report["events_persisted"] == report["events_sent"]
+
+
+def test_replay_cli_needs_the_card_or_the_cpu_named(no_card, tmp_path):
+    """`python -m sitewhere_tpu_torch.cli replay` with no card exits
+    non-zero naming the missing device; with `--cpu` it gets as far as
+    the data_dir (empty here: exit 2)."""
+    cmd = [sys.executable, "-m", "sitewhere_tpu_torch.cli", "replay",
+           "--data-dir", str(tmp_path), "--tenant", "t"]
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    out = subprocess.run(cmd + ["--cpu"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2
+    assert "no durable log or cold tier" in out.stderr
 
 
 def test_kernel_build_is_keyed_on_source_and_stays_in_checkout(tmp_path,

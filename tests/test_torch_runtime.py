@@ -1,17 +1,28 @@
 """The port's service runtime modules held against the JAX package's on
 the same inputs (bus, flow control, codec and SWB1, the lane predicates,
-metrics, the copied registry constants), and every path the port does
-not take over yet raising `NotImplementedError` that names its ROADMAP
-item. Everything here is host code: the comparisons are exact."""
+metrics, the copied registry constants), the storage plane through the
+runtime (a `data_dir` restart in either package from either package's
+files, registry adoption from the in-process `registry-state` topic,
+`cli replay`), and every path the port does not take over yet raising
+`NotImplementedError` that names its ROADMAP item. Everything here is
+host code: the comparisons are exact."""
 
+import asyncio
+import contextlib
+import io
 import itertools
+import json
+import shutil
+import time
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from sitewhere_tpu import cli as jcli
 from sitewhere_tpu import config as jconfig
+from sitewhere_tpu import services as jservices
 from sitewhere_tpu.analysis import registry as jregistry
 from sitewhere_tpu.domain import batch as jbatch
 from sitewhere_tpu.domain import model as jmodel
@@ -21,7 +32,11 @@ from sitewhere_tpu.kernel import egresslane as jegress
 from sitewhere_tpu.kernel import fastlane as jfast
 from sitewhere_tpu.kernel import flow as jflow
 from sitewhere_tpu.kernel import metrics as jmetrics
+from sitewhere_tpu.kernel import service as jservice
+from sitewhere_tpu.sim import simulator as jsim
+from sitewhere_tpu_torch import cli as tcli
 from sitewhere_tpu_torch import config as tconfig
+from sitewhere_tpu_torch import services as tservices
 from sitewhere_tpu_torch.domain import batch as tbatch
 from sitewhere_tpu_torch.domain import model as tmodel
 from sitewhere_tpu_torch.kernel import bus as tbus
@@ -31,17 +46,23 @@ from sitewhere_tpu_torch.kernel import fastlane as tfast
 from sitewhere_tpu_torch.kernel import faults as tfaults
 from sitewhere_tpu_torch.kernel import flow as tflow
 from sitewhere_tpu_torch.kernel import metrics as tmetrics
+from sitewhere_tpu_torch.kernel import service as tservice
 from sitewhere_tpu_torch.kernel import tracing as ttracing
+from sitewhere_tpu_torch.services import replication as treplication
+from sitewhere_tpu_torch.sim import simulator as tsim
 
 # the tier-1 run shares the host's cores between test workers
 torch.set_num_threads(2)
 
 JAX = SimpleNamespace(batch=jbatch, bus=jbus, codec=jcodec, config=jconfig,
                       egress=jegress, fast=jfast, flow=jflow,
-                      metrics=jmetrics, model=jmodel)
+                      metrics=jmetrics, model=jmodel, service=jservice,
+                      services=jservices, sim=jsim, settings={})
 PORT = SimpleNamespace(batch=tbatch, bus=tbus, codec=tcodec, config=tconfig,
                        egress=tegress, fast=tfast, flow=tflow,
-                       metrics=tmetrics, model=tmodel)
+                       metrics=tmetrics, model=tmodel, service=tservice,
+                       services=tservices, sim=tsim,
+                       settings={"device": "cpu"})
 
 
 # -- bus ---------------------------------------------------------------------
@@ -283,16 +304,12 @@ CUTS = {
         tconfig.InstanceSettings(device="cpu"), bus=object()), "A.1.2"),
     "remote-service": (lambda: _runtime().add_remote_service(
         "device-management", "127.0.0.1", 1), "A.1.2"),
-    "data-dir": (lambda: _runtime(data_dir="/nonexistent"), "A.1.3"),
-    "registry-data-dir": (lambda: _engine(
-        "device-management", {"device-management": {"data_dir": "/x"}}),
-        "A.1.3"),
-    "registry-replication": (lambda: _engine(
-        "device-management", {"device-management": {"replicate": True}}),
-        "A.1.3"),
-    "event-log-data-dir": (lambda: _engine(
-        "event-management", {"event-management": {"data_dir": "/x"}}),
-        "A.1.3"),
+    "replication-wire-bus": (lambda: asyncio.run(
+        treplication.read_state_topic(SimpleNamespace(
+            naming=tbus.TopicNaming("i"), bus=object()), "t")), "A.1.2"),
+    "replay-candidate": (lambda: tcli.main(
+        ["replay", "--data-dir", "/nonexistent", "--tenant", "t", "--cpu",
+         "--candidate", "/nonexistent"]), "A.4"),
     "geofences": (lambda: _engine(
         "rule-processing", {"rule-processing": {"geofences": [{"id": "z"}]}}),
         "A.1.4"),
@@ -349,3 +366,201 @@ def test_shared_runtime_pieces_stay_in_process(run):
         await owner.stop()
 
     run(main())
+
+
+# -- the storage plane through the runtime ----------------------------------------
+
+STORAGE_SERVICES = ("DeviceManagementService", "EventSourcesService",
+                    "InboundProcessingService", "EventManagementService",
+                    "DeviceStateService")
+FLEET, TICKS = 64, 10
+
+
+def _storage_runtime(pkg, data_dir, **settings):
+    rt = pkg.service.ServiceRuntime(pkg.config.InstanceSettings(
+        instance_id="dur", data_dir=data_dir, **pkg.settings, **settings))
+    for name in STORAGE_SERVICES:
+        rt.add_service(getattr(pkg.services, name)(rt))
+    return rt
+
+
+async def _wait(cond, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        await asyncio.sleep(0.01)
+
+
+async def _life(pkg, data_dir, feed: bool) -> dict:
+    """One runtime life on `data_dir`: with `feed`, register the fleet,
+    deactivate device 3 and submit TICKS fleet ticks (every fourth with
+    anomalies) through the tenant's receiver; then read the store and
+    the registry back and stop."""
+    rt = _storage_runtime(pkg, data_dir)
+    await rt.start()
+    try:
+        await rt.add_tenant(pkg.config.TenantConfig(
+            tenant_id="acme", sections={"event-management": {"history": 64}}))
+        dm = rt.api("device-management").management("acme")
+        em = rt.api("event-management").management("acme")
+        restored = dm.restored_from
+        if feed:
+            devices = dm.bootstrap_fleet(pkg.model.DeviceType(token="thermo"),
+                                         FLEET)
+            dm.set_device_status(devices[3].id, "inactive")
+            sim = pkg.sim.DeviceSimulator(pkg.sim.SimConfig(
+                num_devices=FLEET, seed=11), tenant_id="acme")
+            rc = rt.api("event-sources").engine("acme").receiver("default")
+            for k in range(TICKS):
+                sim.cfg = pkg.sim.SimConfig(
+                    num_devices=FLEET, seed=11,
+                    anomaly_rate=0.1 if k % 4 == 3 else 0.0,
+                    anomaly_magnitude=12.0)
+                assert await rc.submit(sim.tick(t=60.0 * k)[0].encode())
+            want = TICKS * (FLEET - 1)
+            await _wait(lambda: em.telemetry.total_events == want)
+        x, valid = em.telemetry.window(np.arange(FLEET), 16)
+        registry = sorted((d.index, d.token, d.status)
+                          for d in dm.spi.devices.by_id.values())
+        out = {"restored_from": restored, "x": x, "valid": valid,
+               "ts": em.telemetry.channel(0).window_ts(np.arange(FLEET), 16),
+               "total": em.telemetry.total_events, "registry": registry,
+               "mask": dm.registered_mask(np.arange(FLEET + 1))}
+    finally:
+        await rt.stop()
+    return out
+
+
+@pytest.mark.parametrize("writer,restarter", [
+    ("port", "port"), ("jax", "jax"), ("jax", "port"), ("port", "jax")])
+def test_data_dir_restart_restores_store_and_registry(run, tmp_path, writer,
+                                                      restarter):
+    """A runtime ingests through its receiver on `data_dir`, stops, and a
+    fresh runtime (either package) restarts on the directory: the store
+    windows, the registry (device 3 still inactive) and `restored_from`
+    come back as the writer left them, and the port's first life equals
+    the JAX package's."""
+    src = JAX if writer == "jax" else PORT
+    dst = JAX if restarter == "jax" else PORT
+    first = run(_life(src, str(tmp_path), feed=True))
+    second = run(_life(dst, str(tmp_path), feed=False))
+    reference = run(_life(JAX if writer == "port" else PORT,
+                          str(tmp_path / "other"), feed=True))
+    assert first["restored_from"] is None
+    assert second["restored_from"] == "snapshot+wal"
+    for life in (second, reference):
+        for key in ("x", "valid", "ts", "mask"):
+            np.testing.assert_array_equal(life[key], first[key], err_msg=key)
+        assert life["total"] == first["total"] == TICKS * (FLEET - 1)
+        assert life["registry"] == first["registry"]
+    assert not first["mask"][3] and first["mask"][:3].all()
+    assert not first["valid"][3].any() and first["valid"][4].sum() == TICKS
+
+
+async def _snapshot_current(data_dir) -> list:
+    """`snapshot_current` before and after each registry snapshot."""
+    from sitewhere_tpu_torch.persistence.durable import load_snapshot
+
+    rt = _storage_runtime(PORT, data_dir)
+    await rt.start()
+    try:
+        await rt.add_tenant(PORT.config.TenantConfig(
+            tenant_id="acme",
+            sections={"device-management": {"snapshot_interval_s": 0.05}}))
+        dm = rt.api("device-management").management("acme")
+        seen = [dm.snapshot_current]  # nothing registered, nothing saved
+        devices = dm.bootstrap_fleet(PORT.model.DeviceType(token="thermo"), 16)
+        seen.append(dm.snapshot_current)
+        await _wait(lambda: dm.snapshot_current)
+        path = f"{data_dir}/tenants/acme/registry.snap"
+        seen.append(load_snapshot(path)["seq"] == dm.spi.mutations)
+        dm.set_device_status(devices[3].id, "inactive")
+        seen.append(dm.snapshot_current)
+        await _wait(lambda: dm.snapshot_current)
+        seen.append(load_snapshot(path)["seq"] == dm.spi.mutations)
+    finally:
+        await rt.stop()
+    return seen
+
+
+def test_snapshot_current_follows_the_registry_snapshots(run, tmp_path):
+    """The port's `snapshot_current` (what `tools/pipeline.build` waits
+    on before traffic) turns true only once a written snapshot covers
+    every registry mutation."""
+    assert run(_snapshot_current(str(tmp_path))) == [
+        False, False, True, False, True]
+
+
+async def _adopt(pkg, data_dir) -> tuple:
+    """A writer runtime replicates its registry to the in-process
+    `registry-state` topic and stops (sealing it with a snapshot); a
+    second runtime on the same bus with an EMPTY data_dir adopts the
+    tenant from the topic alone."""
+    owner = pkg.service.ServiceRuntime(pkg.config.InstanceSettings(
+        instance_id="broker", **pkg.settings))
+    await owner.start()
+    try:
+        writer = pkg.service.ServiceRuntime(pkg.config.InstanceSettings(
+            instance_id="fleet", registry_replication=True, **pkg.settings),
+            bus=owner.bus)
+        writer.add_service(pkg.services.DeviceManagementService(writer))
+        await writer.start()
+        tenant = pkg.config.TenantConfig(tenant_id="acme")
+        await writer.add_tenant(tenant)
+        dm = writer.api("device-management").management("acme")
+        devices = dm.bootstrap_fleet(pkg.model.DeviceType(token="thermo"), 24)
+        dm.set_device_status(devices[5].id, "inactive")
+        await asyncio.sleep(0.05)
+        await writer.stop()
+        adopter = pkg.service.ServiceRuntime(pkg.config.InstanceSettings(
+            instance_id="fleet", registry_replication=True, data_dir=data_dir,
+            **pkg.settings), bus=owner.bus)
+        adopter.add_service(pkg.services.DeviceManagementService(adopter))
+        await adopter.start()
+        try:
+            await adopter.add_tenant(tenant)
+            dm2 = adopter.api("device-management").management("acme")
+            kinds = [r.value["kind"] for r in owner.bus.peek(
+                adopter.naming.tenant_topic("acme", "registry-state"),
+                limit=-1)]
+            return (dm2.restored_from,
+                    sorted((d.index, d.token, d.status)
+                           for d in dm2.spi.devices.by_id.values()),
+                    dm2.registered_mask(np.arange(25)).tolist(),
+                    kinds[0], kinds[-1])
+        finally:
+            await adopter.stop()
+    finally:
+        await owner.stop()
+
+
+def test_registry_adoption_from_the_state_topic(run, tmp_path):
+    got = run(_adopt(PORT, str(tmp_path / "port")))
+    want = run(_adopt(JAX, str(tmp_path / "jax")))
+    assert got == want
+    assert got[0] == "bus-replay" and len(got[1]) == 24
+    assert got[2][5] is False and got[2][:5] == [True] * 5
+    assert (got[3], got[4]) == ("snap", "snap")
+
+
+def _replay_report(main, data_dir) -> dict:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(["replay", "--data-dir", data_dir, "--tenant", "acme",
+                     "--cpu"]) == 0
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    report.pop("elapsed_s")
+    report.pop("rate")
+    return report
+
+
+def test_cli_replay_matches_jax_on_a_port_data_dir(run, tmp_path):
+    """`cli replay --cpu` on a directory the port's runtime wrote reports
+    what the JAX package's `swx replay` reports on a copy of it."""
+    run(_life(PORT, str(tmp_path / "port"), feed=True))
+    shutil.copytree(tmp_path / "port", tmp_path / "jax")
+    got = _replay_report(tcli.main, str(tmp_path / "port"))
+    want = _replay_report(jcli.main, str(tmp_path / "jax"))
+    assert got == want
+    assert got["events"] == got["scored"] == TICKS * (FLEET - 1)
+    assert got["windows"] == TICKS
