@@ -6,8 +6,9 @@
 Builds every CUDA kernel of the port from the sources in this checkout,
 holds each against its plain PyTorch version on the card, then drives
 each of the port's serving paths at full width (W=64, h=64, 1 layer,
-bf16, random weights from seeds, a 32,768-device simulated fleet) and
-checks its scores. Imports torch, numpy and `sitewhere_tpu_torch` only.
+bf16, random weights from seeds, a 32,768-device simulated fleet; the
+other models at the widths the repo configures for them), its training
+plane and its CLI, and checks what each returns. Imports torch, numpy and `sitewhere_tpu_torch` only.
 
 Phases (a failed phase raises; the script then exits non-zero and
 prints no result):
@@ -65,7 +66,32 @@ prints no result):
                 with in-batch duplicates and ring wraparound, the library
                 bit-equal to its numpy plain versions for append, window,
                 window_ts and latest; ms per append and per window for both;
- 12. pipeline-durable — phase 8 with `data_dir` on a fresh directory (the
+ 12. pool-tft — the pool on `tft` at `TftConfig`'s defaults (W=64, H=8,
+                d=32, 4 heads, 3 quantiles, bf16: the bench's `--model
+                tft`), one tenant of 32,768 devices with one fleet-sized
+                bucket: a fleet tick and an anomaly tick;
+ 13. pool-longwin — the same on `longwin` as the bench runs it
+                (`--window 64`, d=32, 4 heads, 2 layers);
+ 14. longwin-512 — `longwin` at its default window of 512 on a dedicated
+                session over 8,192 devices, buckets 256 and 1,024 (one
+                1,024-row dispatch holds 4.3 GB of attention scores): two
+                fleet ticks and an anomaly tick, the ring's windows equal
+                to the store's; phases 13 and 14 then run again with the
+                model in float32 (pool-longwin-...-float32,
+                longwin-512-float32);
+ 15. seasonal — the pool on `seasonal` at its defaults (W=32, H=6), 4
+                tenants × 4,096 series: a fleet tick and an anomaly tick
+                (the score is a forecast: no anomaly bar);
+ 16. forecast — `forecast_device(include_attention=True)` on a `tft`
+                tenant of the service runtime, eight devices, forecasts
+                and [heads, H, W] attention against the CPU model;
+ 17. maintenance — the bench's GNN fleet (n/50 assets, n/200 areas under
+                one site) at 10,000 and 32,768 devices: graph build,
+                `MaintenanceTrainer.train` at its defaults (200 AdamW
+                steps), then risk scores per second (the bench's
+                `gnn_fleet_risk_scores_per_sec`), the risks against the
+                CPU;
+ 18. pipeline-durable — phase 8 with `data_dir` on a fresh directory (the
                 bench's `--durable`): burst events/s, persist ms a tick,
                 the spill log's written/dropped; then the runtime stops
                 and a fresh one starts on the directory: seconds from
@@ -73,7 +99,7 @@ prints no result):
                 `restored_from`, every written event back in the store in
                 the first runtime's order, and one more tick scored and
                 sampled against the CPU reference;
- 13. replay   — the bench's replay corpus (500,000 events over 32,768
+ 19. replay   — the bench's replay corpus (500,000 events over 32,768
                 devices, 60 s windows, blocks of 65,536) compacted into
                 the cold tier and replayed by `ReplayEngine` through a
                 `SharedScoringPool` on the card (`lstm-stream`, buckets
@@ -84,18 +110,34 @@ prints no result):
                 `guard_swap` over the corpus promotes identical params and
                 refuses perturbed ones (over all of it: one window holds
                 ≈2 events a device, below the model's scoring floor);
- 14. cli-replay — `python -m sitewhere_tpu_torch.cli replay --data-dir
-                <phase 12's directory> --tenant bench` on the card: exit 0,
+ 20. cli-replay — `python -m sitewhere_tpu_torch.cli replay --data-dir
+                <phase 18's directory> --tenant bench` on the card: exit 0,
                 as many events replayed and scored as the durable log
-                holds.
-Phases 5–8 check that every event is scored, every score finite, the
-dispatches are the occurrence rounds, injected anomalies stand out, and
-a sample of 1,024 devices per tenant agrees with an independent CPU
-reference (the streaming model stepped over the same events from its
-host windows, or the windowed model's `score` on the host store's
-windows; atol 1e-2 plus 1e-3 relative). No CUDA kernel of the port runs
-on these paths (their steps are plain PyTorch), so K1's launch count
-must stay 0 there, and in phases 12–13. Each path prints one stats line.
+                holds;
+ 21. train    — `python -m sitewhere_tpu_torch.cli train --model
+                lstm-stream --checkpoint DIR` at the CLI's defaults (1,024
+                series of 192 points, W=64, batch 1,024, 200 Adam steps):
+                steps/s and the final loss;
+ 22. replay-candidate — `cli replay --model lstm-stream --candidate DIR`
+                on phase 18's directory: the exit code agrees with the
+                reported divergence against the bar (0 promoted, 1
+                refused).
+Phases 5–8 and 12–15 check that every event is scored, every score
+finite, the dispatches are the occurrence rounds, injected anomalies
+stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
+points at the clip, and seasonal's score is a forecast), and a sample of
+1,024 devices per tenant agrees with an independent CPU reference (the
+streaming model stepped over the same events from its host windows, or
+the model's `score` on the host store's windows; atol 1e-2 plus 1e-3
+relative); they print the host milliseconds of each dispatch. `longwin`
+(phases 13–14) divides its score by a predicted interval's width, which
+untrained weights make narrow, so a bf16 ulp that lands differently on
+the CPU moves a few rows' score past any tolerance: its bf16 sample is
+held in aggregate (a floor on the share of rows within the tolerance, a
+ceiling on the p99 |err|: BF16_SHARE_FLOOR), and the same served paths
+in float32 hold every sampled row to the tolerance. No CUDA
+kernel of the port runs on these paths (their steps are plain PyTorch),
+so K1's launch count must stay 0 there, and in phases 18–19. Each path prints one stats line.
 The second-to-last line is the `{"kernels": [...]}` record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -136,6 +178,19 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 KERNEL_ATOL = 2e-3
 SCORE_ATOL, SCORE_RTOL = 1e-2, 1e-3
+# `longwin` divides its score by a predicted interval's width, which
+# untrained weights make narrow: where the card and the CPU round a
+# quantile a bf16 ulp apart, a row's score moves past any row tolerance
+# (by up to 7.06 at window 512 on an NVIDIA H100 80GB HBM3 at 700 W, while
+# float32 agrees to 1e-3). So its bf16 sample is held by window to a
+# floor on the share of rows within the tolerance and a ceiling on the
+# p99 |err| (readings on that card: 99.2% and 8.8e-3 at 64, 97.8% and
+# 0.089 at 512), and the same served path runs again in float32 with every
+# sampled row held to the tolerance.
+BF16_SHARE_FLOOR = {"longwin": {64: (0.985, 0.015), 512: (0.97, 0.12)}}
+# the forecast's attention weights (≈1/56 each over the context; reading
+# 4.3e-4) and the GNN's float32 risks (reading 1.8e-7) against the CPU
+ATTN_ATOL, RISK_ATOL = 1e-3, 1e-5
 # devices per tenant held against the CPU reference in phases 5–7
 SAMPLE = 1024
 # (tenants, devices a tenant, buckets) of the pooled phases
@@ -150,6 +205,13 @@ NATIVE_HISTORY, NATIVE_TICKS = 256, 6
 # timed passes over the bench's replay corpus (tools/replay_bench.py), and
 # the shadow gate's bar
 REPLAY_TRIALS, GATE_BAR = 3, 0.05
+# the other models: longwin at window 512 (devices, buckets); seasonal's
+# pool (tenants, series a tenant); the forecast queries (fleet, queries);
+# the maintenance fleets and their scoring loop's seconds
+LONGWIN_FLEET, LONGWIN_BUCKETS = 8192, (256, 1024)
+SEASONAL_POOL = (4, 4096, (4096,))
+FORECAST_FLEET, FORECAST_QUERIES = 4096, 8
+MAINT_SIZES, MAINT_SECONDS = (10000, 32768), 2.0
 
 
 def log(msg: str) -> None:
@@ -359,10 +421,44 @@ def check_close(label: str, got: np.ndarray, ref: np.ndarray) -> float:
     return float(err.max()) if err.size else 0.0
 
 
+def check_share(label: str, got: np.ndarray, ref: np.ndarray,
+                floor: tuple[float, float]) -> dict:
+    """`check_close`'s comparison held in aggregate (BF16_SHARE_FLOOR):
+    at least `floor[0]` of the rows within the tolerance and the p99
+    |err| at most `floor[1]`; returns max and p99 |err| and the share."""
+    ref = ref.astype(np.float16).astype(np.float32)
+    err = np.abs(got - ref)
+    out = {"max_abs_err": float(err.max()),
+           "p99_abs_err": float(np.quantile(err, 0.99)),
+           "share_within": float((err <= SCORE_ATOL
+                                  + SCORE_RTOL * np.abs(ref)).mean())}
+    if out["share_within"] < floor[0] or out["p99_abs_err"] > floor[1]:
+        raise AssertionError(f"{label}: bf16 sample vs the reference {out} "
+                             f"below the floor {floor}")
+    return out
+
+
 def occurrence_rounds(dev: np.ndarray) -> int:
     """Dispatches a duplicate-free split of `dev` needs: its largest
     per-device event count."""
     return int(np.unique(dev, return_counts=True)[1].max())
+
+
+def time_calls(obj, name: str) -> list:
+    """Wrap `obj.name` to log each call's host milliseconds into the list
+    returned: the host side of a pool's or a session's dispatch (its
+    `scoring.dispatch` step), read without a profiler."""
+    inner, out = getattr(obj, name), []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args)
+        finally:
+            out.append(1e3 * (time.perf_counter() - t0))
+
+    setattr(obj, name, timed)
+    return out
 
 
 def path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
@@ -585,17 +681,27 @@ async def phase_stream(torch) -> dict:
 
 
 async def drive_pool(torch, label: str, model: str, tenants: int,
-                     devices: int, buckets: tuple, fleet_ticks: int) -> dict:
+                     devices: int, buckets: tuple, fleet_ticks: int,
+                     anomalies: bool = True, dtype=None) -> dict:
     """`fleet_ticks` fleet ticks then an anomaly tick through a pool,
-    every tenant one tick a flush, checked against a CPU reference."""
+    every tenant one tick a flush, checked against a CPU reference (the
+    anomalies must stand out unless `anomalies` is off: a forecaster's
+    score is a forecast). `dtype` sets the model's compute dtype (bf16
+    unless named) on the card and the CPU. Times the host side of each
+    dispatch (the pool's `scoring.dispatch` step)."""
     from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
     from sitewhere_tpu_torch.models import build_model
     from sitewhere_tpu_torch.ops import lstm_kernel
     from sitewhere_tpu_torch.tools import main_path
 
     t_setup = time.perf_counter()
-    path = await main_path.build_pool("t", model, tenants, devices, buckets)
+    cfg = {} if dtype is None else {"compute_dtype": dtype}
+    path = await main_path.build_pool("t", model, tenants, devices, buckets,
+                                      **cfg)
     pool = path.pool
+    window = path.model.cfg.window
+    floor = (BF16_SHARE_FLOOR.get(model, {}).get(window) if dtype is None
+             else None)
     rng = np.random.default_rng(SEED + 3)
     samples = {tid: np.sort(rng.choice(devices, min(SAMPLE, devices),
                                        replace=False))
@@ -605,10 +711,11 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
         refs = {tid: StreamReference(torch, m.params, m.store, samples[tid])
                 for tid, m in path.tenants.items()}
     else:
-        cpu_model = build_model(model, device="cpu", window=WINDOW,
-                                hidden=HIDDEN)
+        cpu_model = build_model(model, device="cpu",
+                                **{**main_path.MODEL_CFG[model], **cfg})
         cpu_params = {tid: params_from_numpy(params_to_numpy(m.params), "cpu")
                       for tid, m in path.tenants.items()}
+    dispatch_ms = time_calls(pool, "_dispatch")
     torch.cuda.synchronize()
     log(f"{label}: set-up (store fills, warmup) "
         f"{time.perf_counter() - t_setup:.3f} s")
@@ -617,7 +724,7 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     d0, expect = dispatches.value, 0
     r0 = (per_round.count, per_round.sum)
     lstm_kernel.launches = 0
-    flush_ms, host_ms, n_events, busy_s = [], [], 0, 0.0
+    flush_ms, host_ms, n_events, busy_s, shares = [], [], 0, 0.0, []
     for k in range(fleet_ticks + 1):
         anomalous = k == fleet_ticks
         t = path.t + TICK_S * k
@@ -647,7 +754,7 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
                 # must equal its windows, and score like them on the CPU
                 slot = pool.stack.slots[tid]
                 pos = np.searchsorted(dev, samples[tid])
-                x, valid = path.tenants[tid].store.window(samples[tid], WINDOW)
+                x, valid = path.tenants[tid].store.window(samples[tid], window)
                 rx, rv = pool.ring.windows(slot, samples[tid])
                 rx, rv = rx.cpu().numpy(), rv.cpu().numpy()
                 if not (np.array_equal(rv, valid)
@@ -656,9 +763,14 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
                                          "from the host store's")
                 want = cpu_model.score(cpu_params[tid], torch.from_numpy(x),
                                        torch.from_numpy(valid)).numpy()
-            errs.append(check_close(f"{label} {tid}", scored[tid].score[pos],
-                                    want))
-            if anomalous:
+            if floor:
+                shares.append(check_share(f"{label} {tid}",
+                                          scored[tid].score[pos], want, floor))
+                errs.append(shares[-1]["max_abs_err"])
+            else:
+                errs.append(check_close(f"{label} {tid}",
+                                        scored[tid].score[pos], want))
+            if anomalous and anomalies:
                 check_anomalies(f"{label} {tid}", scored[tid].score, truth)
         log(f"{label}: flush {'anomalies' if anomalous else 'fleet'}: "
             f"{tenants} x {devices} events in {flush_ms[-1]:.3f} ms, max "
@@ -669,14 +781,18 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     packed = (per_round.sum - r0[1]) / max(rounds, 1)
     # every tenant admitted before each flush: each round packs them all
     if (n_dispatch != expect or launches or rounds != fleet_ticks + 1
-            or packed != tenants):
+            or packed != tenants or len(dispatch_ms) != n_dispatch):
         raise AssertionError(
             f"{label}: {n_dispatch} dispatches for {expect} occurrence "
             f"rounds, {launches} K1 launches, {rounds} rounds packing "
-            f"{packed} tenants each")
+            f"{packed} tenants each, {len(dispatch_ms)} timed")
     stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
                        launches)
     stats["tenants_per_dispatch"] = packed
+    stats["dispatch_host_ms_p50"] = float(np.quantile(dispatch_ms, 0.5))
+    stats["dispatch_host_ms_max"] = float(np.max(dispatch_ms))
+    if shares:
+        stats["bf16_sample_vs_cpu"] = shares
     log(f"{label}: {json.dumps(stats)}")
     pool.close()
     return stats
@@ -1202,6 +1318,324 @@ def phase_cli_replay(data_dir: str, logged: int) -> dict:
     return report
 
 
+async def phase_longwin_512(torch, dtype=None) -> dict:
+    """`longwin` at its class default window=512 on a dedicated session:
+    LONGWIN_FLEET devices, buckets of at most 1,024 rows (one 1,024-row
+    dispatch holds [1024, 4, 512, 512] float32 scores, 4.3 GB); two fleet
+    ticks and an anomaly tick, the ring's windows equal to the store's, a
+    sample against the CPU model on the store's windows: held to
+    BF16_SHARE_FLOOR in bf16, row for row with `dtype` float32.
+    Untrained `longwin` weights predict a quantile interval so narrow
+    that ordinary points already score at the clip, so the anomalies are
+    not required to stand out (as in the pool's longwin phase)."""
+    from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
+    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator
+    from sitewhere_tpu_torch.tools import main_path
+
+    cfg = {} if dtype is None else {"compute_dtype": dtype}
+    label = "longwin-512" + ("" if dtype is None else "-float32")
+    t_setup = time.perf_counter()
+    scorer = build_model("longwin", **cfg)
+    window = scorer.cfg.window
+    floor = None if dtype is not None else BF16_SHARE_FLOOR["longwin"][window]
+    sim_cfg = SimConfig(num_devices=LONGWIN_FLEET, seed=SEED)
+    sim = DeviceSimulator(sim_cfg, tenant_id="longwin")
+    store = main_path.filled_store(sim, LONGWIN_FLEET, window)
+    metrics = MetricsRegistry()
+    session = ScoringSession(scorer, store, metrics, ScoringConfig(
+        buckets=LONGWIN_BUCKETS, capacity=LONGWIN_FLEET, threshold=THRESHOLD,
+        seed=SEED))
+    session.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    path = main_path.MainPath(scorer, store, sim, sim_cfg, metrics, session,
+                              "longwin", TICK_S * (window + 4))
+    cpu_model = build_model("longwin", device="cpu", **cfg)
+    cpu_params = params_from_numpy(params_to_numpy(session.params), "cpu")
+    sample = np.sort(np.random.default_rng(SEED + 5).choice(
+        LONGWIN_FLEET, SAMPLE, replace=False))
+    dispatch_ms = time_calls(session, "_dispatch")
+    dispatches = metrics.counter("scoring.dispatches")
+    d0 = dispatches.value
+    torch.cuda.synchronize()
+    log(f"{label}: set-up (store fill of {window + 4} ticks, warmup) "
+        f"{time.perf_counter() - t_setup:.3f} s")
+    lstm_kernel.launches = 0
+    flush_ms, host_ms, n_events, busy_s = [], [], 0, 0.0
+    errs, shares = [], []
+    for k in range(3):
+        anomalous = k == 2
+        t = path.t + TICK_S * k
+        batch, _ = (anomaly_tick(sim, sim_cfg, t) if anomalous
+                    else sim.tick(t=t))
+        t0 = time.perf_counter()
+        path.ingest(batch)
+        t1 = time.perf_counter()
+        scored = await session.flush()
+        t2 = time.perf_counter()
+        busy_s += t2 - t0
+        flush_ms.append(1e3 * (t2 - t1))
+        host_ms.append(1e3 * (t1 - t0))
+        dev = batch.device_index
+        n_events += dev.shape[0]
+        check_scored(label, scored, dev)
+        x, valid = store.window(sample, window)
+        rx, rv = session.ring.windows(sample)
+        rx, rv = rx.cpu().numpy(), rv.cpu().numpy()
+        if not (np.array_equal(rv, valid) and np.array_equal(rx[rv], x[valid])):
+            raise AssertionError(f"{label}: ring windows differ from the "
+                                 "host store's")
+        # the CPU holds its own O(W²) scores: 256 rows at a time
+        want = np.concatenate([cpu_model.score(
+            cpu_params, torch.from_numpy(x[i:i + 256]),
+            torch.from_numpy(valid[i:i + 256])).numpy()
+            for i in range(0, SAMPLE, 256)])
+        got = scored.score[np.searchsorted(dev, sample)]
+        if floor:
+            shares.append(check_share(label, got, want, floor))
+            errs.append(shares[-1]["max_abs_err"])
+        else:
+            errs.append(check_close(label, got, want))
+        log(f"{label}: flush {'anomalies' if anomalous else 'fleet'}: "
+            f"{dev.shape[0]} events in {flush_ms[-1]:.3f} ms, max |err| vs "
+            f"the CPU {errs[-1]:.3e}")
+    n_dispatch = int(dispatches.value - d0)
+    if lstm_kernel.launches or n_dispatch != 3 * LONGWIN_FLEET // max(
+            LONGWIN_BUCKETS):
+        raise AssertionError(f"{label}: {n_dispatch} dispatches, "
+                             f"{lstm_kernel.launches} K1 launches")
+    await session.drain()
+    stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch, 0)
+    stats["dispatch_host_ms_p50"] = float(np.quantile(dispatch_ms, 0.5))
+    stats["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stats["max_abs_err"] = max(errs)
+    if shares:
+        stats["bf16_sample_vs_cpu"] = shares
+    log(f"{label}: {json.dumps(stats)}")
+    session.close()
+    return stats
+
+
+async def phase_forecast(torch) -> dict:
+    """`forecast_device` with attention on a `tft` tenant of the service
+    runtime on the card (TftConfig defaults, its dedicated session), for
+    FORECAST_QUERIES devices, held against the CPU model on the same
+    context-shifted windows."""
+    from sitewhere_tpu_torch import services
+    from sitewhere_tpu_torch.config import InstanceSettings, TenantConfig
+    from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from sitewhere_tpu_torch.kernel.service import ServiceRuntime
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator
+
+    label = "forecast"
+    rt = ServiceRuntime(InstanceSettings(instance_id="forecast"))
+    for name in ("DeviceManagementService", "EventManagementService",
+                 "RuleProcessingService"):
+        rt.add_service(getattr(services, name)(rt))
+    await rt.start()
+    try:
+        await rt.add_tenant(TenantConfig(tenant_id="fc", sections={
+            "rule-processing": {"model": "tft", "buckets": [1024]}}))
+        engine = rt.api("rule-processing").engine("fc")
+        em = rt.api("event-management").management("fc")
+        cpu_model = build_model("tft", device="cpu")
+        w, ctx = cpu_model.cfg.window, cpu_model.cfg.context
+        sim = DeviceSimulator(SimConfig(num_devices=FORECAST_FLEET,
+                                        seed=SEED + 7), tenant_id="fc")
+        for k in range(w + 4):
+            em.telemetry.append_measurements(sim.tick(t=TICK_S * k)[0])
+        cpu_params = params_from_numpy(
+            params_to_numpy(engine.session.params), "cpu")
+        devices = np.random.default_rng(SEED + 7).choice(
+            FORECAST_FLEET, FORECAST_QUERIES, replace=False)
+        query_ms, f_err, a_err = [], 0.0, 0.0
+        for d in devices:
+            t0 = time.perf_counter()
+            got = await engine.forecast_device(int(d), include_attention=True)
+            query_ms.append(1e3 * (time.perf_counter() - t0))
+            x, valid = em.telemetry.window(np.asarray([d]), w)
+            xs, vs = np.zeros_like(x), np.zeros_like(valid)
+            xs[:, :ctx], vs[:, :ctx] = x[:, w - ctx:], valid[:, w - ctx:]
+            want, attn = cpu_model.forecast_with_attention(
+                cpu_params, torch.from_numpy(xs), torch.from_numpy(vs))
+            want, attn = want[0].numpy(), attn[0].numpy()
+            fc = np.asarray(got["forecast"], np.float32)
+            at = np.asarray(got["attention"], np.float32)
+            if fc.shape != want.shape or at.shape != attn.shape:
+                raise AssertionError(f"{label}: shapes {fc.shape}/{at.shape}")
+            if not (np.abs(fc - want) <= SCORE_ATOL
+                    + SCORE_RTOL * np.abs(want)).all() \
+                    or not (np.abs(at - attn) <= ATTN_ATOL).all():
+                raise AssertionError(
+                    f"{label}: device {d} vs the CPU: forecast max |err| "
+                    f"{np.abs(fc - want).max()}, attention "
+                    f"{np.abs(at - attn).max()}")
+            f_err = max(f_err, float(np.abs(fc - want).max()))
+            a_err = max(a_err, float(np.abs(at - attn).max()))
+    finally:
+        await rt.stop()
+    stats = {"queries": len(query_ms),
+             "query_ms_p50": float(np.quantile(query_ms, 0.5)),
+             "query_ms_max": float(np.max(query_ms)),
+             "forecast_max_abs_err": f_err, "attention_max_abs_err": a_err,
+             "horizon": got["horizon"], "quantiles": got["quantiles"]}
+    log(f"{label}: {json.dumps(stats)}")
+    return stats
+
+
+def maintenance_graph(n: int):
+    """The bench's maintenance fleet (`bench.py:1774-1802`): n devices,
+    n/50 assets, n/200 areas under one site, W+4 ticks of telemetry;
+    every 97th device carries an incident (the bench has none, so its
+    loss has no positive class)."""
+    from sitewhere_tpu_torch.domain.model import (
+        Area,
+        Asset,
+        Device,
+        DeviceAssignment,
+        DeviceType,
+    )
+    from sitewhere_tpu_torch.models.graph import build_fleet_graph
+    from sitewhere_tpu_torch.persistence.memory import InMemoryDeviceManagement
+    from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
+    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator
+
+    dm = InMemoryDeviceManagement()
+    dt = DeviceType(token="pump", name="Pump")
+    dm.create_device_type(dt)
+    assets = [Asset(token=f"asset-{i}", name=f"A{i}")
+              for i in range(max(n // 50, 1))]
+    parent = Area(token="site", name="Site")
+    areas = [parent] + [Area(token=f"area-{i}", name=f"Z{i}",
+                             parent_area_id=parent.id)
+                        for i in range(max(n // 200, 1))]
+    for ar in areas:
+        dm.create_area(ar)
+    for i in range(n):
+        d = dm.create_device(Device(token=f"p-{i}", device_type_id=dt.id))
+        dm.create_device_assignment(DeviceAssignment(
+            device_id=d.id, token=f"p-{i}-a",
+            asset_id=assets[i % len(assets)].id,
+            area_id=areas[1 + i % (len(areas) - 1)].id))
+    store = TelemetryStore(history=WINDOW * 2, initial_devices=n)
+    sim = DeviceSimulator(SimConfig(num_devices=n, seed=SEED), tenant_id="m")
+    for k in range(WINDOW + 4):
+        store.append_measurements(sim.tick(t=TICK_S * k)[0])
+    return build_fleet_graph(dm, store, window=WINDOW,
+                             failed_device_indices=np.arange(0, n, 97))
+
+
+def phase_maintenance(torch) -> dict:
+    """The GNN maintenance plane on the card at MAINT_SIZES devices:
+    `MaintenanceTrainer.train` at its defaults, then risk scores per
+    second (the bench's `gnn_fleet_risk_scores_per_sec`: `score` over
+    the whole graph for at least MAINT_SECONDS), the risks held against
+    the same params on the CPU."""
+    from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from sitewhere_tpu_torch.training.maintenance import (
+        MaintenanceTrainer,
+        build_maintenance_model,
+    )
+
+    out = {}
+    for n in MAINT_SIZES:
+        label = f"maintenance-{n}"
+        t0 = time.perf_counter()
+        graph = maintenance_graph(n)
+        build_s = time.perf_counter() - t0
+        trainer = MaintenanceTrainer(build_maintenance_model())
+        params, report = trainer.train(graph)
+        torch.cuda.synchronize()
+        risk = trainer.score(params, graph)  # warm at this graph's shape
+        iters, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < MAINT_SECONDS:
+            risk = trainer.score(params, graph)
+            iters += 1
+        elapsed = time.perf_counter() - t0
+        cpu = MaintenanceTrainer(build_maintenance_model(device="cpu"))
+        want = cpu.score(params_from_numpy(params_to_numpy(params), "cpu"),
+                         graph)
+        err = np.abs(risk - want)
+        if (risk.shape != (n,) or not np.isfinite(risk).all()
+                or not (err <= RISK_ATOL).all()
+                or not report["losses"][-1] < report["losses"][0]):
+            raise AssertionError(f"{label}: risk {risk.shape}, max |err| vs "
+                                 f"the CPU {err.max()}, losses "
+                                 f"{report['losses']}")
+        out[n] = {"graph_build_s": build_s, "graph_nodes": graph.n_pad,
+                  "train_steps": report["steps"],
+                  "train_steps_per_s": report["steps"] / report["seconds"],
+                  "losses": report["losses"],
+                  "risk_scores_per_s": n * iters / elapsed,
+                  "scoring_iters": iters, "max_abs_err_vs_cpu": float(
+                      err.max())}
+        log(f"{label}: {json.dumps(out[n])}")
+    return out
+
+
+def phase_train(ckpt: str) -> dict:
+    """`cli train --model lstm-stream` at the CLI's defaults on the card,
+    checkpointed under `ckpt`."""
+    import contextlib
+    import io
+
+    from sitewhere_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["train", "--model", "lstm-stream", "--checkpoint",
+                       ckpt])
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    report = json.loads(lines[0])
+    stats = {"exit": rc, "steps": report["steps"],
+             "final_loss": report["final_loss"],
+             "train_seconds": report["seconds"],
+             "steps_per_s": report["steps"] / report["seconds"],
+             "command_seconds": seconds, "checkpoint": lines[-1]}
+    log(f"train: {json.dumps(stats)}")
+    if (rc != 0 or not np.isfinite(report["final_loss"])
+            or not lines[-1].endswith("/cli/lstm-stream/v1")):
+        raise AssertionError(f"train: exit {rc}, {lines}")
+    return stats
+
+
+def phase_replay_candidate(data_dir: str, ckpt: str) -> dict:
+    """`cli replay --model lstm-stream --candidate ckpt` on the durable
+    phase's directory: the exit code must agree with the reported
+    divergence against the bar (0 promoted, 1 refused)."""
+    import contextlib
+    import io
+
+    from sitewhere_tpu_torch import cli
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["replay", "--data-dir", data_dir, "--tenant",
+                       pl.TENANT, "--model", "lstm-stream", "--candidate",
+                       ckpt])
+    seconds = time.perf_counter() - t0
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    bar = report["max_divergence"]
+    stats = {"exit": rc, "seconds": seconds, "events": report["events"],
+             "max_abs": report["max_abs"], "bar": bar,
+             "anomaly_flips": report["anomaly_flips"],
+             "promoted": report["promoted"]}
+    log(f"replay-candidate: {json.dumps(stats)}")
+    if rc != (0 if report["max_abs"] <= bar else 1) \
+            or report["promoted"] != (rc == 0) or not report["events"]:
+        raise AssertionError(f"replay-candidate: exit {rc} for max |d| "
+                             f"{report['max_abs']} against {bar}")
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -1223,11 +1657,29 @@ def main() -> int:
                                megabatch=False))
     phase_demo()
     phase_native()
+    asyncio.run(drive_pool(torch, f"pool-tft-1x{FLEET}", "tft", 1, FLEET,
+                           (FLEET,), fleet_ticks=1))
+    # untrained longwin scores ordinary points at the clip: no anomaly
+    # bar; its bf16 sample is held in aggregate, its float32 run row for row
+    for dtype, suffix in ((None, ""), (torch.float32, "-float32")):
+        asyncio.run(drive_pool(torch, f"pool-longwin-1x{FLEET}{suffix}",
+                               "longwin", 1, FLEET, (FLEET,), fleet_ticks=1,
+                               anomalies=False, dtype=dtype))
+        asyncio.run(phase_longwin_512(torch, dtype))
+    tenants, devices, buckets = SEASONAL_POOL
+    asyncio.run(drive_pool(torch, f"seasonal-{tenants}x{devices}", "seasonal",
+                           tenants, devices, buckets, fleet_ticks=1,
+                           anomalies=False))
+    asyncio.run(phase_forecast(torch))
+    phase_maintenance(torch)
     with tempfile.TemporaryDirectory(prefix="smoke-durable-",
                                      dir=scratch_dir()) as data_dir:
         logged = asyncio.run(phase_durable(torch, data_dir))
         asyncio.run(phase_replay(torch))
         phase_cli_replay(data_dir, logged)
+        ckpt = os.path.join(data_dir, "checkpoints")
+        phase_train(ckpt)
+        phase_replay_candidate(data_dir, ckpt)
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

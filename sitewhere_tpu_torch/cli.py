@@ -2,6 +2,9 @@
 
     python -m sitewhere_tpu_torch.cli demo [--devices N] [--seconds S] [--cpu]
     python -m sitewhere_tpu_torch.cli replay --data-dir D --tenant T [--cpu]
+        [--candidate DIR [--candidate-version N] [--max-divergence X]]
+    python -m sitewhere_tpu_torch.cli train [--model lstm] [--steps N]
+        [--checkpoint DIR] [--cpu]
 
 `demo` (the JAX package's `swx demo`): one process hosts the scored pipeline's six services (device-management,
 event-sources, inbound-processing, event-management, device-state,
@@ -18,11 +21,20 @@ fallback.
 and cold tier under a stopped instance's `--data-dir`, compact the log
 (the active segment included), and stream the time range through a
 `SharedScoringPool` at full speed; prints the replay report as JSON. It
-scores on the card, or on the CPU with `--cpu`, as `demo` does.
-`--candidate` (the shadow-scoring gate over a checkpoint) needs the
-checkpoint store, ROADMAP A.4; `ReplayEngine.guard_swap` itself takes
-candidate params directly. The other commands (`run`, `simulate`, `dlq`,
-`quota`, `top`, `fleet`) are ROADMAP A.1.5.
+scores on the card, or on the CPU with `--cpu`, as `demo` does. With
+`--candidate DIR` it loads a checkpoint of `--model` from DIR (the
+tenant's, else the `cli` one `train` writes) and runs the shadow-scoring
+gate (`ReplayEngine.guard_swap`) instead: it prints the divergence
+report and exits 1 when the gate refuses promotion, 2 when there is no
+checkpoint.
+
+`train` (the JAX package's `swx train`): train `--model` over synthetic
+windows (`--devices` series of `--history` points) for `--steps` Adam
+steps on the card (`--cpu` names the CPU), print one JSON line, and with
+`--checkpoint DIR` save the params under `DIR/cli/<model>/v<N>/`.
+`--distributed` (multi-host training) is ROADMAP A.2. The other
+commands (`run`, `simulate`, `dlq`, `quota`, `top`, `fleet`) are
+ROADMAP A.1.5.
 """
 
 from __future__ import annotations
@@ -117,6 +129,7 @@ async def cmd_replay(args) -> int:
     through a real SharedScoringPool at full speed. Runs against a
     STOPPED instance's data_dir."""
     from sitewhere_tpu_torch.history import (
+        DivergenceGateError,
         EventHistoryStore,
         ReplayEngine,
         ScoreCollector,
@@ -126,8 +139,6 @@ async def cmd_replay(args) -> int:
     from sitewhere_tpu_torch.persistence.durable import SegmentLog
     from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool
 
-    if args.candidate:
-        raise not_ported("replay --candidate (the checkpoint store)", "A.4")
     device = "cpu" if args.cpu else None
     # resolve the model first: with no card and no --cpu, fail before
     # touching the data_dir
@@ -154,8 +165,12 @@ async def cmd_replay(args) -> int:
             print(f"compacted: {json.dumps(report)}", file=sys.stderr)
         print(f"cold tier: {json.dumps(store.stats())}", file=sys.stderr)
         pool = SharedScoringPool(model, metrics, PoolConfig(), device=device)
+        engine = ReplayEngine(pool, metrics=metrics)
         try:
-            report = await ReplayEngine(pool, metrics=metrics).replay(
+            if args.candidate:
+                return await _replay_candidate(args, model, pool, engine,
+                                               store, DivergenceGateError)
+            report = await engine.replay(
                 args.tenant, store, args.threshold, since=args.since,
                 until=args.until, collect=ScoreCollector())
             print(json.dumps(report), flush=True)
@@ -166,6 +181,84 @@ async def cmd_replay(args) -> int:
         store.close()
         if source is not None:
             source.close()
+
+
+async def _replay_candidate(args, model, pool, engine, store,
+                            gate_error) -> int:
+    """The shadow-scoring gate over a checkpointed candidate: 0 promoted,
+    1 refused, 2 no checkpoint."""
+    from sitewhere_tpu_torch.convert import params_from_numpy
+    from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
+    from sitewhere_tpu_torch.training.checkpoint import CheckpointStore
+
+    ckpt = CheckpointStore(args.candidate)
+    cand = None
+    for owner in (args.tenant, "cli"):
+        try:
+            cand, _meta = ckpt.load(owner, args.model,
+                                    version=args.candidate_version)
+            break
+        except FileNotFoundError:
+            continue
+    if cand is None:
+        print(f"replay: no {args.model!r} checkpoint for {args.tenant!r} "
+              f"(or 'cli') under {args.candidate}", file=sys.stderr)
+        return 2
+
+    async def _sink(_scored) -> None:
+        return None
+
+    slot = pool.register(args.tenant, TelemetryStore(), args.threshold, _sink)
+    try:
+        _version, report = await engine.guard_swap(
+            slot, store, params_from_numpy(cand, model.device),
+            since=args.since, until=args.until,
+            max_divergence=args.max_divergence)
+    except gate_error as exc:
+        print(json.dumps(exc.report, default=str), flush=True)
+        print(f"replay: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps(report, default=str), flush=True)
+    return 0
+
+
+async def cmd_train(args) -> int:
+    """Train a model over synthetic windows on one device; with
+    --checkpoint, save the params as the `cli` tenant's next version."""
+    import numpy as np
+
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.training.checkpoint import CheckpointStore
+    from sitewhere_tpu_torch.training.trainer import (
+        Trainer,
+        TrainerConfig,
+        make_windows,
+    )
+
+    if args.distributed:
+        raise not_ported("train --distributed (multi-host training)", "A.2")
+    # the streaming model trains on the windowed objective (same weights)
+    model = build_model(args.model if args.model != "lstm-stream" else "lstm",
+                        device="cpu" if args.cpu else None,
+                        window=args.window)
+    rng = np.random.default_rng(args.seed)
+    values = rng.normal(20.0, 2.0,
+                        (args.devices, args.history)).astype(np.float32)
+    windows, valid = make_windows(values, np.full(args.devices, args.history),
+                                  window=args.window, max_windows=500_000)
+    trainer = Trainer(model, TrainerConfig(batch_size=args.batch_size,
+                                           steps=args.steps, seed=args.seed))
+    params, report = trainer.train(windows, valid)
+    print(json.dumps({"steps": report["steps"],
+                      "final_loss": report["final_loss"],
+                      "seconds": round(report["seconds"], 2)}), flush=True)
+    if args.checkpoint:
+        store = CheckpointStore(args.checkpoint)
+        version = store.save("cli", args.model, params,
+                             metadata={"window": args.window})
+        print(f"checkpoint: {args.checkpoint}/cli/{args.model}/v{version}",
+              flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -202,12 +295,33 @@ def main(argv=None) -> int:
                           help="replay the cold tier as-is (skip the "
                                "compaction pass)")
     p_replay.add_argument("--candidate",
-                          help="checkpoint root of a candidate model (the "
-                               "checkpoint store is not ported)")
+                          help="checkpoint root of a candidate model "
+                               "(training/checkpoint.py layout) — run "
+                               "the shadow-scoring gate instead of a "
+                               "plain replay")
+    p_replay.add_argument("--candidate-version", type=int)
+    p_replay.add_argument("--max-divergence", type=float, default=0.5,
+                          help="promotion bar on max |live − candidate| "
+                               "score")
     p_replay.add_argument("--cpu", action="store_true",
                           help="score on the CPU instead of the CUDA card")
+    p_train = sub.add_parser("train", help="train a model over synthetic "
+                             "windows and checkpoint it")
+    p_train.add_argument("--model", default="lstm")
+    p_train.add_argument("--window", type=int, default=64)
+    p_train.add_argument("--devices", type=int, default=1024)
+    p_train.add_argument("--history", type=int, default=192)
+    p_train.add_argument("--batch-size", type=int, default=1024)
+    p_train.add_argument("--steps", type=int, default=200)
+    p_train.add_argument("--seed", type=int, default=0)
+    p_train.add_argument("--checkpoint", help="directory to save params to")
+    p_train.add_argument("--distributed", action="store_true",
+                         help="multi-host training (not ported)")
+    p_train.add_argument("--cpu", action="store_true",
+                         help="train on the CPU instead of the CUDA card")
     args = parser.parse_args(argv)
-    return asyncio.run({"demo": cmd_demo, "replay": cmd_replay}[args.cmd](args))
+    return asyncio.run({"demo": cmd_demo, "replay": cmd_replay,
+                        "train": cmd_train}[args.cmd](args))
 
 
 if __name__ == "__main__":

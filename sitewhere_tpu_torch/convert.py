@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package.
 
 Both packages keep the same parameter layout as the JAX `model.init`
-(`lstm0.{wx,wh,b}`, `head.{w,b}`), so a tree of numpy arrays moves
+(`lstm0.{wx,wh,b}`, `head.{w,b}`; the TFT's `emb_past` and
+`vsn_past_var` are lists of dicts), so a tree of numpy arrays moves
 between them leaf for leaf. The JAX side does
 `jax.tree.map(np.asarray, params)` before handing the tree over; this
 module only ever sees numpy and torch.
@@ -11,18 +12,16 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 
-def params_from_numpy(tree, device) -> dict:
-    """Nested dict of numpy arrays → the same dict of torch tensors on
-    `device` (dtypes kept)."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+def params_from_numpy(tree, device):
+    """Nested dicts and lists of numpy arrays → the same tree of torch
+    tensors on `device` (dtypes kept)."""
+    return tree_map(
+        lambda v: torch.from_numpy(np.array(v, copy=True)).to(device), tree)
 
 
-def params_to_numpy(tree) -> dict:
+def params_to_numpy(tree):
     """Inverse of `params_from_numpy`: tensors → host numpy arrays."""
-    if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    return tree_map(lambda v: v.detach().cpu().numpy(), tree)

@@ -155,6 +155,18 @@ class LstmAnomalyModel:
             in_dim = h
         return fl + steps * 2.0 * h  # head projection
 
+    def loss(self, params: dict, x: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+        """Masked next-step MSE over the window (self-supervised). The
+        scan path, never the window kernel (which has no backward)."""
+        v = valid.float()
+        xn, _, _ = self._normalize(x, v)
+        preds = self._predictions(params, xn)
+        target = xn[:, 1:]
+        mask = v[:, 1:] * v[:, :-1]
+        se = (preds - target) ** 2 * mask
+        return se.sum() / mask.sum().clamp(min=1.0)
+
 
 class StreamingLstmModel(LstmAnomalyModel):
     """Event-native streaming twin of the windowed LSTM scorer.

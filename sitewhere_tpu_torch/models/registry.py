@@ -7,17 +7,27 @@ from __future__ import annotations
 
 from typing import Any
 
+from sitewhere_tpu_torch.models.longwin import LongWindowConfig, LongWindowModel
 from sitewhere_tpu_torch.models.lstm import (
     LstmAnomalyModel,
     LstmConfig,
     StreamingLstmModel,
 )
+from sitewhere_tpu_torch.models.seasonal import (
+    SeasonalTrendConfig,
+    SeasonalTrendForecaster,
+)
+from sitewhere_tpu_torch.models.tft import TftConfig, TftForecaster
 from sitewhere_tpu_torch.models.zscore import ZScoreConfig, ZScoreModel
 
 MODEL_REGISTRY: dict[str, tuple[type, type]] = {
     "lstm": (LstmConfig, LstmAnomalyModel),
     "lstm-stream": (LstmConfig, StreamingLstmModel),
+    "tft": (TftConfig, TftForecaster),
     "zscore": (ZScoreConfig, ZScoreModel),
+    "longwin": (LongWindowConfig, LongWindowModel),
+    # the fleet's own load forecaster
+    "seasonal": (SeasonalTrendConfig, SeasonalTrendForecaster),
 }
 
 

@@ -1,0 +1,412 @@
+"""Temporal Fusion Transformer forecaster (config 3 [BASELINE.json]).
+
+Multi-horizon quantile forecasting over a device's telemetry window,
+following Lim et al. 2021 (TFT): per-feature embeddings → variable
+selection networks → LSTM encoder/decoder → gated skip connections →
+static enrichment → interpretable multi-head attention → position-wise
+GRN → quantile heads. Mounted at the same rule-processing hook as the
+LSTM detector; the anomaly score is the newest observations' violation
+of the predicted quantile interval, so one model serves both
+forecasting (config 3) and anomaly alerting.
+
+The same functional protocol as every registry model: `init`, and
+`score/loss(params, x[B, W], valid[B, W])` — `torch.func.vmap`
+friendly (static shapes, no Python branching on data), so the pool
+scores a stacked tenant axis exactly as it does the LSTM's. Matmuls
+round through the compute dtype where the reference casts
+(`_matmul_round`), softmax, layernorm and state in float32. Params keep
+the JAX `init` layout, lists of dicts included (`emb_past`,
+`vsn_past_var`, ...).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sitewhere_tpu_torch.models.common import (
+    _matmul_round,
+    dense_init,
+    lstm_init,
+    lstm_scan,
+)
+from sitewhere_tpu_torch.utils import resolve_device
+
+
+@dataclass(frozen=True)
+class TftConfig:
+    window: int = 64           # total input length W (context + horizon)
+    horizon: int = 8           # forecast steps H (scored region)
+    hidden: int = 32           # model width d
+    heads: int = 4
+    quantiles: tuple[float, ...] = (0.1, 0.5, 0.9)
+    compute_dtype: Any = torch.bfloat16
+    score_clip: float = 50.0
+    min_history: int = 16      # valid context steps needed to score
+
+    @property
+    def context(self) -> int:
+        return self.window - self.horizon
+
+
+# -- parameter-free building blocks -----------------------------------------
+
+def _dense(p, x, cdt):
+    return _matmul_round(x, p["w"], cdt) + p["b"]
+
+
+def _ln_init(d, device):
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
+            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+
+
+def _ln(p, x):
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+
+
+def _grn_init(gen, d_in, d, d_out=None, with_context=False, device=None):
+    """Gated residual network params (TFT eq. 2-5)."""
+    d_out = d_out if d_out is not None else d
+    p = {
+        "fc1": dense_init(gen, d_in, d, device=device),
+        "fc2": dense_init(gen, d, d_out, device=device),
+        "gate": dense_init(gen, d_out, 2 * d_out, device=device),  # GLU
+        "ln": _ln_init(d_out, device),
+    }
+    if d_in != d_out:
+        p["skip"] = dense_init(gen, d_in, d_out, device=device)
+    if with_context:
+        p["ctx"] = dense_init(gen, d, d, device=device)
+    return p
+
+
+def _grn(p, a, cdt, context=None):
+    """GRN(a, c) = LayerNorm(skip(a) + GLU(W2 ELU(W1 a + W3 c)))."""
+    h = _dense(p["fc1"], a, cdt)
+    if context is not None:
+        h = h + _dense(p["ctx"], context, cdt)
+    h = F.elu(h)
+    h2 = _dense(p["fc2"], h, cdt)
+    g = _dense(p["gate"], h2, cdt)
+    val, gate = g.chunk(2, dim=-1)
+    glu = val * torch.sigmoid(gate)
+    skip = _dense(p["skip"], a, cdt) if "skip" in p else a
+    return _ln(p["ln"], skip + glu)
+
+
+def _glu_addnorm_init(gen, d, device):
+    return {"gate": dense_init(gen, d, 2 * d, device=device),
+            "ln": _ln_init(d, device)}
+
+
+def _glu_addnorm(p, x, skip, cdt):
+    g = _dense(p["gate"], x, cdt)
+    val, gate = g.chunk(2, dim=-1)
+    return _ln(p["ln"], skip + val * torch.sigmoid(gate))
+
+
+def _einsum_round(eq: str, a, b, cdt):
+    """`jnp.einsum(eq, a.astype(cdt), b.astype(cdt)).astype(f32)`: the
+    product of `cdt` operands summed in float32 and rounded once to
+    `cdt`, as `_matmul_round` does for matmuls."""
+    return torch.einsum(eq, a.to(cdt).float(), b.to(cdt).float()).to(cdt).float()
+
+
+class TftForecaster:
+    """Functional TFT on `device` (the card unless named). Instances
+    hold config only; params are a tree passed explicitly."""
+
+    name = "tft"
+
+    # observed past features: value, first difference; known features
+    # (past+future): sin/cos relative position (the univariate-telemetry
+    # stand-ins for TFT's observed/known covariate split)
+    N_PAST_VARS = 4
+    N_FUT_VARS = 2
+
+    def __init__(self, cfg: TftConfig = TftConfig(), device=None):
+        if cfg.horizon >= cfg.window:
+            raise ValueError("horizon must be < window")
+        if cfg.heads < 1 or cfg.hidden % cfg.heads != 0:
+            raise ValueError(
+                f"hidden ({cfg.hidden}) must be a positive multiple of "
+                f"heads ({cfg.heads})")
+        if (len(cfg.quantiles) < 2
+                or any(q2 <= q1 for q1, q2 in zip(cfg.quantiles,
+                                                  cfg.quantiles[1:]))
+                or cfg.quantiles[0] <= 0.0 or cfg.quantiles[-1] >= 1.0):
+            # strictly increasing inside (0, 1): duplicates make z_outer 0
+            # (scores silently constant) and 0/1 endpoints hit ppf's domain
+            raise ValueError(
+                "quantiles must be strictly increasing within (0, 1)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- params ------------------------------------------------------------
+
+    def init(self, gen: torch.Generator | None = None) -> dict:
+        cfg, dev = self.cfg, self.device
+        gen = gen if gen is not None else torch.Generator().manual_seed(0)
+        d, nq = cfg.hidden, len(cfg.quantiles)
+        return {
+            # per-variable scalar → d embeddings
+            "emb_past": [dense_init(gen, 1, d, device=dev)
+                         for _ in range(self.N_PAST_VARS)],
+            "emb_fut": [dense_init(gen, 1, d, device=dev)
+                        for _ in range(self.N_FUT_VARS)],
+            # learned static context (no static covariates in the fleet
+            # case; a learned vector keeps TFT's conditioning structure)
+            "static": (torch.randn(d, generator=gen, dtype=torch.float32)
+                       * 0.02).to(dev),
+            "grn_static": _grn_init(gen, d, d, device=dev),
+            # variable selection: GRN over flattened embeddings → softmax
+            "vsn_past": _grn_init(gen, self.N_PAST_VARS * d, d,
+                                  d_out=self.N_PAST_VARS, with_context=True,
+                                  device=dev),
+            "vsn_past_var": [_grn_init(gen, d, d, device=dev)
+                             for _ in range(self.N_PAST_VARS)],
+            "vsn_fut": _grn_init(gen, self.N_FUT_VARS * d, d,
+                                 d_out=self.N_FUT_VARS, with_context=True,
+                                 device=dev),
+            "vsn_fut_var": [_grn_init(gen, d, d, device=dev)
+                            for _ in range(self.N_FUT_VARS)],
+            # sequence-to-sequence layer
+            "lstm_enc": lstm_init(gen, d, d, device=dev),
+            "lstm_dec": lstm_init(gen, d, d, device=dev),
+            "gate_seq": _glu_addnorm_init(gen, d, dev),
+            # static enrichment + temporal self-attention
+            "grn_enrich": _grn_init(gen, d, d, with_context=True, device=dev),
+            "attn_q": dense_init(gen, d, d, device=dev),
+            "attn_k": dense_init(gen, d, d, device=dev),
+            "attn_v": dense_init(gen, d, d // cfg.heads, device=dev),  # shared V
+            "attn_o": dense_init(gen, d // cfg.heads, d, device=dev),
+            "gate_attn": _glu_addnorm_init(gen, d, dev),
+            "grn_final": _grn_init(gen, d, d, device=dev),
+            "gate_out": _glu_addnorm_init(gen, d, dev),
+            "head": dense_init(gen, d, nq, device=dev),
+        }
+
+    # -- features ----------------------------------------------------------
+
+    def _normalize(self, x, valid):
+        """Masked mean/std over the CONTEXT region only (the horizon tail
+        is the prediction target; its stats must not leak)."""
+        cfg = self.cfg
+        v = valid[:, :cfg.context].float()
+        xc = x[:, :cfg.context]
+        n = v.sum(-1, keepdim=True).clamp(min=1.0)
+        mu = (xc * v).sum(-1, keepdim=True) / n
+        var = (((xc - mu) * v) ** 2).sum(-1, keepdim=True) / n
+        sd = torch.sqrt(var + 1e-6)
+        return (x - mu) / sd, mu, sd
+
+    def _known_features(self, B, device):
+        """sin/cos relative position over the full window: [W, 2]."""
+        w = self.cfg.window
+        pos = torch.arange(w, dtype=torch.float32, device=device) / w
+        feats = torch.stack([torch.sin(2 * math.pi * pos),
+                             torch.cos(2 * math.pi * pos)], dim=-1)
+        return feats.expand(B, w, 2)
+
+    def _vsn(self, p_sel, p_vars, embs, static_ctx, cdt):
+        """Variable selection (TFT eq. 6-8). embs: [B, T, nvars, d]."""
+        B, T, nv, d = embs.shape
+        flat = embs.reshape(B, T, nv * d)
+        w = torch.softmax(
+            _grn(p_sel, flat, cdt, context=static_ctx[:, None, :]), dim=-1)
+        proc = torch.stack([_grn(p_vars[i], embs[:, :, i], cdt)
+                            for i in range(nv)], dim=2)
+        return (proc * w[..., None]).sum(dim=2), w   # [B, T, d], [B, T, nv]
+
+    # -- forward -----------------------------------------------------------
+
+    def _forward(self, params, xn, valid):
+        """Normalized window → (quantiles [B, H, Q], attention [B, Hd, H, W])."""
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        B, W = xn.shape
+        Wc, H, d = cfg.context, cfg.horizon, cfg.hidden
+        dev = xn.device
+
+        static_ctx = _grn(params["grn_static"],
+                          params["static"].expand(B, d), cdt)
+
+        # observed past features (value, masked delta, masked value,
+        # validity flag); horizon values are masked out — the model must
+        # not see its own target
+        v = valid.float()
+        delta = torch.diff(xn, dim=-1, prepend=xn[:, :1])
+        past_feats = torch.stack(
+            [xn * v, delta * v, v, delta.abs() * v], dim=-1)[:, :Wc]
+        fut_feats = self._known_features(B, dev)
+
+        past_embs = torch.stack(
+            [_dense(params["emb_past"][i], past_feats[..., i:i + 1], cdt)
+             for i in range(self.N_PAST_VARS)], dim=2)   # [B, Wc, nv, d]
+        fut_embs = torch.stack(
+            [_dense(params["emb_fut"][i], fut_feats[:, Wc:, i:i + 1], cdt)
+             for i in range(self.N_FUT_VARS)], dim=2)    # [B, H, nv, d]
+
+        past_sel, _ = self._vsn(params["vsn_past"], params["vsn_past_var"],
+                                past_embs, static_ctx, cdt)
+        fut_sel, _ = self._vsn(params["vsn_fut"], params["vsn_fut_var"],
+                               fut_embs, static_ctx, cdt)
+
+        enc_out, (h, c) = lstm_scan(params["lstm_enc"], past_sel, cdt)
+        dec_out, _ = lstm_scan(params["lstm_dec"], fut_sel, cdt, h0=h, c0=c)
+        seq = torch.cat([enc_out, dec_out], dim=1)        # [B, W, d]
+        skip = torch.cat([past_sel, fut_sel], dim=1)
+        seq = _glu_addnorm(params["gate_seq"], seq, skip, cdt)
+
+        enriched = _grn(params["grn_enrich"], seq, cdt,
+                        context=static_ctx[:, None, :])
+
+        # interpretable multi-head attention: per-head Q/K, SHARED value
+        # head (Lim et al. §4.4) — queries are the horizon positions only
+        nh = cfg.heads
+        dh = d // nh
+        q = _dense(params["attn_q"], enriched[:, Wc:], cdt)  # [B, H, d]
+        k = _dense(params["attn_k"], enriched, cdt)          # [B, W, d]
+        val = _dense(params["attn_v"], enriched, cdt)        # [B, W, dh]
+        q = q.reshape(B, H, nh, dh).transpose(1, 2)          # [B, nh, H, dh]
+        k = k.reshape(B, W, nh, dh).transpose(1, 2)          # [B, nh, W, dh]
+        logits = _einsum_round("bnqd,bnkd->bnqk", q, k, cdt) / np.sqrt(dh)
+        # causal + validity mask: horizon step i sits at absolute Wc+i and
+        # may attend to positions <= Wc+i; invalid past steps are masked
+        key_pos = torch.arange(W, device=dev)
+        causal = key_pos[None, :] <= (Wc + torch.arange(H, device=dev))[:, None]
+        key_ok = torch.cat([valid[:, :Wc].bool(),
+                            torch.ones((B, H), dtype=torch.bool, device=dev)],
+                           dim=1)                            # [B, W]
+        mask = causal[None, None] & key_ok[:, None, None]
+        logits = logits.masked_fill(~mask, -1e9)
+        attn = torch.softmax(logits, dim=-1)
+        ctx_h = _einsum_round("bnqk,bkd->bnqd", attn, val, cdt)
+        ctx = ctx_h.mean(dim=1)                              # head-mean [B, H, dh]
+        attn_out = _dense(params["attn_o"], ctx, cdt)
+        x_attn = _glu_addnorm(params["gate_attn"], attn_out,
+                              enriched[:, Wc:], cdt)
+
+        ff = _grn(params["grn_final"], x_attn, cdt)
+        out = _glu_addnorm(params["gate_out"], ff, seq[:, Wc:], cdt)
+        quants = _dense(params["head"], out, cdt)            # [B, H, Q]
+        # monotone quantiles: cumulative softplus offsets from the first
+        base = quants[..., :1]
+        steps = F.softplus(quants[..., 1:])
+        quants = torch.cat([base, base + torch.cumsum(steps, dim=-1)], dim=-1)
+        return quants, attn
+
+    # -- public API --------------------------------------------------------
+
+    def forecast(self, params: dict, x: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+        """Quantile forecasts in ORIGINAL units: [B, H, Q] (config 3)."""
+        xn, mu, sd = self._normalize(x, valid)
+        quants, _ = self._forward(params, xn, valid)
+        return quants * sd[..., None] + mu[..., None]
+
+    def attention(self, params: dict, x: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+        """Interpretability surface: attention weights [B, heads, H, W]."""
+        xn, _, _ = self._normalize(x, valid)
+        _, attn = self._forward(params, xn, valid)
+        return attn
+
+    def forecast_with_attention(self, params: dict, x: torch.Tensor,
+                                valid: torch.Tensor):
+        """(forecast [B, H, Q] in original units, attention
+        [B, heads, H, W]) from ONE forward pass — the query surface
+        uses this so attention doesn't double the compute."""
+        xn, mu, sd = self._normalize(x, valid)
+        quants, attn = self._forward(params, xn, valid)
+        return quants * sd[..., None] + mu[..., None], attn
+
+    def score(self, params: dict, x: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+        """Anomaly score: worst violation of the predicted outer-quantile
+        interval by the observed horizon tail, in interval half-widths
+        (z-like for a Gaussian process ⇒ same thresholds as the LSTM/
+        zscore detectors). x: [B, W], valid: [B, W] → [B]."""
+        cfg = self.cfg
+        xn, _, _ = self._normalize(x, valid)
+        quants, _ = self._forward(params, xn, valid)
+        lo, hi = quants[..., 0], quants[..., -1]             # [B, H]
+        y = xn[:, cfg.context:]
+        vt = valid[:, cfg.context:].float()
+        half = ((hi - lo) * 0.5).clamp(min=1e-2)
+        violation = torch.maximum(lo - y, y - hi)
+        viol_z = (violation / half).masked_fill(vt <= 0, -math.inf).amax(-1)
+        # sigma units: the interval edge sits at z_outer (1.28 for an 80%
+        # interval), so a point viol_z half-widths past it has predictive
+        # z = (1 + viol_z) * z_outer — keeps thresholds interchangeable
+        # with the lstm/zscore detectors
+        z_outer = float(-_norm_ppf((1.0 - (cfg.quantiles[-1]
+                                           - cfg.quantiles[0])) / 2.0))
+        score = torch.where(viol_z > 0.0, (1.0 + viol_z) * z_outer,
+                            torch.zeros_like(viol_z))
+        enough = valid[:, :cfg.context].float().sum(-1) >= cfg.min_history
+        enough = enough & (vt.sum(-1) > 0)
+        return torch.where(enough, score, torch.zeros_like(score)).clamp(
+            0.0, cfg.score_clip)
+
+    def flops_per_event(self) -> float:
+        """Approximate forward FLOPs per scored window: VSN + GRN stack
+        (~a dozen d*d matmuls per step), encoder/decoder LSTMs, and the
+        interpretable attention (QK^T + AV over the full window). A
+        coarse estimate for throughput accounting, not a profiler."""
+        cfg = self.cfg
+        d, w = cfg.hidden, cfg.window
+        per_step = 24.0 * d * d + 16.0 * d * d  # GRN stack + LSTM gates
+        attn = 4.0 * w * w * d / max(w, 1)      # amortized per step
+        return w * (per_step + attn)
+
+    def loss(self, params: dict, x: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+        """Masked quantile (pinball) loss over the horizon region."""
+        cfg = self.cfg
+        xn, _, _ = self._normalize(x, valid)
+        quants, _ = self._forward(params, xn, valid)
+        y = xn[:, cfg.context:, None]                        # [B, H, 1]
+        qs = torch.tensor(cfg.quantiles, dtype=torch.float32,
+                          device=xn.device)
+        err = y - quants
+        pinball = torch.maximum(qs * err, (qs - 1.0) * err)  # [B, H, Q]
+        mask = valid[:, cfg.context:, None].float()
+        return (pinball * mask).sum() / (
+            mask.sum() * len(cfg.quantiles)).clamp(min=1.0)
+
+
+def _norm_ppf(p: float) -> float:
+    """Scalar standard-normal inverse CDF (Acklam approximation) — host
+    side only (used for the score's sigma conversion constant)."""
+    a = [-3.969683028665376e+01, 2.209460984245205e+02,
+         -2.759285104469687e+02, 1.383577518672690e+02,
+         -3.066479806614716e+01, 2.506628277459239e+00]
+    b = [-5.447609879822406e+01, 1.615858368580409e+02,
+         -1.556989798598866e+02, 6.680131188771972e+01,
+         -1.328068155288572e+01]
+    c = [-7.784894002430293e-03, -3.223964580411365e-01,
+         -2.400758277161838e+00, -2.549732539343734e+00,
+         4.374664141464968e+00, 2.938163982698783e+00]
+    d = [7.784695709041462e-03, 3.224671290700398e-01,
+         2.445134137142996e+00, 3.754408661907416e+00]
+    plow = 0.02425
+    if p < plow:
+        q = math.sqrt(-2 * math.log(p))
+        return (((((c[0] * q + c[1]) * q + c[2]) * q + c[3]) * q + c[4]) * q
+                + c[5]) / ((((d[0] * q + d[1]) * q + d[2]) * q + d[3]) * q + 1)
+    if p > 1 - plow:
+        return -_norm_ppf(1 - p)
+    q = p - 0.5
+    r = q * q
+    return (((((a[0] * r + a[1]) * r + a[2]) * r + a[3]) * r + a[4]) * r
+            + a[5]) * q / (((((b[0] * r + b[1]) * r + b[2]) * r + b[3]) * r
+                            + b[4]) * r + 1)

@@ -22,21 +22,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from sitewhere_tpu_torch.utils import grow_pow2, resolve_device
 
 
-def _clone_to(params: dict, device) -> dict:
-    return {k: (_clone_to(v, device) if isinstance(v, dict)
-                else v.detach().to(device, torch.float32).clone())
-            for k, v in params.items()}
-
-
-def _map(fn, *trees):
-    head = trees[0]
-    if isinstance(head, dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in head}
-    return fn(*trees)
+def _clone_to(params, device):
+    return tree_map(lambda v: v.detach().to(device, torch.float32).clone(),
+                    params)
 
 
 class TenantStack:
@@ -78,13 +71,14 @@ class TenantStack:
         if cap <= self.capacity:
             return
         old_cap, old = self.capacity, self.stacked
-        tiled = _map(lambda leaf: leaf[None].repeat(cap, *(1,) * leaf.ndim),
-                     self._init_params)
+        tiled = tree_map(
+            lambda leaf: leaf[None].repeat(cap, *(1,) * leaf.ndim),
+            self._init_params)
         if old is not None:
             def keep(t, o):
                 t[:old_cap] = o
                 return t
-            tiled = _map(keep, tiled, old)
+            tiled = tree_map(keep, tiled, old)
         self.stacked = tiled
         self.capacity = cap
         self.fence += 1
@@ -130,7 +124,7 @@ class TenantStack:
 
         def write(s, p):
             s[slot].copy_(p.detach().to(s.device, s.dtype))
-        _map(write, self.stacked, params)
+        tree_map(write, self.stacked, params)
         self.fence += 1
         if _bump:
             self.versions[tenant_id] += 1
@@ -140,7 +134,7 @@ class TenantStack:
         """One tenant's params: tensors on the stack's device, cloned from
         its slot."""
         slot = self.slots[tenant_id]
-        return _map(lambda s: s[slot].clone(), self.stacked)
+        return tree_map(lambda s: s[slot].clone(), self.stacked)
 
     # -- scoring ------------------------------------------------------------
 

@@ -31,6 +31,7 @@ from typing import Awaitable, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, ScoredBatch
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
@@ -160,9 +161,7 @@ class ScoringSession:
         self.stage_sink = metrics.histogram("scoring.stage_sink_s")
 
     def _place(self, params: dict) -> dict:
-        if isinstance(params, dict):
-            return {k: self._place(v) for k, v in params.items()}
-        return params.to(self.device)
+        return tree_map(lambda v: v.to(self.device), params)
 
     def _new_ring(self, capacity: int):
         """Window ring (raw history, per-event window rescore) or

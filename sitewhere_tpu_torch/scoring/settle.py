@@ -5,3 +5,8 @@ instead of blocking the event loop."""
 from concurrent.futures import ThreadPoolExecutor
 
 SETTLE_POOL = ThreadPoolExecutor(max_workers=8, thread_name_prefix="swx-settle")
+
+# query-path inference (forecasts, ad-hoc scoring) runs on its own small
+# pool: a long query must never starve the scoring plane's settle
+# pipeline above
+QUERY_POOL = ThreadPoolExecutor(max_workers=2, thread_name_prefix="swx-query")

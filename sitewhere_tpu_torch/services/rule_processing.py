@@ -45,6 +45,7 @@ from dataclasses import dataclass
 from typing import Awaitable, Callable, Optional
 
 import numpy as np
+import torch
 
 from sitewhere_tpu_torch.config import TenantConfig
 from sitewhere_tpu_torch.domain.batch import AlertBatch, MeasurementBatch, ScoredBatch
@@ -70,6 +71,7 @@ from sitewhere_tpu_torch.kernel.service import Service, TenantEngine
 from sitewhere_tpu_torch.models.registry import build_model
 from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool, TenantSlot
 from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
+from sitewhere_tpu_torch.scoring.settle import QUERY_POOL
 from sitewhere_tpu_torch.utils import resolve_device
 from sitewhere_tpu_torch.utils.roadmap import not_ported
 
@@ -426,21 +428,72 @@ class RuleProcessingEngine(TenantEngine):
 
     async def forecast_device(self, device_index: int,
                               include_attention: bool = False) -> dict:
-        """Model FORWARD forecast for one device (the query path). Raises
-        LookupError when the tenant's model has no forecast surface — as
-        the JAX package does for zscore and lstm. No model of the port
-        has one yet (the forecasters are ROADMAP A.4), so every
-        configured model raises here."""
+        """Model FORWARD forecast for one device (the query path): [H, Q]
+        values in original units plus the model's quantile levels.
+        Raises LookupError when the tenant's model has no forecast
+        surface (e.g. zscore).
+
+        Windowing: the model's CONTEXT region must end at the newest
+        observation — for a windowed forecaster like the TFT (window =
+        context + horizon) the newest `context` points become the
+        context and the horizon tail is marked unobserved; feeding the
+        latest full window instead would return a hindcast of the last
+        H already-reported steps. Inference runs off the event loop."""
         if self.session is not None:
-            model = self.session.model
+            model, params = self.session.model, self.session.params
         elif self.pool_slot is not None:
-            model = self.pool_slot.pool.model
+            pool = self.pool_slot.pool
+            model = pool.model
+            params = pool.stack.get_params(self.tenant_id)
         else:
             raise LookupError("no model session configured")
-        if getattr(model, "forecast", None) is None:
+        fc = getattr(model, "forecast", None)
+        if fc is None:
             raise LookupError(
                 f"model {self.model_name!r} has no forecast surface")
-        raise not_ported(f"forecasts of model {self.model_name!r}", "A.4")
+        em = self.runtime.api("event-management").management(self.tenant_id)
+        w = model.cfg.window
+        ctx_len = getattr(model.cfg, "context", w)
+        x, valid = em.telemetry.window(
+            np.asarray([device_index]), w, mtype=self.scoring_cfg.mtype)
+        if ctx_len < w:
+            shifted = np.zeros_like(x)
+            vshift = np.zeros_like(valid)
+            shifted[:, :ctx_len] = x[:, w - ctx_len:]
+            vshift[:, :ctx_len] = valid[:, w - ctx_len:]
+            x, valid = shifted, vshift
+        both_fn = getattr(model, "forecast_with_attention", None)
+        if include_attention and both_fn is None:
+            raise LookupError(
+                f"model {self.model_name!r} has no attention surface")
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(model.device)
+        vt = torch.from_numpy(np.ascontiguousarray(valid)).to(model.device)
+
+        def infer():
+            with torch.no_grad():
+                if include_attention:
+                    # one forward pass serves both outputs
+                    return tuple(a.cpu().numpy()
+                                 for a in both_fn(params, xt, vt))
+                return fc(params, xt, vt).cpu().numpy(), None
+
+        out, attn = await asyncio.get_running_loop().run_in_executor(
+            QUERY_POOL, infer)
+        out = out[0]
+        result = {
+            "device_index": device_index,
+            "horizon": int(out.shape[0]),
+            "quantiles": [float(q) for q in
+                          getattr(model.cfg, "quantiles", (0.5,))],
+            "forecast": [[float(v) for v in step] for step in out],
+            "history_points": int(valid[0].sum()),
+        }
+        if attn is not None:
+            # interpretability surface (TFT's interpretable multi-head
+            # attention, Lim et al. §4.4): which history positions each
+            # horizon step attended to — [heads, H, W]
+            result["attention"] = attn[0].tolist()
+        return result
 
 
 class RuleProcessor(BackgroundTaskComponent):

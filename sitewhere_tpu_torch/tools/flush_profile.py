@@ -1,14 +1,16 @@
 """Where a full-fleet flush spends its time, on the card.
 
     python -m sitewhere_tpu_torch.tools.flush_profile
-        [--path {session,stream,pool,pipeline,replay}] [--flushes N]
-        [--trace FILE]
+        [--path {session,stream,pool,pipeline,replay}] [--model NAME]
+        [--flushes N] [--trace FILE]
 
 Builds one of the paths `chip_smoke.py` drives (`tools/main_path.py`,
 `tools/pipeline.py`): `session`, the dedicated windowed-`lstm` session
 (the default); `stream`, the dedicated `lstm-stream` session; `pool`, the
 `lstm-stream` pool with one 32,768-device tenant and one fleet-sized
-bucket (the bench's default serving configuration); `pipeline`, that
+bucket (the bench's default serving configuration; `--model tft`,
+`longwin`, `seasonal` or `lstm` puts that model in the pool instead, at
+the width `tools/main_path.MODEL_CFG` gives it); `pipeline`, that
 pool inside the service runtime, a "flush" there being one fleet tick
 from the tenant's receiver to its last record on the scored topic;
 `replay`, the bench's replay workload (`tools/replay_bench.py`), a
@@ -62,14 +64,14 @@ def _union_us(spans) -> float:
     return total
 
 
-async def _flusher(which: str):
+async def _flusher(which: str, model: str):
     """(one_flush coroutine function, drain) for the chosen path."""
     if which == "pipeline":
         return await _pipeline_flusher()
     if which == "replay":
         return _replay_flusher()
     if which == "pool":
-        path = await main_path.build_pool("profile", "lstm-stream", 1,
+        path = await main_path.build_pool("profile", model, 1,
                                           main_path.FLEET, (main_path.FLEET,))
         drain = path.pool.drain
     else:
@@ -140,8 +142,8 @@ def _replay_flusher():
     return one_flush, drain
 
 
-async def _run(which: str, n_flushes: int, trace: Path) -> dict:
-    one_flush, drain = await _flusher(which)
+async def _run(which: str, model: str, n_flushes: int, trace: Path) -> dict:
+    one_flush, drain = await _flusher(which, model)
     steps = STEPS[which]
 
     for _ in range(2):
@@ -185,7 +187,8 @@ async def _run(which: str, n_flushes: int, trace: Path) -> dict:
     else:
         events = main_path.FLEET
     return {
-        "path": which, "flushes": n, "events_per_flush": events,
+        "path": which, "model": model if which == "pool" else None,
+        "flushes": n, "events_per_flush": events,
         "flush_wall_ms_p50": statistics.median(wall),
         "host_ms_per_flush": {s: sum(v) / 1e3 / n for s, v in host.items()},
         "device_ms_per_flush": sum(by_kernel.values()) / n,
@@ -198,6 +201,9 @@ async def _run(which: str, n_flushes: int, trace: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=sorted(STEPS), default="session")
+    ap.add_argument("--model", default="lstm-stream",
+                    choices=sorted(main_path.MODEL_CFG),
+                    help="the pool's model (--path pool only)")
     ap.add_argument("--flushes", type=int, default=6)
     ap.add_argument("--trace", default="build/flush_trace.json")
     args = ap.parse_args(argv)
@@ -207,7 +213,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip(), flush=True)
-    stats = asyncio.run(_run(args.path, args.flushes, Path(args.trace)))
+    if args.model != "lstm-stream" and args.path != "pool":
+        ap.error("--model applies to --path pool only")
+    stats = asyncio.run(_run(args.path, args.model, args.flushes,
+                             Path(args.trace)))
     print(json.dumps(stats, indent=1), flush=True)
     return 0
 

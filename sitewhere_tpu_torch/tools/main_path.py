@@ -1,13 +1,16 @@
 """The port's serving paths at full width, as `chip_smoke.py` drives them.
 
 `build` makes a dedicated `ScoringSession` (the windowed `lstm` model by
-default, or `lstm-stream`) over a 32,768-device simulated fleet, buckets
-256…16384; `build_pool` makes a `SharedScoringPool` over `tenants`
-tenants of `devices` devices each, each tenant with its own weights (one
-seed per tenant). Both use W=64, h=64, 1 layer, bf16, random weights
-from seeds, fill every store with W+4 ticks and warm up before
-returning. `chip_smoke.py` and `tools/flush_profile.py` build them here,
-so both measure the same paths. Needs one CUDA card.
+default, or any registry model) over a 32,768-device simulated fleet,
+buckets 256…16384; `build_pool` makes a `SharedScoringPool` over
+`tenants` tenants of `devices` devices each, each tenant with its own
+weights (one seed per tenant). Each model runs at the width the repo
+configures for it (`MODEL_CFG`: the LSTMs at W=64, h=64, 1 layer; `tft`
+at `TftConfig`'s defaults, the bench's `--model tft`; `longwin` as the
+bench runs it, `--window 64`; `seasonal` at its defaults), bf16, random
+weights from seeds; both fill every store with W+4 ticks and warm up
+before returning. `chip_smoke.py` and `tools/flush_profile.py` build
+them here, so both measure the same paths. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +39,14 @@ SEED = 0
 BUCKETS = (256, 1024, 4096, 16384)
 WINDOW, HIDDEN = 64, 64
 FLEET = 32768
+# each registry model at the width the repo configures for it
+MODEL_CFG = {
+    "lstm": dict(window=WINDOW, hidden=HIDDEN),
+    "lstm-stream": dict(window=WINDOW, hidden=HIDDEN),
+    "tft": {},                      # TftConfig: W=64, H=8, d=32, 4 heads
+    "longwin": dict(window=WINDOW),  # bench.py --window 64: d=32, 2 layers
+    "seasonal": {},                 # SeasonalTrendConfig: W=32, H=6
+}
 TICK_S = 60.0
 THRESHOLD = 4.0
 
@@ -47,9 +58,13 @@ def _wire(batch: MeasurementBatch, tenant: str) -> MeasurementBatch:
         batch.encode(), BatchContext(tenant_id=tenant, source="gateway"))
 
 
-def _filled_store(sim: DeviceSimulator, devices: int) -> TelemetryStore:
-    store = TelemetryStore(history=128, initial_devices=devices)
-    for k in range(WINDOW + 4):
+def filled_store(sim: DeviceSimulator, devices: int,
+                  window: int = WINDOW) -> TelemetryStore:
+    """A host store for `devices` devices holding `window` + 4 of `sim`'s
+    ticks."""
+    store = TelemetryStore(history=max(128, 2 * window),
+                           initial_devices=devices)
+    for k in range(window + 4):
         store.append_measurements(sim.tick(t=TICK_S * k)[0])
     return store
 
@@ -74,12 +89,13 @@ class MainPath:
 
 
 def build(tenant: str, model: str = "lstm", **cfg: Any) -> MainPath:
-    """A warmed dedicated session on `model`; `cfg` overrides
-    `ScoringConfig` fields (e.g. `readback="anomalies"`)."""
-    scorer = build_model(model, window=WINDOW, hidden=HIDDEN)
+    """A warmed dedicated session on `model` (at `MODEL_CFG[model]`);
+    `cfg` overrides `ScoringConfig` fields (e.g. `readback="anomalies"`)."""
+    scorer = build_model(model, **MODEL_CFG[model])
+    window = scorer.cfg.window
     sim_cfg = SimConfig(num_devices=FLEET, seed=SEED)
     sim = DeviceSimulator(sim_cfg, tenant_id=tenant)
-    store = _filled_store(sim, FLEET)
+    store = filled_store(sim, FLEET, window)
     metrics = MetricsRegistry()
     session = ScoringSession(scorer, store, metrics,
                              ScoringConfig(buckets=BUCKETS, capacity=FLEET,
@@ -87,7 +103,7 @@ def build(tenant: str, model: str = "lstm", **cfg: Any) -> MainPath:
                                            **cfg))
     session.warmup()
     return MainPath(scorer, store, sim, sim_cfg, metrics, session, tenant,
-                    TICK_S * (WINDOW + 4))
+                    TICK_S * (window + 4))
 
 
 @dataclass
@@ -153,11 +169,14 @@ class PoolPath:
 
 
 async def build_pool(prefix: str, model: str, tenants: int, devices: int,
-                     buckets: tuple[int, ...],
-                     timeout: float = 300.0) -> PoolPath:
-    """A warmed pool on `model` with `tenants` tenants of `devices`
-    devices each (tenant i: weights and simulator from seed SEED + i)."""
-    scorer = build_model(model, window=WINDOW, hidden=HIDDEN)
+                     buckets: tuple[int, ...], timeout: float = 300.0,
+                     **model_cfg: Any) -> PoolPath:
+    """A warmed pool on `model` (at `MODEL_CFG[model]`, its fields
+    overridden by `model_cfg`, e.g. `compute_dtype`) with `tenants`
+    tenants of `devices` devices each (tenant i: weights and simulator
+    from seed SEED + i)."""
+    scorer = build_model(model, **{**MODEL_CFG[model], **model_cfg})
+    window = scorer.cfg.window
     metrics = MetricsRegistry()
     pool = SharedScoringPool(scorer, metrics,
                              PoolConfig(batch_buckets=buckets, seed=SEED))
@@ -167,7 +186,7 @@ async def build_pool(prefix: str, model: str, tenants: int, devices: int,
         tid = f"{prefix}{i}"
         sim_cfg = SimConfig(num_devices=devices, seed=SEED + i)
         sim = DeviceSimulator(sim_cfg, tenant_id=tid)
-        member = PoolTenant(_filled_store(sim, devices), sim, sim_cfg,
+        member = PoolTenant(filled_store(sim, devices, window), sim, sim_cfg,
                             scorer.init(torch.Generator().manual_seed(SEED + i)))
 
         async def deliver(scored, member=member):
@@ -182,5 +201,5 @@ async def build_pool(prefix: str, model: str, tenants: int, devices: int,
         if time.monotonic() > deadline:
             raise TimeoutError(f"pool warmup not done in {timeout} s")
         await asyncio.sleep(0.01)
-    return PoolPath(scorer, metrics, pool, members, TICK_S * (WINDOW + 4),
+    return PoolPath(scorer, metrics, pool, members, TICK_S * (window + 4),
                     arrived)

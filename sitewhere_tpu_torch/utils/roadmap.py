@@ -10,7 +10,6 @@ ITEMS = {
     "A.1.4": "the other services, REST and geofences",
     "A.1.5": "the other CLI commands",
     "A.2": "mesh sharding, multi-GPU",
-    "A.4": "training and the other models",
 }
 
 

@@ -17,7 +17,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sitewhere_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "sitewhere_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "sitewhere_tpu")
 
 
 def _imported_modules(path: Path):
@@ -58,8 +58,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.history, sitewhere_tpu_torch.persistence.native\n"
         "import sitewhere_tpu_torch.services.replication\n"
         "import sitewhere_tpu_torch.services.snapshot\n"
+        "import sitewhere_tpu_torch.training, sitewhere_tpu_torch.models.gnn\n"
+        "import sitewhere_tpu_torch.models.graph, sitewhere_tpu_torch.parallel.ring\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sitewhere_tpu')]\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'sitewhere_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -113,6 +115,23 @@ def test_streaming_and_pool_entry_points_without_device_raise(no_card, entry):
         "SharedScoringPool": lambda: SharedScoringPool(model,
                                                        MetricsRegistry()),
     }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+@pytest.mark.parametrize("entry", ["tft", "longwin", "seasonal", "gnn",
+                                   "train"])
+def test_models_and_training_without_device_raise(no_card, entry):
+    """The new models, the GNN and `cli train` target the card unless the
+    CPU is named: with no card they raise, nothing falls back."""
+    from sitewhere_tpu_torch import cli
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.training import build_maintenance_model
+
+    make = {
+        "gnn": build_maintenance_model,
+        "train": lambda: cli.main(["train", "--steps", "1"]),
+    }.get(entry, lambda: build_model(entry))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 

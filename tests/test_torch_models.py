@@ -176,8 +176,13 @@ def test_convert_round_trip():
 
 def test_registry_and_flops():
     for name, cfg in (("lstm", {"window": 64, "hidden": 64}),
-                      ("zscore", {"window": 64})):
+                      ("zscore", {"window": 64}), ("tft", {}),
+                      ("longwin", {"window": 64}), ("seasonal", {})):
         assert (build_model(name, device="cpu", **cfg).flops_per_event()
                 == jax_build(name, **cfg).flops_per_event())
+    from sitewhere_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
+    from sitewhere_tpu_torch.models import MODEL_REGISTRY
+
+    assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY)
     with pytest.raises(ValueError):
-        build_model("tft", device="cpu")
+        build_model("gnn", device="cpu")  # a graph model, not a scorer

@@ -307,9 +307,14 @@ CUTS = {
     "replication-wire-bus": (lambda: asyncio.run(
         treplication.read_state_topic(SimpleNamespace(
             naming=tbus.TopicNaming("i"), bus=object()), "t")), "A.1.2"),
-    "replay-candidate": (lambda: tcli.main(
-        ["replay", "--data-dir", "/nonexistent", "--tenant", "t", "--cpu",
-         "--candidate", "/nonexistent"]), "A.4"),
+    "train-distributed": (lambda: tcli.main(
+        ["train", "--cpu", "--distributed"]), "A.2"),
+    "longwin-mesh": (lambda: __import__(
+        "sitewhere_tpu_torch.models.longwin", fromlist=["LongWindowModel"]
+    ).LongWindowModel(mesh=object(), device="cpu"), "A.2"),
+    "trainer-mesh": (lambda: __import__(
+        "sitewhere_tpu_torch.training.trainer", fromlist=["Trainer"]).Trainer(
+        None, mesh=object()), "A.2"),
     "geofences": (lambda: _engine(
         "rule-processing", {"rule-processing": {"geofences": [{"id": "z"}]}}),
         "A.1.4"),
@@ -336,8 +341,10 @@ def test_cut_raises_naming_its_roadmap_item(cut):
 
 
 def test_forecast_raises_lookup_error_as_the_reference_does(run):
-    """No port model has a forecast surface yet: the query raises
-    LookupError, as the JAX package does for zscore and lstm."""
+    """A model without a forecast surface (zscore): the query raises
+    LookupError, as the JAX package does. Models with one (lstm, tft)
+    answer it: tests/test_torch_forecasters.py holds them to the JAX
+    package's answers."""
     async def main():
         rt = _runtime()
         await rt.start()
