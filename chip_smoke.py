@@ -121,7 +121,37 @@ prints no result):
  22. replay-candidate — `cli replay --model lstm-stream --candidate DIR`
                 on phase 18's directory: the exit code agrees with the
                 reported divergence against the bar (0 promoted, 1
-                refused).
+                refused);
+ 23. ingress  — phase 8's deployment again, fed through every ingress of
+                the port: one receiver of each protocol (mqtt, websocket,
+                coap, amqp, stomp) added to the tenant and a Kafka endpoint
+                on the runtime's bus. The gateway pattern: 16 clients a
+                protocol, each carrying a fixed slice of 2,048 devices
+                (≈36.9 KB of SWB1 a message) on its own topic, routing
+                key, destination or partition; six fleet ticks (one with
+                anomalies) a protocol, the protocols one after another,
+                each sent as the port's `sim/clients` senders send it
+                (coap: confirmable requests through `coap_post`, 4 in
+                flight; kafka: Produce v0 of codec-encoded batches to the
+                tenant's decoded topic). Each protocol is held as phase 8
+                is (every event once, telemetry, committed offsets,
+                finite scores, anomalies, a 1,024-device sample of every
+                tick against the CPU reference, K1 launches 0) with
+                dispatches ≥ ticks; it prints events/s, the burst's e2e
+                p50/p99 (from the receiver's socket edge), the clients'
+                send time and the stages' host ms; mqtt also runs the
+                paced window through its gateways; then the WebSocket
+                listener's frame read (its per-byte unmask) is timed on
+                one gateway message, 16 NON gateway messages from the
+                port's `CoapSender` go at once to a bare CoAP listener
+                (how many arrive is printed), and `python -m
+                sitewhere_tpu_torch.cli simulate --protocol mqtt` runs
+                against the live runtime: exit 0, the events it reports
+                sent are the events decoded from its topic and persisted;
+ 24. ingress-window — the same 16 MQTT gateways into phase 9's windowed
+                `lstm` on a dedicated session: K1 launches == dispatches
+                > 0, the ring's windows equal the store's, and a sample
+                of the last tick agrees with K1's plain version.
 Phases 5–8 and 12–15 check that every event is scored, every score
 finite, the dispatches are the occurrence rounds, injected anomalies
 stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
@@ -137,7 +167,8 @@ held in aggregate (a floor on the share of rows within the tolerance, a
 ceiling on the p99 |err|: BF16_SHARE_FLOOR), and the same served paths
 in float32 hold every sampled row to the tolerance. No CUDA
 kernel of the port runs on these paths (their steps are plain PyTorch),
-so K1's launch count must stay 0 there, and in phases 18–19. Each path prints one stats line.
+so K1's launch count must stay 0 there, and in phases 18–19 and 23. Each
+path prints one stats line.
 The second-to-last line is the `{"kernels": [...]}` record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -149,6 +180,7 @@ import json
 import os
 from collections import Counter
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -200,6 +232,14 @@ WINDOW_POOL = (4, FLEET // 4, (FLEET // 4,))
 PIPELINE_TICKS, PIPELINE_ANOMALY_AT = 6, 3
 # then the latency window: ticks offered at this share of the burst's rate
 PACED_TICKS, PACED_FRACTION = 24, 0.5
+# the ingress phases: gateway clients a protocol (each a fixed slice of
+# FLEET / GATEWAYS devices: 2,048, ≈36.9 KB of SWB1 a message, under one
+# CoAP datagram), the protocols in the order they run, CoAP requests in
+# flight at once, and the devices of the `cli simulate` run
+GATEWAYS = 16
+INGRESS_PROTOCOLS = ("mqtt", "websocket", "coap", "amqp", "stomp", "kafka")
+COAP_INFLIGHT = 4
+SIMULATE_DEVICES = 2048
 # the native store phase: ring length and ticks
 NATIVE_HISTORY, NATIVE_TICKS = 256, 6
 # timed passes over the bench's replay corpus (tools/replay_bench.py), and
@@ -226,14 +266,18 @@ def scratch_dir() -> str:
     return path
 
 
-def phase_device(torch) -> str:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device available")
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(smi)
+
+
+def phase_device(torch) -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device available")
+    log(card_line())
     # a float32 reference runs in full float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -798,6 +842,75 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     return stats
 
 
+async def check_delivery(label: str, pipe, consumer, plan, got: list,
+                         want: int, stored: int) -> list:
+    """After a burst: the inbound group commits through the decoded
+    topic's end, every event of `plan` lands on the scored topic exactly
+    once (no record after the expected ones: a double delivery),
+    telemetry holds `stored` events, every score is finite and the
+    anomalous tick stands out. Returns each tick's scores in the plan's
+    order."""
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    deadline = time.monotonic() + 60.0
+    while pipe.inbound_lag():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: the inbound group lags "
+                                 f"{pipe.inbound_lag()} records")
+        await asyncio.sleep(0.01)
+    await asyncio.sleep(0.2)
+    got += [rec.value for rec in consumer.poll_nowait(max_records=4096)]
+    table = pl.scored_table(got)
+    keys = {(d, ts) for batch, _ in plan
+            for d, ts in zip(batch.device_index.tolist(), batch.ts.tolist())}
+    twice = sum(1 for v in table.values() if v[2] > 1)
+    if set(table) != keys or twice or sum(map(len, got)) != want:
+        raise AssertionError(
+            f"{label}: {len(table)} scored keys for {len(keys)} events, "
+            f"{twice} delivered twice, {sum(map(len, got))} records")
+    if pipe.em.telemetry.total_events != stored:
+        raise AssertionError(f"{label}: telemetry holds "
+                             f"{pipe.em.telemetry.total_events} events, "
+                             f"not {stored}")
+    scores = [np.array([table[k][0] for k in zip(
+        batch.device_index.tolist(), batch.ts.tolist())], np.float32)
+        for batch, _ in plan]
+    if not all(np.isfinite(sc).all() for sc in scores):
+        raise AssertionError(f"{label}: a score is not finite")
+    check_anomalies(label, scores[PIPELINE_ANOMALY_AT],
+                    plan[PIPELINE_ANOMALY_AT][1])
+    return scores
+
+
+def check_stream_sample(label: str, ref, plan, scores) -> float:
+    """Step the CPU reference over every tick of `plan` in order and
+    hold the sampled devices' scores to it; returns the max |err|."""
+    errs = []
+    for (batch, _), sc in zip(plan, scores):
+        pos, want = ref.step(batch.device_index, batch.value)
+        errs.append(check_close(label, sc[pos], want))
+    return max(errs)
+
+
+def check_window_session(torch, label: str, pipe, sample: np.ndarray,
+                         last_scores: np.ndarray) -> float:
+    """The store is the durable copy: its windows, which end at the last
+    tick, must equal the dedicated session's ring windows and score like
+    them through K1's plain version; returns the max |err|."""
+    session = pipe.engine.session
+    x, valid = pipe.em.telemetry.window(sample, WINDOW)
+    rx, rv = session.ring.windows(sample)
+    rx, rv = rx.cpu().numpy(), rv.cpu().numpy()
+    if not (np.array_equal(rv, valid) and np.array_equal(rx[rv], x[valid])):
+        raise AssertionError(f"{label}: ring windows differ from the store's")
+    dev = session.ring.device
+    ref_sc = plain_scores(torch, session.model, session.params,
+                          torch.from_numpy(x).to(dev),
+                          torch.from_numpy(valid).to(dev))
+    return check_close(label, last_scores[sample],
+                       ref_sc.float().cpu().numpy())
+
+
 async def phase_pipeline(torch, label: str, model: str, megabatch: bool,
                          data_dir: str | None = None):
     """The bench's deployment through the service runtime: six fleet
@@ -847,61 +960,16 @@ async def phase_pipeline(torch, label: str, model: str, megabatch: bool,
     packed = (per_round.sum - r0[1]) / rounds if rounds else None
     burst = pl.latency_ms(rt)
 
-    # drained: offsets committed through the decoded topic's end, and
-    # no scored record after the expected ones (a double delivery)
-    deadline = time.monotonic() + 60.0
-    while pipe.inbound_lag():
-        if time.monotonic() > deadline:
-            raise AssertionError(f"{label}: the inbound group lags "
-                                 f"{pipe.inbound_lag()} records")
-        await asyncio.sleep(0.01)
-    await asyncio.sleep(0.2)
-    got += [rec.value for rec in consumer.poll_nowait(max_records=4096)]
-    table = pl.scored_table(got)
-    keys = {(d, ts) for batch, _ in plan
-            for d, ts in zip(batch.device_index.tolist(), batch.ts.tolist())}
-    twice = sum(1 for v in table.values() if v[2] > 1)
-    stored = pipe.em.telemetry.total_events
-    if set(table) != keys or twice or sum(map(len, got)) != want:
-        raise AssertionError(
-            f"{label}: {len(table)} scored keys for {len(keys)} events, "
-            f"{twice} delivered twice, {sum(map(len, got))} records")
-    if stored != (WINDOW + 4 + PIPELINE_TICKS) * pl.FLEET:
-        raise AssertionError(f"{label}: telemetry holds {stored} events")
-    scores = [np.array([table[k][0] for k in zip(
-        batch.device_index.tolist(), batch.ts.tolist())], np.float32)
-        for batch, _ in plan]
-    if not all(np.isfinite(sc).all() for sc in scores):
-        raise AssertionError(f"{label}: a score is not finite")
-    check_anomalies(label, scores[PIPELINE_ANOMALY_AT],
-                    plan[PIPELINE_ANOMALY_AT][1])
-
+    stored = (WINDOW + 4 + PIPELINE_TICKS) * pl.FLEET
+    scores = await check_delivery(label, pipe, consumer, plan, got, want,
+                                  stored)
     if streaming:
         # every tick's sampled events against the CPU reference
-        errs = []
-        for (batch, _), sc in zip(plan, scores):
-            pos, want_sc = ref.step(batch.device_index, batch.value)
-            errs.append(check_close(label, sc[pos], want_sc))
-        err = max(errs)
+        err = check_stream_sample(label, ref, plan, scores)
         if launches:
             raise AssertionError(f"{label}: {launches} K1 launches")
     else:
-        # the store is the durable copy: its windows, which now end at
-        # the last tick, must equal the ring's and score like them
-        # through K1's plain version
-        session = eng.session
-        x, valid = pipe.em.telemetry.window(sample, WINDOW)
-        rx, rv = session.ring.windows(sample)
-        rx, rv = rx.cpu().numpy(), rv.cpu().numpy()
-        if not (np.array_equal(rv, valid) and np.array_equal(rx[rv], x[valid])):
-            raise AssertionError(f"{label}: ring windows differ from the "
-                                 "store's")
-        dev = session.ring.device
-        ref_sc = plain_scores(torch, session.model, session.params,
-                              torch.from_numpy(x).to(dev),
-                              torch.from_numpy(valid).to(dev))
-        err = check_close(label, scores[-1][sample],
-                          ref_sc.float().cpu().numpy())
+        err = check_window_session(torch, label, pipe, sample, scores[-1])
         if launches == 0 or launches != n_dispatch:
             raise AssertionError(f"{label}: K1 launches {launches} != "
                                  f"dispatches {n_dispatch}")
@@ -919,21 +987,27 @@ async def phase_pipeline(torch, label: str, model: str, megabatch: bool,
     return stats, pipe
 
 
-async def pace_pipeline(pipe, consumer, burst_rate: float) -> dict:
+async def pace_pipeline(pipe, consumer, burst_rate: float, send=None,
+                        record: list | None = None) -> dict:
     """`scoring.e2e_latency_s` at a paced load, as the bench reads it
     (`bench.py:2569-2599`): PACED_TICKS more fleet ticks, one every
     FLEET / (PACED_FRACTION × the burst's events/s), so a tick does not
     queue behind the one before; every event scored, every score
-    finite."""
+    finite. Ticks go to the tenant's queue receiver, or through
+    `send(batch)` (a protocol's gateways); `record` gets (ticks, scored
+    batches)."""
     from sitewhere_tpu_torch.tools import pipeline as pl
 
-    payloads = [pipe.sim.tick(t=pipe.t + pl.TICK_S * (PIPELINE_TICKS + k))[0]
-                .encode() for k in range(PACED_TICKS)]
+    batches = [pipe.sim.tick(t=pipe.t + pl.TICK_S * (PIPELINE_TICKS + k))[0]
+               for k in range(PACED_TICKS)]
+    payloads = [b.encode() for b in batches] if send is None else batches
     interval = pl.FLEET / (PACED_FRACTION * burst_rate)
     pipe.rt.metrics.histogram("scoring.e2e_latency_s").reset()
     next_t = time.monotonic()
     for payload in payloads:
-        if not await pipe.receiver.submit(payload):
+        if send is not None:
+            await send(payload)
+        elif not await pipe.receiver.submit(payload):
             raise AssertionError("paced: a tick was shed at ingress")
         next_t += interval
         await asyncio.sleep(max(0.0, next_t - time.monotonic()))
@@ -942,6 +1016,8 @@ async def pace_pipeline(pipe, consumer, burst_rate: float) -> dict:
             or not all(np.isfinite(b.score).all() for b in got)):
         raise AssertionError(f"paced: {sum(map(len, got))} scores for "
                              f"{PACED_TICKS * pl.FLEET} events, or not finite")
+    if record is not None:
+        record.append((batches, got))
     return {"ticks": PACED_TICKS, "interval_ms": 1e3 * interval,
             **pl.latency_ms(pipe.rt)}
 
@@ -1636,6 +1712,414 @@ def phase_replay_candidate(data_dir: str, ckpt: str) -> dict:
     return stats
 
 
+class KafkaGateway:
+    """A Kafka Produce v0 client (acks=1): each slice is one record, a
+    `MeasurementBatch` in the bus's codec, on the tenant's decoded topic,
+    always on partition `pid` (one partition a gateway keeps each of its
+    devices in order). The batch's `ingest_monotonic` is stamped just
+    before it is encoded: the e2e latency starts at the client."""
+
+    def __init__(self, port: int, topic: str, pid: int, name: str):
+        self.port, self.topic, self.pid, self.name = port, topic, pid, name
+        self.corr = 0
+
+    @staticmethod
+    def _str(v: str) -> bytes:
+        return struct.pack(">h", len(v)) + v.encode()
+
+    async def call(self, api_key: int, body: bytes) -> bytes:
+        self.corr += 1
+        req = (struct.pack(">hhi", api_key, 0, self.corr)
+               + self._str(self.name) + body)
+        self.writer.write(struct.pack(">i", len(req)) + req)
+        await self.writer.drain()
+        size = struct.unpack(">i", await self.reader.readexactly(4))[0]
+        resp = await self.reader.readexactly(size)
+        if struct.unpack_from(">i", resp)[0] != self.corr:
+            raise AssertionError(f"kafka {self.name}: correlation id")
+        return resp[4:]
+
+    async def connect(self) -> None:
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", self.port)
+
+    async def partitions(self) -> int:
+        """Metadata v0 for the topic: its partition count."""
+        resp = await self.call(3, struct.pack(">i", 1) + self._str(self.topic))
+        off = 4
+        for _ in range(struct.unpack_from(">i", resp)[0]):   # brokers
+            off += 4
+            off += 2 + struct.unpack_from(">h", resp, off)[0] + 4
+        off += 4                                             # topics: 1
+        err = struct.unpack_from(">h", resp, off)[0]
+        off += 2 + 2 + struct.unpack_from(">h", resp, off + 2)[0]
+        if err:
+            raise AssertionError(f"kafka metadata: error {err}")
+        return struct.unpack_from(">i", resp, off)[0]
+
+    async def send(self, batch) -> None:
+        from sitewhere_tpu_torch.kernel import codec
+        from sitewhere_tpu_torch.kernel.kafka_endpoint import (
+            encode_message_set,
+        )
+
+        batch.ctx.ingest_monotonic = time.monotonic()
+        mset = encode_message_set([(0, batch.ctx.source.encode(),
+                                    codec.encode(batch),
+                                    int(time.time() * 1000))])
+        resp = await self.call(0, struct.pack(">hii", 1, 5000, 1)
+                               + self._str(self.topic)
+                               + struct.pack(">iii", 1, self.pid, len(mset))
+                               + mset)
+        err = struct.unpack_from(">h", resp, len(resp) - 10)[0]
+        if err:
+            raise AssertionError(f"kafka produce: error {err}")
+
+    async def close(self) -> None:
+        self.writer.close()
+
+
+class CoapGateway:
+    """Confirmable CoAP POSTs through `coap_post` (a NON datagram may be
+    dropped when the listener's socket buffer fills, so it cannot be
+    held to every event exactly once). In-flight requests are shared
+    out by `inflight`: 4 × ≈37 KB datagrams fit a 208 KiB socket buffer,
+    sixteen would not."""
+
+    def __init__(self, port: int, inflight: asyncio.Semaphore):
+        self.port, self.inflight = port, inflight
+
+    async def connect(self) -> None:
+        pass
+
+    async def send(self, payload: bytes) -> None:
+        from sitewhere_tpu_torch.services.coap import CODE_CHANGED, coap_post
+
+        async with self.inflight:
+            code = await coap_post("127.0.0.1", self.port, "telemetry",
+                                   payload)
+        if code != CODE_CHANGED:
+            raise AssertionError(f"coap: answered {code:#x}, not 2.04")
+
+    async def close(self) -> None:
+        pass
+
+
+async def open_gateways(pipe, protocol: str, port: int) -> list:
+    """GATEWAYS clients of `protocol`, gateway i on its own topic,
+    routing key, destination or partition, all connected."""
+    from sitewhere_tpu_torch.kernel.bus import TopicNaming
+    from sitewhere_tpu_torch.sim.clients import make_sender
+
+    if protocol == "kafka":
+        topic = pipe.rt.naming.tenant_topic(pipe.tenant,
+                                            TopicNaming.EVENT_SOURCE_DECODED)
+        probe = KafkaGateway(port, topic, 0, "probe")
+        await probe.connect()
+        parts = await probe.partitions()
+        await probe.close()
+        gateways = [KafkaGateway(port, topic, i % parts, f"gw-{i}")
+                    for i in range(GATEWAYS)]
+    elif protocol == "coap":
+        inflight = asyncio.Semaphore(COAP_INFLIGHT)
+        gateways = [CoapGateway(port, inflight) for _ in range(GATEWAYS)]
+    else:
+        def own(i: int) -> dict:
+            name = f"gw-{i}"
+            return {"mqtt": {"topic": f"telemetry/{name}", "client_id": name},
+                    "websocket": {"client_id": name},
+                    "amqp": {"routing_key": f"telemetry/{name}"},
+                    "stomp": {"destination": f"telemetry/{name}"}}[protocol]
+
+        gateways = [make_sender(protocol, "127.0.0.1", port, **own(i))
+                    for i in range(GATEWAYS)]
+    for gw in gateways:
+        await asyncio.wait_for(gw.connect(), 30.0)
+    return gateways
+
+
+def gateway_slices(batch, tenant: str) -> list:
+    """A fleet tick cut into GATEWAYS slices of consecutive devices."""
+    from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch
+
+    per = len(batch) // GATEWAYS
+    return [MeasurementBatch(BatchContext(tenant_id=tenant, source=f"gw-{i}"),
+                             batch.device_index[i * per:(i + 1) * per],
+                             batch.mtype[i * per:(i + 1) * per],
+                             batch.value[i * per:(i + 1) * per],
+                             batch.ts[i * per:(i + 1) * per])
+            for i in range(GATEWAYS)]
+
+
+def tick_sender(gateways, protocol: str, tenant: str):
+    """`send(batch)`: one fleet tick through every gateway at once."""
+    async def send(batch) -> None:
+        slices = gateway_slices(batch, tenant)
+        await asyncio.gather(*(
+            gw.send(sl if protocol == "kafka" else sl.encode())
+            for gw, sl in zip(gateways, slices)))
+    return send
+
+
+async def add_ingress(pipe, protocols) -> dict:
+    """One receiver of each protocol on the pipeline's tenant (and for
+    kafka an endpoint on the runtime's bus); returns {protocol: (port,
+    the receiver or endpoint)}."""
+    from sitewhere_tpu_torch.kernel.kafka_endpoint import KafkaEndpoint
+
+    engine = pipe.rt.api("event-sources").engine(pipe.tenant)
+    out = {}
+    for protocol in protocols:
+        if protocol == "kafka":
+            ep = KafkaEndpoint(pipe.rt.bus, flow=pipe.rt.flow,
+                               naming=pipe.rt.naming)
+            await ep.start()
+            out[protocol] = (ep.port, ep)
+            continue
+        receiver = engine.add_receiver({"kind": protocol, "decoder": "swb1",
+                                        "name": protocol})
+        await receiver.start()
+        out[protocol] = (receiver.port, receiver)
+    return out
+
+
+async def ingress_burst(torch, pipe, label: str, protocol: str, port: int,
+                        consumer, stored: int, ref=None,
+                        sample: np.ndarray | None = None,
+                        paced: bool = False) -> tuple[dict, int]:
+    """PIPELINE_TICKS fleet ticks (one anomalous) through GATEWAYS
+    clients of `protocol`, each gateway sending its slice of every tick
+    in order; the phase_pipeline checks on what comes out, the sample
+    against `ref` (a streaming pool) or against K1's plain version on
+    the store's windows (a windowed session). Returns (stats, events in
+    the store)."""
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    rt = pipe.rt
+    plan = pl.ticks(pipe, PIPELINE_TICKS, PIPELINE_ANOMALY_AT)
+    slices = [gateway_slices(batch, pipe.tenant) for batch, _ in plan]
+    if protocol != "kafka":
+        slices = [[sl.encode() for sl in tick] for tick in slices]
+    gateways = await open_gateways(pipe, protocol, port)
+    dispatches = rt.metrics.counter("scoring.dispatches")
+    d0 = dispatches.value
+    rt.metrics.histogram("scoring.e2e_latency_s").reset()
+    rt.tracer._rings.clear()          # this protocol's spans only
+    want = PIPELINE_TICKS * pl.FLEET
+    lstm_kernel.launches = 0
+    t0 = time.monotonic()
+
+    async def gateway(i: int) -> None:
+        for tick in slices:
+            await gateways[i].send(tick[i])
+
+    await asyncio.gather(*(gateway(i) for i in range(GATEWAYS)))
+    send_s = time.monotonic() - t0
+    got, t_last = await pl.collect_scored(consumer, want)
+    launches = lstm_kernel.launches
+    n_dispatch = int(dispatches.value - d0)
+    burst = pl.latency_ms(rt)
+    stages = pl.stage_ms(rt)
+    stored += want
+    scores = await check_delivery(label, pipe, consumer, plan, got, want,
+                                  stored)
+    if ref is not None:
+        err = check_stream_sample(label, ref, plan, scores)
+        if launches:
+            raise AssertionError(f"{label}: {launches} K1 launches")
+    else:
+        err = check_window_session(torch, label, pipe, sample, scores[-1])
+        if launches == 0 or launches != n_dispatch:
+            raise AssertionError(f"{label}: K1 launches {launches} != "
+                                 f"dispatches {n_dispatch}")
+    if n_dispatch < PIPELINE_TICKS:
+        raise AssertionError(f"{label}: {n_dispatch} dispatches for "
+                             f"{PIPELINE_TICKS} fleet ticks")
+    stats = {"events": want, "events_per_s": want / (t_last - t0),
+             "send_s": send_s, "burst": burst, "dispatches": n_dispatch,
+             "kernel_launches": launches, "max_err": err, "stages": stages}
+    ticks = PIPELINE_TICKS
+    if paced:
+        record = []
+        stats["paced"] = await pace_pipeline(
+            pipe, consumer, want / (t_last - t0),
+            send=tick_sender(gateways, protocol, pipe.tenant), record=record)
+        batches, got = record[0]
+        table = pl.scored_table(got)
+        for batch in batches:
+            pos, want_sc = ref.step(batch.device_index, batch.value)
+            sc = np.array([table[(int(d), float(t))][0] for d, t in zip(
+                batch.device_index[pos], batch.ts[pos])], np.float32)
+            stats["paced"]["max_err"] = max(
+                stats["paced"].get("max_err", 0.0),
+                check_close(f"{label}-paced", sc, want_sc))
+        stored += PACED_TICKS * pl.FLEET
+        ticks += PACED_TICKS
+    for gw in gateways:
+        await asyncio.wait_for(gw.close(), 30.0)
+    pipe.t += pl.TICK_S * ticks
+    log(f"{label}: {json.dumps(stats)}")
+    return stats, stored
+
+
+async def unmask_cost(listener, pipe) -> dict:
+    """The WebSocket listener's frame read (its per-byte unmask, as the
+    JAX package has it) on one gateway message, host ms: a cost no
+    span of the pipeline covers, since it runs before the receiver's."""
+    payload = gateway_slices(pipe.sim.tick(t=0.0)[0], pipe.tenant)[0].encode()
+    mask = b"\x5a\xa5\x0f\xf0"
+    frame = (bytes([0x82, 0x80 | 127]) + len(payload).to_bytes(8, "big")
+             + mask + bytes(c ^ mask[i % 4] for i, c in enumerate(payload)))
+    times = []
+    for _ in range(20):
+        reader = asyncio.StreamReader()
+        reader.feed_data(frame)
+        t0 = time.perf_counter()
+        _, _, got = await listener._read_frame(reader)
+        times.append(1e3 * (time.perf_counter() - t0))
+    if got != payload:
+        raise AssertionError("websocket: a frame did not unmask")
+    stats = {"bytes": len(payload), "ms_p50": float(np.median(times)),
+             "ms_min": min(times)}
+    log(f"ingress-websocket unmask: {json.dumps(stats)}")
+    return stats
+
+
+async def coap_non_burst(pipe) -> dict:
+    """GATEWAYS of the port's `CoapSender` (NON datagrams, as `cli
+    simulate --protocol coap` sends) each sending one gateway message at
+    once to a bare `CoapListener`: how many arrive. A NON burst past the
+    listener's socket buffer is dropped without a trace, which is why
+    the ingress phase sends confirmable requests."""
+    from sitewhere_tpu_torch.services.coap import CoapListener
+    from sitewhere_tpu_torch.sim.clients import make_sender
+
+    async def on_payload(payload, source) -> None:
+        pass
+
+    listener = CoapListener(on_payload)
+    await listener.start()
+    slices = gateway_slices(pipe.sim.tick(t=0.0)[0], pipe.tenant)
+    senders = [make_sender("coap", "127.0.0.1", listener.port)
+               for _ in range(GATEWAYS)]
+    for sender in senders:
+        await sender.connect()
+    for sender, sl in zip(senders, slices):
+        await sender.send(sl.encode())
+    await asyncio.sleep(1.0)
+    for sender in senders:
+        await sender.close()
+    await listener.stop()
+    stats = {"sent": GATEWAYS, "bytes": len(slices[0].encode()),
+             "received": listener.accepted}
+    log(f"ingress-coap NON burst: {json.dumps(stats)}")
+    return stats
+
+
+async def simulate_over(pipe, port: int, stored: int) -> dict:
+    """`python -m sitewhere_tpu_torch.cli simulate --protocol mqtt` as a
+    subprocess against the live runtime: exit 0, and the events it
+    reports sent are the events decoded from its topic and persisted."""
+    from sitewhere_tpu_torch.kernel.bus import TopicNaming
+
+    topic = "telemetry/sim"
+    decoded = pipe.rt.bus.subscribe(pipe.rt.naming.tenant_topic(
+        pipe.tenant, TopicNaming.EVENT_SOURCE_DECODED), group="smoke-simulate")
+    t0 = time.monotonic()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "sitewhere_tpu_torch.cli", "simulate",
+        "--protocol", "mqtt", "--port", str(port), "--devices",
+        str(SIMULATE_DEVICES), "--seconds", "2", "--rate", "20",
+        "--topic", topic, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    out, err = await asyncio.wait_for(proc.communicate(), 300.0)
+    text = out.decode()
+    m = re.search(r"sent (\d+) events over mqtt", text)
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"cli simulate: exit {proc.returncode}, "
+                             f"{text!r} {err.decode()[-2000:]}")
+    sent = int(m.group(1))
+    deadline = time.monotonic() + 60.0
+    while pipe.em.telemetry.total_events < stored + sent:
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"cli simulate: {pipe.em.telemetry.total_events - stored} "
+                f"of {sent} events persisted")
+        await asyncio.sleep(0.05)
+    await asyncio.sleep(0.2)
+    persisted = pipe.em.telemetry.total_events - stored
+    from_topic = sum(len(r.value) for r in decoded.poll_nowait(
+        max_records=1 << 20) if getattr(r.value, "ctx", None) is not None
+        and r.value.ctx.source == f"mqtt:{topic}")
+    decoded.close()
+    stats = {"sent": sent, "persisted": persisted, "decoded": from_topic,
+             "seconds": time.monotonic() - t0, "stdout": text.strip()}
+    log(f"cli-simulate: {json.dumps(stats)}")
+    if not sent or persisted != sent or from_topic != sent:
+        raise AssertionError(f"cli simulate: {stats}")
+    return stats
+
+
+async def phase_ingress(torch) -> dict:
+    """The bench's pipeline-stream deployment fed through every ingress:
+    one receiver of each protocol on the tenant plus a Kafka endpoint on
+    the runtime's bus, GATEWAYS clients a protocol, the protocols one
+    after another; mqtt also paced; then `cli simulate` over mqtt."""
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    t_setup = time.perf_counter()
+    pipe = await pl.build("lstm-stream", True)
+    endpoints = await add_ingress(pipe, INGRESS_PROTOCOLS)
+    rng = np.random.default_rng(SEED + 5)
+    sample = np.sort(rng.choice(pl.FLEET, SAMPLE, replace=False))
+    ref = StreamReference(torch, pipe.engine.pool_slot.pool.stack.get_params(
+        pipe.tenant), pipe.em.telemetry, sample)
+    consumer = pipe.scored_consumer()
+    stored = (WINDOW + 4) * pl.FLEET
+    log(f"ingress: set-up (runtime, fleet registry, store fill, warmup, "
+        f"{len(endpoints)} endpoints) {time.perf_counter() - t_setup:.3f} s")
+    out = {}
+    try:
+        for protocol in INGRESS_PROTOCOLS:
+            out[protocol], stored = await ingress_burst(
+                torch, pipe, f"ingress-{protocol}", protocol,
+                endpoints[protocol][0], consumer, stored, ref=ref,
+                paced=protocol == "mqtt")
+        consumer.close()
+        out["websocket"]["unmask"] = await unmask_cost(
+            endpoints["websocket"][1].listener, pipe)
+        out["coap"]["non_burst"] = await coap_non_burst(pipe)
+        out["cli-simulate"] = await simulate_over(
+            pipe, endpoints["mqtt"][0], stored)
+    finally:
+        await endpoints["kafka"][1].stop()
+        await pipe.stop()
+    return out
+
+
+async def phase_ingress_window(torch) -> dict:
+    """The same GATEWAYS MQTT clients into the windowed `lstm` on a
+    dedicated session: K1 inside the runtime, fed over MQTT."""
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    t_setup = time.perf_counter()
+    pipe = await pl.build("lstm", False)
+    endpoints = await add_ingress(pipe, ("mqtt",))
+    rng = np.random.default_rng(SEED + 6)
+    sample = np.sort(rng.choice(pl.FLEET, SAMPLE, replace=False))
+    consumer = pipe.scored_consumer()
+    log(f"ingress-window: set-up {time.perf_counter() - t_setup:.3f} s")
+    try:
+        stats, _ = await ingress_burst(
+            torch, pipe, "ingress-window", "mqtt", endpoints["mqtt"][0],
+            consumer, (WINDOW + 4) * pl.FLEET, sample=sample)
+        consumer.close()
+    finally:
+        await pipe.stop()
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -1680,6 +2164,8 @@ def main() -> int:
         ckpt = os.path.join(data_dir, "checkpoints")
         phase_train(ckpt)
         phase_replay_candidate(data_dir, ckpt)
+    asyncio.run(phase_ingress(torch))
+    asyncio.run(phase_ingress_window(torch))
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",
@@ -1696,6 +2182,8 @@ def main() -> int:
         "per_bucket": rows,
         "widths": widths,
     }]
+    # again at the end, beside the records (a long log's head may be cut)
+    log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

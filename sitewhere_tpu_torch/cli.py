@@ -5,6 +5,8 @@
         [--candidate DIR [--candidate-version N] [--max-divergence X]]
     python -m sitewhere_tpu_torch.cli train [--model lstm] [--steps N]
         [--checkpoint DIR] [--cpu]
+    python -m sitewhere_tpu_torch.cli simulate [--protocol P] [--port N]
+        [--devices N] [--seconds S] [--rate R]
 
 `demo` (the JAX package's `swx demo`): one process hosts the scored pipeline's six services (device-management,
 event-sources, inbound-processing, event-management, device-state,
@@ -32,9 +34,16 @@ checkpoint.
 windows (`--devices` series of `--history` points) for `--steps` Adam
 steps on the card (`--cpu` names the CPU), print one JSON line, and with
 `--checkpoint DIR` save the params under `DIR/cli/<model>/v<N>/`.
-`--distributed` (multi-host training) is ROADMAP A.2. The other
-commands (`run`, `simulate`, `dlq`, `quota`, `top`, `fleet`) are
-ROADMAP A.1.5.
+`--distributed` (multi-host training) is ROADMAP A.2.
+
+`simulate` (the JAX package's `swx simulate`): stream a simulated
+fleet's SWB1 ticks at one ingest endpoint over `--protocol` (tcp, mqtt,
+coap, websocket, amqp or stomp; the clients of `sim/clients.py`) at
+`--rate` batches a second for `--seconds`, and print `sent N events over
+P (R/s)`. It only sends: it touches no device and takes no `--cpu`.
+
+The other commands (`run`, `dlq`, `quota`, `top`, `fleet`) are ROADMAP
+A.1.5.
 """
 
 from __future__ import annotations
@@ -63,6 +72,51 @@ def build_runtime(settings: InstanceSettings):
     for name in PIPELINE_SERVICES:
         rt.add_service(getattr(services, name)(rt))
     return rt
+
+
+async def cmd_simulate(args) -> int:
+    from sitewhere_tpu_torch.sim.clients import make_sender
+    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
+
+    sim = DeviceSimulator(SimConfig(num_devices=args.devices,
+                                    anomaly_rate=args.anomaly_rate),
+                          tenant_id=args.tenant)
+    kw = {}
+    if args.protocol == "mqtt":
+        kw = {"topic": args.topic, "client_id": args.client_id,
+              "username": args.username, "password": args.password}
+    elif args.protocol == "coap":
+        # --password doubles as the CoAP ingest shared secret
+        # (Uri-Query token=<secret>, services/coap.py)
+        kw = {"path": args.topic, "secret": args.password}
+    elif args.protocol == "websocket":
+        kw = {"client_id": args.client_id, "token": args.password}
+    elif args.protocol == "amqp":
+        kw = {"routing_key": args.topic,
+              "username": args.username or "guest",
+              "password": args.password or "guest"}
+    elif args.protocol == "stomp":
+        kw = {"destination": args.topic, "username": args.username,
+              "password": args.password}
+    sender = make_sender(args.protocol, args.host, args.port, **kw)
+    await sender.connect()
+    sent = 0
+    t0 = time.monotonic()
+    interval = 1.0 / args.rate if args.rate else 0.0
+    try:
+        while args.seconds <= 0 or time.monotonic() - t0 < args.seconds:
+            payload, _ = sim.payload()
+            await sender.send(payload)
+            sent += args.devices
+            if interval:
+                await asyncio.sleep(interval)
+    except (KeyboardInterrupt, asyncio.CancelledError):
+        pass
+    finally:
+        await sender.close()
+    rate = sent / max(time.monotonic() - t0, 1e-9)
+    print(f"sent {sent} events over {args.protocol} ({rate:,.0f}/s)")
+    return 0
 
 
 async def cmd_demo(args) -> int:
@@ -319,9 +373,31 @@ def main(argv=None) -> int:
                          help="multi-host training (not ported)")
     p_train.add_argument("--cpu", action="store_true",
                          help="train on the CPU instead of the CUDA card")
+    p_sim = sub.add_parser("simulate",
+                           help="stream SWB1 at any ingest endpoint")
+    p_sim.add_argument("--host", default="127.0.0.1")
+    p_sim.add_argument("--port", type=int, default=47800)
+    p_sim.add_argument("--protocol", default="tcp",
+                       choices=["tcp", "mqtt", "coap", "websocket", "amqp", "stomp"],
+                       help="which hosted endpoint to drive")
+    p_sim.add_argument("--devices", type=int, default=1000)
+    p_sim.add_argument("--tenant", default="default")
+    p_sim.add_argument("--seconds", type=float, default=10.0)
+    p_sim.add_argument("--rate", type=float, default=10.0,
+                       help="batches per second (0 = unthrottled)")
+    p_sim.add_argument("--anomaly-rate", type=float, default=0.0)
+    p_sim.add_argument("--topic", default="telemetry",
+                       help="MQTT topic / CoAP path / AMQP routing key")
+    p_sim.add_argument("--client-id", default="swx-sim",
+                       help="MQTT/WebSocket client id")
+    p_sim.add_argument("--username", help="MQTT/AMQP username")
+    p_sim.add_argument("--password",
+                       help="MQTT/AMQP password; WebSocket bearer token; "
+                            "CoAP ingest shared secret")
     args = parser.parse_args(argv)
     return asyncio.run({"demo": cmd_demo, "replay": cmd_replay,
-                        "train": cmd_train}[args.cmd](args))
+                        "train": cmd_train,
+                        "simulate": cmd_simulate}[args.cmd](args))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,601 @@
+"""Kafka wire-protocol endpoint onto the swx event bus.
+
+The reference's backbone IS Kafka — every service talks through broker
+topics ([SURVEY.md §2.1 Kafka integration, §5.8]). The rebuild's bus
+keeps Kafka *semantics* in-proc; this endpoint keeps Kafka *protocol*
+parity: any standard Kafka client (console tools, Kafka Connect,
+kcat, client libraries) can produce to and consume from the SAME
+topics the in-proc services use, over real sockets — exactly how the
+MQTT/AMQP/STOMP endpoints expose their ecosystems' wire contracts.
+(No Kafka client library exists in this image, so like those
+endpoints it is exercised by a hand-rolled wire client +
+fuzz — tests/test_kafka_endpoint.py.)
+
+Served APIs (classic versions — the stable core every client speaks):
+
+  ApiVersions v0      Metadata v0        Produce v0
+  Fetch v0            ListOffsets v0     FindCoordinator v0
+  OffsetCommit v0     OffsetFetch v0
+
+Mapping:
+- topics/partitions ARE the bus's (`EventBus._topics`); Metadata
+  auto-creates requested topics like the bus does;
+- Fetch reads partition logs by absolute offset (trimmed history →
+  OFFSET_OUT_OF_RANGE, the client resets via ListOffsets — the same
+  retention contract in-proc consumers live with);
+- record values: fetch serializes bus values with the restricted codec
+  (kernel/codec.py — the wire bus's own format); produce tries
+  codec.decode first so swx↔swx round trips are exact, and falls back
+  to raw bytes for foreign producers;
+- group offsets share `_GroupState.committed` with in-proc consumer
+  groups — a Kafka client and an in-proc consumer in the same group
+  see each other's commits. (The JoinGroup/SyncGroup REBALANCE dance
+  is NOT served; Kafka clients use manual partition assignment —
+  `assign()` — which is how bridge consumers are normally written.)
+
+Security caveat: no SASL/TLS in this build — front it with a TLS
+terminator / trusted network, like the CoAP endpoint's documented
+posture.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import struct
+import zlib
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+API_PRODUCE = 0
+API_FETCH = 1
+API_LIST_OFFSETS = 2
+API_METADATA = 3
+API_OFFSET_COMMIT = 8
+API_OFFSET_FETCH = 9
+API_FIND_COORDINATOR = 10
+API_VERSIONS = 18
+
+ERR_NONE = 0
+ERR_OFFSET_OUT_OF_RANGE = 1
+ERR_CORRUPT_MESSAGE = 2
+ERR_UNKNOWN_TOPIC_OR_PARTITION = 3
+
+MAX_REQUEST = 16 * 1024 * 1024
+
+
+# -- primitive codecs (big-endian, classic Kafka encoding) ------------------
+
+class _Reader:
+    __slots__ = ("mv", "off")
+
+    def __init__(self, payload: memoryview):
+        self.mv = payload
+        self.off = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.off + n > len(self.mv):
+            raise ValueError("truncated request")
+        out = self.mv[self.off:self.off + n]
+        self.off += n
+        return out
+
+    def i8(self) -> int:
+        return struct.unpack(">b", self._take(1))[0]
+
+    def i16(self) -> int:
+        return struct.unpack(">h", self._take(2))[0]
+
+    def i32(self) -> int:
+        return struct.unpack(">i", self._take(4))[0]
+
+    def i64(self) -> int:
+        return struct.unpack(">q", self._take(8))[0]
+
+    def string(self) -> Optional[str]:
+        n = self.i16()
+        if n == -1:
+            return None
+        return bytes(self._take(n)).decode("utf-8", "replace")
+
+    def bytes_(self) -> Optional[bytes]:
+        n = self.i32()
+        if n == -1:
+            return None
+        return bytes(self._take(n))
+
+    def array(self) -> int:
+        n = self.i32()
+        if n < -1 or n > 1_000_000:
+            raise ValueError(f"bad array length {n}")
+        return max(n, 0)
+
+
+def _s(v: Optional[str]) -> bytes:
+    if v is None:
+        return struct.pack(">h", -1)
+    b = v.encode()
+    return struct.pack(">h", len(b)) + b
+
+
+def _b(v: Optional[bytes]) -> bytes:
+    if v is None:
+        return struct.pack(">i", -1)
+    return struct.pack(">i", len(v)) + v
+
+
+def _arr(items: list[bytes]) -> bytes:
+    return struct.pack(">i", len(items)) + b"".join(items)
+
+
+def _message(key: Optional[bytes], value: Optional[bytes],
+             ts_ms: int) -> bytes:
+    """One magic-1 message (CRC over magic..value)."""
+    body = (struct.pack(">bb", 1, 0) + struct.pack(">q", ts_ms)
+            + _b(key) + _b(value))
+    return struct.pack(">I", zlib.crc32(body)) + body
+
+
+def encode_message_set(entries: list[tuple[int, Optional[bytes],
+                                           Optional[bytes], int]]) -> bytes:
+    """entries: (offset, key, value, ts_ms) → classic MessageSet."""
+    out = bytearray()
+    for offset, key, value, ts_ms in entries:
+        msg = _message(key, value, ts_ms)
+        out += struct.pack(">qi", offset, len(msg)) + msg
+    return bytes(out)
+
+
+def decode_message_set(payload: memoryview) -> list[tuple[Optional[bytes],
+                                                          Optional[bytes]]]:
+    """→ [(key, value)] — tolerates magic 0 and 1; a torn tail (the
+    protocol allows partial trailing messages in fetches) ends the walk."""
+    out = []
+    off = 0
+    while off + 12 <= len(payload):
+        _offset, size = struct.unpack_from(">qi", payload, off)
+        start = off + 12
+        if size < 10 or start + size > len(payload):
+            break  # torn tail
+        r = _Reader(payload[start:start + size])
+        r.i32()                       # crc (producers we trust locally)
+        magic = r.i8()
+        attrs = r.i8()
+        if attrs & 0x07:
+            # a compressed wrapper message would be stored as one opaque
+            # blob and fed to consumers as garbage — refuse loudly
+            raise ValueError("compressed message sets unsupported")
+        if magic >= 1:
+            r.i64()                   # timestamp
+        key = r.bytes_()
+        value = r.bytes_()
+        out.append((key, value))
+        off = start + size
+    return out
+
+
+# -- the endpoint -----------------------------------------------------------
+
+class KafkaEndpoint:
+    """TCP server speaking the classic Kafka protocol against an
+    `EventBus` (kernel/bus.py)."""
+
+    def __init__(self, bus, host: str = "127.0.0.1", port: int = 0,
+                 node_id: int = 0, auto_create_limit: int = 256,
+                 flow=None, naming=None):
+        self.bus = bus
+        self.host, self.port = host, port
+        self.node_id = node_id
+        # per-tenant flow control (kernel/flow.py) + topic naming: when
+        # both are set, Produce to a tenant-scoped topic charges that
+        # tenant's quota and over-quota produces are answered with Kafka
+        # quota semantics — records accepted, response carries
+        # throttle_time_ms (Produce v1; v0 has no field, so v0 clients
+        # are simply not throttled-visible)
+        self.flow = flow
+        self.naming = naming
+        self.throttled = 0
+        # unauthenticated peers may request arbitrary topic names; cap
+        # how many NEW topics this endpoint will create on their behalf
+        # (0 = no auto-create at all) so a typo'd or hostile client
+        # can't grow the bus topic map without bound. Topics the
+        # in-proc services created are always served.
+        self.auto_create_limit = auto_create_limit
+        self._auto_created: set[str] = set()
+        self.malformed = 0
+        self.produced = 0
+        self.fetched = 0
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._writers: set[asyncio.StreamWriter] = set()
+        self._closing = False
+        self._fetch_waiters: set[asyncio.Event] = set()
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._handle, self.host, self.port, limit=MAX_REQUEST + 1024)
+        self.port = self._server.sockets[0].getsockname()[1]
+        logger.info("kafka endpoint on %s:%d", self.host, self.port)
+
+    async def stop(self) -> None:
+        from sitewhere_tpu_torch.kernel.net import shutdown_server
+
+        # wake any long-polling Fetch handlers first: a closed transport
+        # does not cancel their bounded event-wait, and wait_closed()
+        # would otherwise block up to the poll timeout
+        self._closing = True
+        for e in list(self._fetch_waiters):
+            e.set()
+        await shutdown_server(self._server, self._writers)
+        self._server = None
+
+    # -- connection --------------------------------------------------------
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        self._writers.add(writer)
+        try:
+            while True:
+                try:
+                    head = await reader.readexactly(4)
+                except asyncio.IncompleteReadError:
+                    return
+                size = struct.unpack(">i", head)[0]
+                if size < 8 or size > MAX_REQUEST:
+                    raise ValueError(f"request size {size}")
+                payload = memoryview(await reader.readexactly(size))
+                r = _Reader(payload)
+                api_key = r.i16()
+                api_version = r.i16()
+                correlation_id = r.i32()
+                r.string()  # client_id
+                body = await self._dispatch(api_key, api_version, r)
+                if body is None:
+                    return  # unsupported: drop the connection
+                if body is ...:
+                    continue  # acks=0 produce: no response frame
+                resp = struct.pack(">i", correlation_id) + body
+                writer.write(struct.pack(">i", len(resp)) + resp)
+                await writer.drain()
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        except Exception as exc:  # noqa: BLE001 - one peer can't kill it
+            self.malformed += 1
+            logger.info("kafka endpoint: dropping connection: %s", exc)
+        finally:
+            self._writers.discard(writer)
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except Exception:  # noqa: BLE001
+                pass
+
+    async def _dispatch(self, api_key: int, api_version: int,
+                        r: _Reader) -> Optional[bytes]:
+        if api_version != 0 and not (api_key == API_PRODUCE
+                                     and api_version == 1):
+            if api_key == API_VERSIONS:
+                # error 35 (UNSUPPORTED_VERSION) + the served list: the
+                # standard negotiation path — clients retry with v0
+                return struct.pack(">h", 35) + self._api_versions()[2:]
+            logger.info("kafka endpoint: api %d v%d not served (v0 "
+                        "only); dropping connection", api_key,
+                        api_version)
+            return None
+        if api_key == API_VERSIONS:
+            return self._api_versions()
+        if api_key == API_METADATA:
+            return self._metadata(r)
+        if api_key == API_PRODUCE:
+            # v1 request body is identical to v0; the response appends
+            # throttle_time_ms — the field quota enforcement rides on
+            return await self._produce(r, api_version)
+        if api_key == API_FETCH:
+            return await self._fetch(r)
+        if api_key == API_LIST_OFFSETS:
+            return self._list_offsets(r)
+        if api_key == API_FIND_COORDINATOR:
+            return self._find_coordinator(r)
+        if api_key == API_OFFSET_COMMIT:
+            return self._offset_commit(r)
+        if api_key == API_OFFSET_FETCH:
+            return self._offset_fetch(r)
+        logger.info("kafka endpoint: unsupported api %d v%d",
+                    api_key, api_version)
+        return None
+
+    # -- apis ---------------------------------------------------------------
+
+    def _api_versions(self) -> bytes:
+        served = [(API_PRODUCE, 0, 1), (API_FETCH, 0, 0),
+                  (API_LIST_OFFSETS, 0, 0), (API_METADATA, 0, 0),
+                  (API_OFFSET_COMMIT, 0, 0), (API_OFFSET_FETCH, 0, 0),
+                  (API_FIND_COORDINATOR, 0, 0), (API_VERSIONS, 0, 0)]
+        return struct.pack(">h", ERR_NONE) + _arr(
+            [struct.pack(">hhh", k, lo, hi) for k, lo, hi in served])
+
+    def _broker_entry(self) -> bytes:
+        return (struct.pack(">i", self.node_id) + _s(self.host)
+                + struct.pack(">i", self.port))
+
+    def _topic(self, name: str):
+        """Resolve (auto-creating under the cap) a topic; None when the
+        topic does not exist and the auto-create budget is spent — the
+        caller answers UNKNOWN_TOPIC_OR_PARTITION."""
+        t = self.bus._topics.get(name)
+        if t is not None:
+            return t
+        if len(self._auto_created) >= self.auto_create_limit:
+            return None
+        self._auto_created.add(name)
+        self.bus.create_topic(name)
+        return self.bus._topics[name]
+
+    def _metadata(self, r: _Reader) -> bytes:
+        n = r.array()
+        names = [r.string() for _ in range(n)] or self.bus.topic_names()
+        topics = []
+        for name in names:
+            if not name:
+                continue
+            topic = self._topic(name)   # auto-create, capped
+            if topic is None:
+                topics.append(struct.pack(
+                    ">h", ERR_UNKNOWN_TOPIC_OR_PARTITION)
+                    + _s(name) + _arr([]))
+                continue
+            parts = topic.partitions
+            topics.append(struct.pack(">h", ERR_NONE) + _s(name) + _arr([
+                struct.pack(">hii", ERR_NONE, p, self.node_id)
+                + _arr([struct.pack(">i", self.node_id)])     # replicas
+                + _arr([struct.pack(">i", self.node_id)])     # isr
+                for p in range(len(parts))]))
+        return _arr([self._broker_entry()]) + _arr(topics)
+
+    def _charge_quota(self, topic_name: str, n: int) -> float:
+        """Charge `n` produced EVENTS against the owning tenant's quota;
+        returns the throttle hint in seconds (0.0 = within quota). Kafka
+        quota semantics: the records are ACCEPTED either way — the
+        response's throttle_time_ms tells the client to back off."""
+        if self.flow is None or self.naming is None or n == 0:
+            return 0.0
+        parsed = self.naming.split_tenant_topic(topic_name)
+        if parsed is None:
+            return 0.0
+        # charge_produced, not admit_ingress: the records below are
+        # delivered regardless, so they must land in flow.admitted /
+        # flow.throttled — flow.rejected means dropped traffic
+        return self.flow.charge_produced(parsed[0], n)
+
+    async def _produce(self, r: _Reader, api_version: int = 0):
+        from sitewhere_tpu_torch.kernel import codec
+
+        acks = r.i16()
+        r.i32()  # timeout
+        topics_out = []
+        throttle_s = 0.0
+        for _ in range(r.array()):
+            name = r.string() or ""
+            parts_out = []
+            for _ in range(r.array()):
+                pid = r.i32()
+                mset = r.bytes_() or b""
+                topic = self._topic(name)
+                if topic is None:
+                    parts_out.append(struct.pack(
+                        ">ihq", pid, ERR_UNKNOWN_TOPIC_OR_PARTITION, -1))
+                    continue
+                if pid < 0 or pid >= len(topic.partitions):
+                    parts_out.append(struct.pack(
+                        ">ihq", pid, ERR_UNKNOWN_TOPIC_OR_PARTITION, -1))
+                    continue
+                base = topic.partitions[pid].end_offset
+                try:
+                    entries = decode_message_set(memoryview(mset))
+                except ValueError:
+                    parts_out.append(struct.pack(
+                        ">ihq", pid, ERR_CORRUPT_MESSAGE, -1))
+                    continue
+                # decode BEFORE charging: the quota is in events, and a
+                # codec batch carries many events per Kafka message — a
+                # per-message charge would let a batching tenant bypass
+                # its quota by the batch factor (every other ingress
+                # edge charges per decoded event)
+                decoded = []
+                n_events = 0
+                for key, value in entries:
+                    try:
+                        obj = codec.decode(value) if value else value
+                    except Exception:  # noqa: BLE001 - foreign producer
+                        obj = value
+                    n_events += (len(obj)
+                                 if hasattr(obj, "device_index") else 1)
+                    decoded.append((key, obj))
+                throttle_s = max(throttle_s,
+                                 self._charge_quota(name, n_events))
+                for key, obj in decoded:
+                    await self.bus.produce(
+                        name, obj, partition=pid,
+                        key=key.decode("utf-8", "replace")
+                        if key is not None else None)
+                    self.produced += 1
+                parts_out.append(struct.pack(">ihq", pid, ERR_NONE, base))
+            topics_out.append(_s(name) + _arr(parts_out))
+        if throttle_s > 0:
+            self.throttled += 1
+        if acks == 0:
+            # fire-and-forget contract: real brokers send NO response;
+            # an unsolicited frame would desync the client's pipeline
+            return ...
+        body = _arr(topics_out)
+        if api_version >= 1:
+            body += struct.pack(">i", min(int(throttle_s * 1000), 30_000))
+        return body
+
+    async def _fetch(self, r: _Reader) -> bytes:
+        from sitewhere_tpu_torch.kernel import codec
+
+        r.i32()                      # replica_id
+        max_wait_ms = r.i32()
+        min_bytes = r.i32()
+        wants = []
+        for _ in range(r.array()):
+            name = r.string() or ""
+            for _ in range(r.array()):
+                pid, offset, max_bytes = r.i32(), r.i64(), r.i32()
+                wants.append((name, pid, offset, max_bytes))
+
+        def build() -> tuple[bytes, int]:
+            by_topic: dict[str, list[bytes]] = {}
+            total = 0
+            for name, pid, offset, max_bytes in wants:
+                topic = self._topic(name)
+                if topic is None or pid < 0 \
+                        or pid >= len(topic.partitions):
+                    by_topic.setdefault(name, []).append(struct.pack(
+                        ">ihq", pid, ERR_UNKNOWN_TOPIC_OR_PARTITION, -1)
+                        + _b(b""))
+                    continue
+                log = topic.partitions[pid]
+                if offset < log.base_offset or offset > log.end_offset:
+                    by_topic.setdefault(name, []).append(struct.pack(
+                        ">ihq", pid, ERR_OFFSET_OUT_OF_RANGE,
+                        log.end_offset) + _b(b""))
+                    continue
+                entries = []
+                size = 0
+                for i in range(offset - log.base_offset,
+                               len(log.records)):
+                    key, value, ts = log.records[i]
+                    if isinstance(value, bytes):
+                        vb = value        # foreign bytes verbatim: a
+                        # foreign->foreign round trip must not grow a
+                        # codec prefix a real broker would never add
+                    else:
+                        try:
+                            vb = codec.encode(value)
+                        except Exception:  # noqa: BLE001
+                            vb = None
+                    entry = (log.base_offset + i,
+                             key.encode() if key is not None else None,
+                             vb, int(ts * 1000))
+                    esize = 34 + (len(entry[1]) if entry[1] else 0) + \
+                        (len(vb) if vb else 0)
+                    if entries and size + esize > max(max_bytes, 1):
+                        break
+                    entries.append(entry)
+                    size += esize
+                total += size
+                by_topic.setdefault(name, []).append(
+                    struct.pack(">ihq", pid, ERR_NONE, log.end_offset)
+                    + _b(encode_message_set(entries)))
+            return _arr([_s(t) + _arr(ps) for t, ps in by_topic.items()]), \
+                total
+
+        body, total = build()
+        if total < max(min_bytes, 1) and max_wait_ms > 0 \
+                and not self._closing:
+            # long poll: wait (bounded) for new records on any wanted
+            # log; stop() sets every registered event so shutdown never
+            # waits out the poll timeout
+            event = asyncio.Event()
+            self._fetch_waiters.add(event)
+            logs = []
+            for name, pid, *_ in wants:
+                topic = self.bus._topics.get(name)
+                if topic and 0 <= pid < len(topic.partitions):
+                    log = topic.partitions[pid]
+                    log.waiters.add(event)
+                    logs.append(log)
+            try:
+                await asyncio.wait_for(event.wait(),
+                                       min(max_wait_ms, 30_000) / 1e3)
+            except asyncio.TimeoutError:
+                pass
+            finally:
+                self._fetch_waiters.discard(event)
+                for log in logs:
+                    log.waiters.discard(event)
+            body, _total = build()
+        return body
+
+    def _list_offsets(self, r: _Reader) -> bytes:
+        r.i32()  # replica_id
+        topics_out = []
+        for _ in range(r.array()):
+            name = r.string() or ""
+            parts_out = []
+            for _ in range(r.array()):
+                pid, ts, max_n = r.i32(), r.i64(), r.i32()
+                topic = self._topic(name)
+                if topic is None or pid < 0 \
+                        or pid >= len(topic.partitions):
+                    parts_out.append(struct.pack(
+                        ">ih", pid, ERR_UNKNOWN_TOPIC_OR_PARTITION)
+                        + _arr([]))
+                    continue
+                log = topic.partitions[pid]
+                if ts == -2:
+                    off = log.base_offset
+                elif ts == -1:
+                    off = log.end_offset
+                else:
+                    # offsetsForTimes: first retained record at/after
+                    # the wall-clock point (record ts are epoch seconds)
+                    off = log.end_offset
+                    for i, (_k, _v, rts) in enumerate(log.records):
+                        if rts * 1000 >= ts:
+                            off = log.base_offset + i
+                            break
+                # max_num_offsets=0 legitimately asks for an empty
+                # offsets array (real brokers honor it)
+                parts_out.append(struct.pack(">ih", pid, ERR_NONE)
+                                 + _arr([struct.pack(">q", off)]
+                                        [:max(max_n, 0)]))
+            topics_out.append(_s(name) + _arr(parts_out))
+        return _arr(topics_out)
+
+    def _find_coordinator(self, r: _Reader) -> bytes:
+        r.string()  # group id — this node coordinates everything
+        return struct.pack(">h", ERR_NONE) + self._broker_entry()
+
+    def _group(self, group: str):
+        from sitewhere_tpu_torch.kernel.bus import _GroupState
+
+        return self.bus._groups.setdefault(group, _GroupState())
+
+    def _offset_commit(self, r: _Reader) -> bytes:
+        group = r.string() or ""
+        state = self._group(group)
+        topics_out = []
+        for _ in range(r.array()):
+            name = r.string() or ""
+            parts_out = []
+            for _ in range(r.array()):
+                pid = r.i32()
+                offset = r.i64()
+                r.string()  # metadata
+                # monotonic, like BusConsumer.commit (-1 default so a
+                # legitimate commit of offset 0 is stored, not dropped)
+                prev = state.committed.get((name, pid), -1)
+                if offset > prev:
+                    state.committed[(name, pid)] = offset
+                parts_out.append(struct.pack(">ih", pid, ERR_NONE))
+            topics_out.append(_s(name) + _arr(parts_out))
+        return _arr(topics_out)
+
+    def _offset_fetch(self, r: _Reader) -> bytes:
+        group = r.string() or ""
+        state = self._group(group)
+        topics_out = []
+        for _ in range(r.array()):
+            name = r.string() or ""
+            parts_out = []
+            for _ in range(r.array()):
+                pid = r.i32()
+                off = state.committed.get((name, pid))
+                parts_out.append(
+                    struct.pack(">iq", pid, off if off is not None else -1)
+                    + _s("") + struct.pack(">h", ERR_NONE))
+            topics_out.append(_s(name) + _arr(parts_out))
+        return _arr(topics_out)

@@ -1,0 +1,441 @@
+"""Dependency-free AMQP 0-9-1 ingest endpoint.
+
+The reference's event-sources ships a RabbitMQ (AMQP) inbound receiver
+[SURVEY.md §2.2 event-sources: "CoAP/AMQP/ActiveMQ/... receivers"]; the
+rebuild hosts the broker ENDPOINT itself (the same inversion the MQTT
+receiver made): any standard AMQP 0-9-1 client — pika, amqplib, a
+gateway SDK — connects, opens a channel and publishes telemetry with
+`basic.publish`; every delivered message body reaches the tenant's
+decode pipeline. No external broker to deploy, nothing to install.
+
+Scope (deliberately the publish-side subset an ingest endpoint needs):
+- connection negotiation: protocol header, Start/StartOk (PLAIN auth
+  hook), Tune/TuneOk, Open/OpenOk, Close/CloseOk, heartbeats;
+- channels: Open/OpenOk, Close/CloseOk, Flow (ack'd, never throttled);
+- `exchange.declare`/`queue.declare`/`queue.bind` are accepted and
+  acked (clients commonly declare before publishing — the endpoint is
+  the terminal consumer, so the bindings are bookkeeping only);
+- `basic.publish` + content header + body frames (multi-frame bodies
+  reassembled up to `max_body`), delivered as (routing_key, body);
+- `confirm.select` → publishes are confirmed with `basic.ack`
+  (multiple=False), giving at-least-once to confirm-mode publishers;
+- consume methods (`basic.consume`/`basic.get`) are refused with a
+  channel error 540 NOT_IMPLEMENTED — this is an ingest endpoint, the
+  downlink path is command-delivery's (MQTT/CoAP/TCP providers).
+
+Framing per the 0-9-1 spec: every frame is
+    type(octet) channel(short) size(long) payload(size) frame-end(0xCE)
+method payloads are class-id(short) method-id(short) + typed args.
+Only the argument types the handled methods use are implemented
+(shortstr, longstr, field-table skip, short/long/longlong, octet).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import struct
+from typing import Awaitable, Callable, Optional
+
+logger = logging.getLogger(__name__)
+
+FRAME_METHOD = 1
+FRAME_HEADER = 2
+FRAME_BODY = 3
+FRAME_HEARTBEAT = 8
+FRAME_END = 0xCE
+
+# class ids
+CONNECTION, CHANNEL, EXCHANGE, QUEUE, BASIC, CONFIRM = 10, 20, 40, 50, 60, 85
+
+PROTOCOL_HEADER = b"AMQP\x00\x00\x09\x01"
+
+OnMessage = Callable[[str, bytes, str], Awaitable[None]]
+Authenticate = Callable[[str, str], bool]
+
+
+def _shortstr(s: str) -> bytes:
+    b = s.encode()
+    if len(b) > 255:
+        raise ValueError("shortstr too long")
+    return bytes([len(b)]) + b
+
+
+def _longstr(b: bytes) -> bytes:
+    return struct.pack(">I", len(b)) + b
+
+
+class _Args:
+    """Cursor over a method frame's argument bytes."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+
+    def octet(self) -> int:
+        v = self.data[self.pos]
+        self.pos += 1
+        return v
+
+    def short(self) -> int:
+        v = struct.unpack_from(">H", self.data, self.pos)[0]
+        self.pos += 2
+        return v
+
+    def long(self) -> int:
+        v = struct.unpack_from(">I", self.data, self.pos)[0]
+        self.pos += 4
+        return v
+
+    def longlong(self) -> int:
+        v = struct.unpack_from(">Q", self.data, self.pos)[0]
+        self.pos += 8
+        return v
+
+    def shortstr(self) -> str:
+        n = self.octet()
+        v = self.data[self.pos:self.pos + n].decode(errors="replace")
+        self.pos += n
+        return v
+
+    def longstr(self) -> bytes:
+        n = self.long()
+        v = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return v
+
+    def skip_table(self) -> None:
+        n = self.long()
+        self.pos += n
+
+
+def _method(class_id: int, method_id: int, args: bytes = b"") -> bytes:
+    return struct.pack(">HH", class_id, method_id) + args
+
+
+class _Conn:
+    """One client connection's state machine."""
+
+    def __init__(self, listener: "AmqpListener",
+                 reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter):
+        self.listener = listener
+        self.reader = reader
+        self.writer = writer
+        self.peer = "%s:%s" % (writer.get_extra_info("peername") or
+                               ("?", "?"))[:2]
+        self.user = ""
+        self.open = False
+        self.channels: dict[int, dict] = {}  # ch → pending publish state
+        # ch → bytes still to swallow: a rejected publish's body frames
+        # are already on the wire after channel.close; discarding them
+        # keeps the connection (and its other channels) alive
+        self.discard: dict[int, int] = {}
+        self.frame_max = listener.frame_max
+
+    # -- frame IO ----------------------------------------------------------
+
+    async def send_frame(self, ftype: int, channel: int,
+                         payload: bytes) -> None:
+        self.writer.write(struct.pack(">BHI", ftype, channel, len(payload))
+                          + payload + bytes([FRAME_END]))
+        await self.writer.drain()
+
+    async def send_method(self, channel: int, payload: bytes) -> None:
+        await self.send_frame(FRAME_METHOD, channel, payload)
+
+    async def read_frame(self) -> tuple[int, int, bytes]:
+        head = await self.reader.readexactly(7)
+        ftype, channel, size = struct.unpack(">BHI", head)
+        if size > self.listener.max_body + 4096:
+            raise ValueError(f"frame size {size} exceeds bound")
+        payload = await self.reader.readexactly(size)
+        end = await self.reader.readexactly(1)
+        if end[0] != FRAME_END:
+            raise ValueError("missing frame-end octet")
+        return ftype, channel, payload
+
+    # -- connection negotiation --------------------------------------------
+
+    async def handshake(self) -> bool:
+        header = await self.reader.readexactly(8)
+        if header != PROTOCOL_HEADER:
+            # spec: answer a bad header with the supported version, close
+            self.writer.write(PROTOCOL_HEADER)
+            await self.writer.drain()
+            return False
+        # Connection.Start: version-major/minor, server-props table,
+        # mechanisms longstr, locales longstr
+        start = _method(CONNECTION, 10,
+                        bytes([0, 9]) + struct.pack(">I", 0)
+                        + _longstr(b"PLAIN") + _longstr(b"en_US"))
+        await self.send_method(0, start)
+        ftype, _, payload = await self.read_frame()
+        args = _Args(payload)
+        class_id, method_id = args.short(), args.short()
+        if (ftype, class_id, method_id) != (FRAME_METHOD, CONNECTION, 11):
+            raise ValueError("expected connection.start-ok")
+        args.skip_table()               # client-properties
+        mechanism = args.shortstr()
+        response = args.longstr()       # PLAIN: \0user\0password
+        if mechanism != "PLAIN":
+            return False
+        parts = response.split(b"\x00")
+        user = parts[1].decode(errors="replace") if len(parts) > 1 else ""
+        password = parts[2].decode(errors="replace") if len(parts) > 2 else ""
+        auth = self.listener.authenticate
+        if auth is not None and not auth(user, password):
+            logger.info("amqp: auth failed for user %r from %s",
+                        user, self.peer)
+            # connection.close 403 ACCESS_REFUSED
+            await self.send_method(0, _method(
+                CONNECTION, 50, struct.pack(">H", 403)
+                + _shortstr("ACCESS_REFUSED") + struct.pack(">HH", 0, 0)))
+            return False
+        self.user = user
+        # Connection.Tune: channel-max, frame-max, heartbeat
+        await self.send_method(0, _method(
+            CONNECTION, 30,
+            struct.pack(">HIH", self.listener.channel_max,
+                        self.frame_max, self.listener.heartbeat)))
+        # TuneOk then Open (heartbeat frames may interleave)
+        saw_tune_ok = False
+        while True:
+            ftype, _, payload = await self.read_frame()
+            if ftype == FRAME_HEARTBEAT:
+                continue
+            args = _Args(payload)
+            class_id, method_id = args.short(), args.short()
+            if (class_id, method_id) == (CONNECTION, 31):   # tune-ok
+                args.short()
+                negotiated = args.long()
+                if negotiated:
+                    self.frame_max = min(negotiated, self.frame_max)
+                saw_tune_ok = True
+            elif (class_id, method_id) == (CONNECTION, 40):  # open(vhost)
+                if not saw_tune_ok:
+                    raise ValueError("connection.open before tune-ok")
+                await self.send_method(0, _method(
+                    CONNECTION, 41, _shortstr("")))
+                self.open = True
+                return True
+            else:
+                raise ValueError(
+                    f"unexpected method {class_id}.{method_id} in handshake")
+
+    # -- channel error helper ----------------------------------------------
+
+    async def channel_error(self, channel: int, code: int, text: str,
+                            class_id: int, method_id: int) -> None:
+        self.channels.pop(channel, None)
+        await self.send_method(channel, _method(
+            CHANNEL, 40, struct.pack(">H", code) + _shortstr(text)
+            + struct.pack(">HH", class_id, method_id)))
+
+    # -- main loop ---------------------------------------------------------
+
+    async def serve(self) -> None:
+        while True:
+            ftype, channel, payload = await self.read_frame()
+            if ftype == FRAME_HEARTBEAT:
+                await self.send_frame(FRAME_HEARTBEAT, 0, b"")
+                continue
+            if ftype == FRAME_METHOD:
+                await self.handle_method(channel, payload)
+                if not self.open:
+                    return
+            elif ftype == FRAME_HEADER:
+                await self.handle_header(channel, payload)
+            elif ftype == FRAME_BODY:
+                await self.handle_body(channel, payload)
+            else:
+                raise ValueError(f"unknown frame type {ftype}")
+
+    async def handle_method(self, channel: int, payload: bytes) -> None:
+        args = _Args(payload)
+        class_id, method_id = args.short(), args.short()
+        if class_id == CONNECTION:
+            if method_id == 50:        # close
+                await self.send_method(0, _method(CONNECTION, 51))
+                self.open = False
+            elif method_id == 51:      # close-ok
+                self.open = False
+            return
+        if class_id == CHANNEL:
+            if method_id == 10:        # open
+                # a reopened channel number must not inherit discard
+                # state from an aborted oversize publish that never sent
+                # its body frames
+                self.discard.pop(channel, None)
+                self.channels[channel] = {"confirm": False, "publishes": 0}
+                await self.send_method(channel, _method(
+                    CHANNEL, 11, _longstr(b"")))
+            elif method_id == 40:      # close
+                self.channels.pop(channel, None)
+                await self.send_method(channel, _method(CHANNEL, 41))
+            elif method_id == 41:      # close-ok
+                self.channels.pop(channel, None)
+            elif method_id == 20:      # flow — ack active state, no throttle
+                active = args.octet()
+                await self.send_method(channel, _method(
+                    CHANNEL, 21, bytes([active])))
+            return
+        ch = self.channels.get(channel)
+        if ch is None:
+            await self.channel_error(channel, 504, "CHANNEL_ERROR",
+                                     class_id, method_id)
+            return
+        if class_id == EXCHANGE and method_id == 10:    # declare
+            args.short()                                # reserved
+            args.shortstr()                             # exchange name
+            args.shortstr()                             # type
+            # bit order: passive|durable|auto-delete|internal|no-wait
+            flags = args.octet()
+            if not flags & 0x10:                        # no-wait unset
+                await self.send_method(channel, _method(EXCHANGE, 11))
+            return
+        if class_id == QUEUE:
+            if method_id == 10:                         # declare
+                args.short()
+                qname = args.shortstr() or "swx-ingest"
+                # bit order: passive|durable|exclusive|auto-delete|no-wait
+                flags = args.octet()
+                if not flags & 0x10:                    # no-wait unset
+                    await self.send_method(channel, _method(
+                        QUEUE, 11, _shortstr(qname)
+                        + struct.pack(">II", 0, 0)))
+            elif method_id == 20:                       # bind
+                args.short()
+                args.shortstr(); args.shortstr(); args.shortstr()
+                flags = args.octet()
+                if not flags & 0x01:
+                    await self.send_method(channel, _method(QUEUE, 21))
+            return
+        if class_id == CONFIRM and method_id == 10:     # select
+            ch["confirm"] = True
+            ch["publishes"] = 0     # delivery tags restart at 1 (§confirms)
+            if not (args.data[args.pos:args.pos + 1] or b"\0")[0] & 0x01:
+                await self.send_method(channel, _method(CONFIRM, 11))
+            return
+        if class_id == BASIC:
+            if method_id == 40:                         # publish
+                args.short()
+                args.shortstr()                         # exchange
+                routing_key = args.shortstr()
+                ch["pending"] = {"key": routing_key, "body": b"",
+                                 "remaining": None}
+                return
+            # consume/get/qos etc: ingest endpoint only
+            await self.channel_error(channel, 540, "NOT_IMPLEMENTED",
+                                     class_id, method_id)
+            return
+        await self.channel_error(channel, 540, "NOT_IMPLEMENTED",
+                                 class_id, method_id)
+
+    async def handle_header(self, channel: int, payload: bytes) -> None:
+        ch = self.channels.get(channel)
+        pending = ch.get("pending") if ch else None
+        if pending is None:
+            raise ValueError("content header without basic.publish")
+        class_id, _weight, body_size = struct.unpack_from(">HHQ", payload, 0)
+        if class_id != BASIC:
+            raise ValueError(f"content header class {class_id}")
+        if body_size > self.listener.max_body:
+            self.discard[channel] = body_size
+            await self.channel_error(channel, 311, "CONTENT_TOO_LARGE",
+                                     BASIC, 40)
+            return
+        pending["remaining"] = body_size
+        if body_size == 0:
+            await self.complete_publish(channel, ch)
+
+    async def handle_body(self, channel: int, payload: bytes) -> None:
+        left = self.discard.get(channel)
+        if left is not None:
+            left -= len(payload)
+            if left <= 0:
+                del self.discard[channel]
+            else:
+                self.discard[channel] = left
+            return
+        ch = self.channels.get(channel)
+        pending = ch.get("pending") if ch else None
+        if pending is None or pending["remaining"] is None:
+            raise ValueError("body frame without content header")
+        pending["body"] += payload
+        pending["remaining"] -= len(payload)
+        if pending["remaining"] <= 0:
+            await self.complete_publish(channel, ch)
+
+    async def complete_publish(self, channel: int, ch: dict) -> None:
+        pending = ch.pop("pending")
+        ch["publishes"] += 1
+        accepted = True
+        try:
+            accepted = await self.listener.on_message(
+                pending["key"], pending["body"], self.user or self.peer)
+        except Exception:
+            logger.exception("amqp: on_message failed")
+        if ch["confirm"]:
+            if accepted is False:
+                # over-quota flow control: basic.nack (method 120) is the
+                # confirm-mode contract for "broker refused this publish"
+                self.listener.rejected += 1
+                await self.send_method(channel, _method(
+                    BASIC, 120, struct.pack(">QB", ch["publishes"], 0)))
+            else:
+                await self.send_method(channel, _method(
+                    BASIC, 80, struct.pack(">QB", ch["publishes"], 0)))
+        elif accepted is False:
+            # fire-and-forget publisher: nothing to answer; count only
+            self.listener.rejected += 1
+
+
+class AmqpListener:
+    """Minimal AMQP 0-9-1 server endpoint for telemetry ingest."""
+
+    def __init__(self, on_message: OnMessage, host: str = "127.0.0.1",
+                 port: int = 0, authenticate: Optional[Authenticate] = None,
+                 max_body: int = 16 * 1024 * 1024, frame_max: int = 131072,
+                 channel_max: int = 64, heartbeat: int = 60):
+        self.on_message = on_message
+        self.host, self.port = host, port
+        self.authenticate = authenticate
+        self.max_body = max_body
+        self.frame_max = frame_max
+        self.channel_max = channel_max
+        self.heartbeat = heartbeat
+        # publishes refused by the ingest hook (over-quota flow control)
+        self.rejected = 0
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._writers: set[asyncio.StreamWriter] = set()
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(
+            self._handle, self.host, self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        conn = _Conn(self, reader, writer)
+        self._writers.add(writer)
+        try:
+            if await conn.handshake():
+                await conn.serve()
+        except (asyncio.IncompleteReadError, ConnectionResetError):
+            pass
+        except Exception as exc:
+            logger.info("amqp: dropping %s: %s", conn.peer, exc)
+        finally:
+            self._writers.discard(writer)
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except Exception:
+                pass
+
+    async def stop(self) -> None:
+        from sitewhere_tpu_torch.kernel.net import shutdown_server
+
+        await shutdown_server(self._server, self._writers)
+        self._server = None

@@ -1,0 +1,383 @@
+"""Dependency-free CoAP (RFC 7252) ingest endpoint over UDP.
+
+The reference's event-sources host a CoAP receiver (Californium) beside
+MQTT/AMQP/sockets [SURVEY.md §2.2 event-sources]; this image has no
+CoAP library, so — like the MQTT (services/mqtt.py) and WebSocket
+(services/websocket.py) endpoints — the rebuild speaks the wire format
+itself. Scope: the server side constrained devices actually use to push
+telemetry:
+
+- 4-byte fixed header (Ver=1 | Type | TKL, Code, Message ID), token,
+  option walk (extended deltas/lengths per §3.1), 0xFF payload marker;
+- CON requests get a piggybacked ACK (2.04 Changed) echoing message id
+  and token; NON requests are processed silently (§4.3);
+- CON retransmissions (same peer + message id) are deduplicated inside
+  EXCHANGE_LIFETIME so a lost ACK cannot double-ingest a payload (§4.2);
+- malformed packets are counted and dropped (CON gets a RST when the
+  header parses far enough to know the message id, §4.2) — a fuzzed
+  datagram must never kill the endpoint;
+- POST to the configured path ("telemetry" by default) carries an SWB1
+  (or JSON) payload into the same decode pipeline every other receiver
+  feeds; other paths answer 4.04, other methods 4.05.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from collections import OrderedDict
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+TYPE_CON, TYPE_NON, TYPE_ACK, TYPE_RST = 0, 1, 2, 3
+CODE_EMPTY = 0x00
+CODE_POST = 0x02
+CODE_CHANGED = 0x44        # 2.04
+CODE_BAD_REQUEST = 0x80    # 4.00
+CODE_UNAUTHORIZED = 0x81   # 4.01
+CODE_NOT_FOUND = 0x84      # 4.04
+CODE_NOT_ALLOWED = 0x85    # 4.05
+CODE_TOO_MANY = 0x9D       # 4.29 Too Many Requests (RFC 8516)
+OPT_URI_PATH = 11
+OPT_MAX_AGE = 14
+OPT_URI_QUERY = 15
+
+# CON dedup horizon (RFC 7252 EXCHANGE_LIFETIME is 247 s; constrained
+# retransmit windows are far shorter — 64 s covers MAX_TRANSMIT_SPAN)
+DEDUP_SECONDS = 64.0
+DEDUP_MAX = 4096
+
+
+def parse_message(data: bytes):
+    """→ (mtype, code, mid, token, options, payload); ValueError if
+    malformed. `options` is [(number, value_bytes), ...] in order."""
+    if len(data) < 4:
+        raise ValueError("short header")
+    ver = data[0] >> 6
+    if ver != 1:
+        raise ValueError(f"version {ver}")
+    mtype = (data[0] >> 4) & 0x3
+    tkl = data[0] & 0x0F
+    if tkl > 8:
+        raise ValueError(f"TKL {tkl} reserved")
+    code = data[1]
+    mid = int.from_bytes(data[2:4], "big")
+    if len(data) < 4 + tkl:
+        raise ValueError("truncated token")
+    token = data[4:4 + tkl]
+    i = 4 + tkl
+    options = []
+    number = 0
+    while i < len(data):
+        b = data[i]
+        if b == 0xFF:
+            i += 1
+            if i == len(data):
+                raise ValueError("payload marker with empty payload")
+            return mtype, code, mid, token, options, data[i:]
+        delta, length = b >> 4, b & 0x0F
+        i += 1
+        if delta == 15 or length == 15:
+            raise ValueError("reserved option nibble")
+        if delta == 13:
+            delta = 13 + data[i]; i += 1
+        elif delta == 14:
+            delta = 269 + int.from_bytes(data[i:i + 2], "big"); i += 2
+        if length == 13:
+            length = 13 + data[i]; i += 1
+        elif length == 14:
+            length = 269 + int.from_bytes(data[i:i + 2], "big"); i += 2
+        if i + length > len(data):
+            raise ValueError("truncated option")
+        number += delta
+        options.append((number, data[i:i + length]))
+        i += length
+    return mtype, code, mid, token, options, b""
+
+
+def build_message(mtype: int, code: int, mid: int, token: bytes = b"",
+                  payload: bytes = b"", max_age: Optional[int] = None) -> bytes:
+    out = bytearray([(1 << 6) | (mtype << 4) | len(token), code])
+    out += mid.to_bytes(2, "big")
+    out += token
+    if max_age is not None:
+        # Max-Age (option 14, uint seconds): RFC 8516 uses it on 4.29 as
+        # the retry-after hint
+        v = max_age.to_bytes(max((max_age.bit_length() + 7) // 8, 1), "big")
+        out += _encode_option(OPT_MAX_AGE, v)
+    if payload:
+        out += b"\xff" + payload
+    return bytes(out)
+
+
+class CoapListener(asyncio.DatagramProtocol):
+    """UDP endpoint; `on_payload(payload, source)` is awaited (as a
+    task) for every accepted POST."""
+
+    def __init__(self, on_payload, host: str = "127.0.0.1", port: int = 0,
+                 path: str = "telemetry", secret: Optional[str] = None,
+                 admit=None):
+        self.on_payload = on_payload
+        self.host, self.port = host, port
+        self.path = path
+        # flow-control hook: `admit(payload) -> float` returns 0.0 to
+        # accept or a retry-after in seconds; rejections answer 4.29
+        # Too Many Requests (RFC 8516) with Max-Age as the hint
+        self.admit = admit
+        self.over_quota = 0
+        # shared-secret ingest auth: when set, POSTs must carry a
+        # Uri-Query option `token=<secret>` or they get 4.01 and are
+        # never decoded. DEPLOYMENT CAVEAT: CoAP here is cleartext UDP
+        # (no DTLS in this build) — the token rides unencrypted, so it
+        # gates misdirected/unsophisticated traffic, not an on-path
+        # attacker; treat the transport like the reference treats plain
+        # MQTT and run it on trusted networks. The comparison is
+        # constant-time (hmac.compare_digest) so the gate itself leaks
+        # nothing via timing.
+        self.secret = secret
+        self.malformed = 0
+        self.accepted = 0
+        self.unauthorized = 0
+        self._transport: Optional[asyncio.DatagramTransport] = None
+        # processing tasks are retained until done: the loop holds tasks
+        # only weakly, and a GC'd pending task would drop an ACKed
+        # payload (whose retransmit the dedup cache then absorbs)
+        self._tasks: set[asyncio.Task] = set()
+        # (addr, mid) -> (deadline, response bytes): retransmissions of a
+        # CON replay the ORIGINAL response (a lost 4.xx ACK must not turn
+        # into a 2.04 on retry); insertion-ordered for expiry
+        self._seen: OrderedDict[tuple, tuple[float, bytes]] = OrderedDict()
+
+    async def start(self) -> None:
+        loop = asyncio.get_running_loop()
+        self._transport, _ = await loop.create_datagram_endpoint(
+            lambda: self, local_addr=(self.host, self.port))
+        self.port = self._transport.get_extra_info("sockname")[1]
+
+    async def stop(self) -> None:
+        if self._transport is not None:
+            self._transport.close()
+            self._transport = None
+
+    # -- datagram handling -------------------------------------------------
+
+    def _dedup_entry(self, addr, mid: int) -> Optional[bytes]:
+        """The stored response if this (peer, mid) was already handled
+        recently, else None (after expiring stale entries)."""
+        now = time.monotonic()
+        while self._seen:
+            key, (deadline, _) = next(iter(self._seen.items()))
+            if deadline > now and len(self._seen) <= DEDUP_MAX:
+                break
+            self._seen.pop(key, None)
+        entry = self._seen.get((addr, mid))
+        return entry[1] if entry is not None else None
+
+    def _reply(self, addr, data: bytes) -> None:
+        if self._transport is not None:
+            self._transport.sendto(data, addr)
+
+    def _reply_con(self, addr, mid: int, data: bytes) -> None:
+        """Answer a CON and remember the response for retransmissions."""
+        self._seen[(addr, mid)] = (time.monotonic() + DEDUP_SECONDS, data)
+        self._reply(addr, data)
+
+    def _authorized(self, options) -> bool:
+        import hmac
+
+        want = self.secret.encode()
+        for n, v in options:
+            if n == OPT_URI_QUERY and v.startswith(b"token="):
+                if hmac.compare_digest(v[len(b"token="):], want):
+                    return True
+        return False
+
+    def datagram_received(self, data: bytes, addr) -> None:
+        try:
+            mtype, code, mid, token, options, payload = parse_message(data)
+        except (ValueError, IndexError):
+            self.malformed += 1
+            if len(data) >= 4 and (data[0] >> 4) & 0x3 == TYPE_CON:
+                # parsed far enough for a RST (empty, echoes mid, §4.2)
+                self._reply(addr, build_message(
+                    TYPE_RST, CODE_EMPTY, int.from_bytes(data[2:4], "big")))
+            return
+        if mtype == TYPE_ACK or mtype == TYPE_RST or code == CODE_EMPTY:
+            return  # client-side exchange bookkeeping; nothing to serve
+        if mtype == TYPE_CON:
+            stored = self._dedup_entry(addr, mid)
+            if stored is not None:
+                # retransmission (the first ACK was lost): replay the
+                # ORIGINAL response — a rejected request must not turn
+                # into a 2.04 on retry — and don't re-ingest
+                self._reply(addr, stored)
+                return
+        segments = [v.decode("utf-8", "replace")
+                    for n, v in options if n == OPT_URI_PATH]
+        if code != CODE_POST:
+            if mtype == TYPE_CON:
+                self._reply_con(addr, mid, build_message(
+                    TYPE_ACK, CODE_NOT_ALLOWED, mid, token))
+            return
+        if "/".join(segments) != self.path:
+            if mtype == TYPE_CON:
+                self._reply_con(addr, mid, build_message(
+                    TYPE_ACK, CODE_NOT_FOUND, mid, token))
+            return
+        if self.secret is not None and not self._authorized(options):
+            self.unauthorized += 1
+            if mtype == TYPE_CON:
+                self._reply_con(addr, mid, build_message(
+                    TYPE_ACK, CODE_UNAUTHORIZED, mid, token))
+            return
+        if not payload:
+            if mtype == TYPE_CON:
+                self._reply_con(addr, mid, build_message(
+                    TYPE_ACK, CODE_BAD_REQUEST, mid, token))
+            return
+        if self.admit is not None:
+            retry_after = self.admit(payload)
+            if retry_after > 0:
+                self.over_quota += 1
+                if mtype == TYPE_CON:
+                    self._reply_con(addr, mid, build_message(
+                        TYPE_ACK, CODE_TOO_MANY, mid, token,
+                        max_age=max(int(retry_after + 0.999), 1)))
+                return
+        self.accepted += 1
+        if mtype == TYPE_CON:
+            # piggybacked ACK: decode outcomes are the pipeline's story
+            # (failed decodes land on the failed-decode topic), transport
+            # acceptance is what CoAP acknowledges
+            self._reply_con(addr, mid, build_message(
+                TYPE_ACK, CODE_CHANGED, mid, token))
+        task = asyncio.get_running_loop().create_task(
+            self._process(payload, addr))
+        self._tasks.add(task)
+        task.add_done_callback(self._tasks.discard)
+
+    async def _process(self, payload: bytes, addr) -> None:
+        try:
+            await self.on_payload(payload, f"{addr[0]}:{addr[1]}")
+        except Exception:  # noqa: BLE001 - one datagram can't kill the endpoint
+            logger.exception("coap payload processing failed")
+
+    def error_received(self, exc) -> None:  # pragma: no cover - OS-dependent
+        logger.debug("coap transport error: %s", exc)
+
+
+# -- client side (command delivery downlink) ---------------------------------
+
+
+def _encode_option(number_delta: int, value: bytes) -> bytes:
+    """One option with extended delta/length nibbles (§3.1)."""
+    out = bytearray()
+
+    def nibble(v: int) -> tuple[int, bytes]:
+        if v < 13:
+            return v, b""
+        if v < 269:
+            return 13, bytes([v - 13])
+        return 14, (v - 269).to_bytes(2, "big")
+
+    dn, dext = nibble(number_delta)
+    ln, lext = nibble(len(value))
+    out.append((dn << 4) | ln)
+    out += dext + lext + value
+    return bytes(out)
+
+
+def build_request(code: int, mid: int, token: bytes, path: str,
+                  payload: bytes, mtype: int = TYPE_CON,
+                  query: Optional[str] = None) -> bytes:
+    out = bytearray([(1 << 6) | (mtype << 4) | len(token), code])
+    out += mid.to_bytes(2, "big")
+    out += token
+    number = 0
+    for seg in path.split("/"):
+        out += _encode_option(OPT_URI_PATH - number, seg.encode())
+        number = OPT_URI_PATH
+    if query:
+        out += _encode_option(OPT_URI_QUERY - number, query.encode())
+        number = OPT_URI_QUERY
+    if payload:
+        out += b"\xff" + payload
+    return bytes(out)
+
+
+class _CoapClientProtocol(asyncio.DatagramProtocol):
+    def __init__(self):
+        self.replies: asyncio.Queue = asyncio.Queue()
+
+    def datagram_received(self, data: bytes, addr) -> None:
+        self.replies.put_nowait(data)
+
+
+_mid_counter = [0]
+
+
+async def coap_post(host: str, port: int, path: str, payload: bytes,
+                    ack_timeout: float = 2.0, max_retransmit: int = 4,
+                    confirmable: bool = True,
+                    secret: Optional[str] = None) -> int:
+    """POST `payload` to coap://host:port/<path>; returns the response
+    code (e.g. 0x44 = 2.04). CON requests retransmit with exponential
+    backoff per §4.2 (ACK_TIMEOUT doubling, MAX_RETRANSMIT attempts);
+    raises TimeoutError when the exchange never completes. NON requests
+    are fire-and-forget (returns CODE_EMPTY)."""
+    loop = asyncio.get_running_loop()
+    transport, proto = await loop.create_datagram_endpoint(
+        _CoapClientProtocol, remote_addr=(host, port))
+    try:
+        _mid_counter[0] = (_mid_counter[0] + 1) % 0x10000
+        mid = _mid_counter[0]
+        token = mid.to_bytes(2, "big")
+        msg = build_request(CODE_POST, mid, token, path, payload,
+                            mtype=TYPE_CON if confirmable else TYPE_NON,
+                            query=f"token={secret}" if secret is not None else None)
+        if not confirmable:
+            transport.sendto(msg)
+            return CODE_EMPTY
+        timeout = ack_timeout
+        acked = False  # empty ACK received: response comes separately
+        for _attempt in range(max_retransmit + 1):
+            if not acked:
+                transport.sendto(msg)
+            deadline = asyncio.get_running_loop().time() + timeout
+            while True:
+                remaining = deadline - asyncio.get_running_loop().time()
+                if remaining <= 0:
+                    break
+                try:
+                    data = await asyncio.wait_for(proto.replies.get(),
+                                                  remaining)
+                except asyncio.TimeoutError:
+                    break
+                try:
+                    mtype, code, rmid, rtoken, _, _ = parse_message(data)
+                except (ValueError, IndexError):
+                    continue
+                if mtype == TYPE_RST and rmid == mid:
+                    raise ConnectionResetError("coap: peer RST")
+                if mtype == TYPE_ACK and rmid == mid:
+                    if code != CODE_EMPTY:
+                        return code   # piggybacked response
+                    # §5.2.2 separate response: the server ACKed the
+                    # request empty and will answer in its own CON/NON
+                    # exchange, matched by TOKEN; stop retransmitting,
+                    # keep the full remaining time budget listening
+                    acked = True
+                elif rtoken == token and code != CODE_EMPTY:
+                    # the separate response itself; ACK a CON back
+                    if mtype == TYPE_CON:
+                        transport.sendto(build_message(
+                            TYPE_ACK, CODE_EMPTY, rmid))
+                    return code
+            timeout *= 2  # §4.2 binary exponential backoff
+        raise TimeoutError(f"coap: no {'response' if acked else 'ACK'} "
+                           f"from {host}:{port} after "
+                           f"{max_retransmit + 1} attempts")
+    finally:
+        transport.close()

@@ -7,8 +7,10 @@ receivers and protobuf/JSON/Groovy decoders. Here:
 
 - receivers: `QueueEventReceiver` (in-proc; the simulator's feed and the
   test double), `TcpEventReceiver` (length-prefixed SWB1 over TCP — the
-  gateway protocol). The protocol receivers (`mqtt`, `websocket`,
-  `coap`, `amqp`, `stomp`) are not ported yet and raise (ROADMAP A.1.1).
+  gateway protocol), and the protocol receivers `MqttEventReceiver`,
+  `WebSocketEventReceiver`, `CoapEventReceiver`, `AmqpEventReceiver` and
+  `StompEventReceiver`, each over its own listener (services/mqtt.py,
+  websocket.py, coap.py, amqp.py, stomp.py).
 - decoders: `Swb1Decoder` (columnar fast path — a few frombuffer views per
   batch), `JsonDecoder` (token-addressed cold path: per-event JSON like the
   reference's REST/MQTT JSON payloads, resolved to dense indices here).
@@ -44,7 +46,6 @@ from sitewhere_tpu_torch.domain.batch import (
 from sitewhere_tpu_torch.kernel.bus import TopicNaming
 from sitewhere_tpu_torch.kernel.lifecycle import BackgroundTaskComponent, LifecycleComponent
 from sitewhere_tpu_torch.kernel.service import Service, TenantEngine
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -316,9 +317,280 @@ class TcpEventReceiver(BackgroundTaskComponent):
         self._server = None
 
 
-# receiver kinds the JAX package serves over their own protocol
-# listeners (services/mqtt.py, websocket.py, coap.py, amqp.py, stomp.py)
-PROTOCOL_RECEIVERS = ("mqtt", "websocket", "coap", "amqp", "stomp")
+class MqttEventReceiver(BackgroundTaskComponent):
+    """MQTT ingest endpoint (reference analog: MqttInboundEventReceiver).
+    Hosts a minimal MQTT 3.1.1 server (services/mqtt.py) — any standard
+    device client can CONNECT and PUBLISH SWB1/JSON payloads at QoS 0/1/2.
+    The MQTT topic becomes the batch source.
+
+    Security (receiver config):
+    - `users: {username: password}` — when present, CONNECT must carry
+      matching credentials or it is refused (CONNACK code 4).
+    - command-topic isolation (always on): a client may only subscribe
+    to its OWN command topic `<command_topic_prefix><client_id>`;
+    filters reaching into the command space any other way (wildcards
+    included) get SUBACK failure 0x80. Non-command topics stay open."""
+
+    def __init__(self, name: str, engine: "EventSourcesEngine",
+                 decoder: EventDecoder, host: str = "127.0.0.1",
+                 port: int = 0, users: Optional[dict] = None,
+                 command_topic_prefix: str = "swx/commands/",
+                 require_client_id_match: bool = False,
+                 subscribe_allow: Optional[list] = None):
+        super().__init__(name)
+        self.engine = engine
+        self.decoder = decoder
+        self.users = dict(users) if users else None
+        self.command_topic_prefix = command_topic_prefix
+        # broker fan-out means a subscription is an EAVESDROPPING grant:
+        # by default a device may only hear its own command topic; the
+        # operator opens telemetry/ops prefixes explicitly (e.g.
+        # subscribe_allow: ["plant/", "ops/"])
+        self.subscribe_allow = tuple(subscribe_allow or ())
+        # per-device credentials mode: username must equal client_id, so
+        # the client_id the own-command-topic rule trusts is the one the
+        # password proved. Off by default for the gateway pattern (one
+        # credential publishing many devices' telemetry) — gateways that
+        # also subscribe to command topics should enable this.
+        self.require_client_id_match = require_client_id_match
+        from sitewhere_tpu_torch.services.mqtt import MqttListener
+
+        self.listener = MqttListener(
+            self._on_publish, host=host, port=port,
+            authenticate=self._authenticate if self.users else None,
+            authorize_sub=self._authorize_sub)
+
+    def _authenticate(self, client_id: str, username, password) -> bool:
+        if username is None or self.users.get(username) != password:
+            return False
+        return not self.require_client_id_match or username == client_id
+
+    def _authorize_sub(self, client_id: str, topic_filter: str) -> bool:
+        if topic_filter == f"{self.command_topic_prefix}{client_id}":
+            return True  # a device's own command topic
+        # everything else is default-DENY: with broker fan-out live, any
+        # other subscription would receive peers' telemetry (or, with a
+        # wildcard, the whole command space). The operator opens
+        # specific prefixes via `subscribe_allow`; wildcards must stay
+        # inside an allowed prefix.
+        for allowed in self.subscribe_allow:
+            if topic_filter.startswith(allowed) and "#" not in allowed:
+                # '#'/'+' are fine *after* the allowed prefix; reject
+                # filters whose wildcards sit before the prefix ends
+                return True
+        return False
+
+    @property
+    def port(self) -> int:
+        return self.listener.port
+
+    async def _on_publish(self, topic: str, payload: bytes,
+                          client_id: str) -> bool:
+        # MQTT 3.1.1 has no per-PUBLISH error code: over-quota publishes
+        # are refused (False → the listener skips peer fan-out and counts
+        # the reject); QoS1/2 still get their PUBACK/PUBREC — transport
+        # acceptance, not pipeline admission — which is the
+        # protocol-appropriate behavior short of disconnecting
+        if self.engine.admit_ingress(payload) > 0:
+            return False
+        await self.engine.process_payload(
+            payload, f"{self.name}:{topic}", self.decoder,
+            ingest_monotonic=time.monotonic())
+        return True
+
+    async def _do_start(self, monitor) -> None:
+        await self.listener.start()
+
+    async def _run(self) -> None:  # server runs itself
+        await asyncio.Event().wait()
+
+    async def _do_stop(self, monitor) -> None:
+        await super()._do_stop(monitor)
+        await self.listener.stop()
+
+
+class WebSocketEventReceiver(BackgroundTaskComponent):
+    """WebSocket ingest endpoint (reference analog: the WebSocket
+    receiver): devices connect to ws://host:port/ws/<client-id> and send
+    binary SWB1 (or JSON) messages; server→client frames carry command
+    downlink via the session registry (services/websocket.py).
+
+    `tokens: {client_id: token}` — when present, the Upgrade must carry
+    `Authorization: Bearer <token>` (or `?token=`) matching the client
+    id in the path; otherwise 401. The session registry routes command
+    downlink by client id (and ids are printed in QR labels), so an
+    unauthenticated peer must never occupy one — same trust model the
+    MQTT endpoint enforces at CONNECT."""
+
+    def __init__(self, name: str, engine: "EventSourcesEngine",
+                 decoder: EventDecoder, host: str = "127.0.0.1",
+                 port: int = 0, tokens: Optional[dict] = None):
+        super().__init__(name)
+        self.engine = engine
+        self.decoder = decoder
+        self.tokens = dict(tokens) if tokens else None
+        from sitewhere_tpu_torch.services.websocket import WebSocketListener
+
+        self.listener = WebSocketListener(
+            self._on_message, host=host, port=port,
+            authenticate=self._authenticate if self.tokens else None)
+
+    def _authenticate(self, client_id: str, token) -> bool:
+        return token is not None and self.tokens.get(client_id) == token
+
+    @property
+    def port(self) -> int:
+        return self.listener.port
+
+    async def _on_message(self, payload: bytes, client_id: str) -> bool:
+        # False → the listener closes the connection with 1013 ("try
+        # again later"), the WebSocket-appropriate over-quota signal
+        if self.engine.admit_ingress(payload) > 0:
+            return False
+        await self.engine.process_payload(
+            payload, f"{self.name}:{client_id}", self.decoder,
+            ingest_monotonic=time.monotonic())
+        return True
+
+    async def _do_start(self, monitor) -> None:
+        await self.listener.start()
+
+    async def _run(self) -> None:  # server runs itself
+        await asyncio.Event().wait()
+
+    async def _do_stop(self, monitor) -> None:
+        await super()._do_stop(monitor)
+        await self.listener.stop()
+
+
+class CoapEventReceiver(BackgroundTaskComponent):
+    """CoAP ingest endpoint (reference analog: the Californium-based
+    CoAP receiver): constrained devices POST SWB1 (or JSON) payloads to
+    coap://host:port/<path> over UDP; CON requests are ACKed and
+    deduplicated, malformed datagrams are counted and dropped
+    (services/coap.py)."""
+
+    def __init__(self, name: str, engine: "EventSourcesEngine",
+                 decoder: EventDecoder, host: str = "127.0.0.1",
+                 port: int = 0, path: str = "telemetry",
+                 secret: Optional[str] = None):
+        super().__init__(name)
+        self.engine = engine
+        self.decoder = decoder
+        from sitewhere_tpu_torch.services.coap import CoapListener
+
+        # `admit` answers BEFORE the ACK so an over-quota POST gets the
+        # CoAP-appropriate 4.29 Too Many Requests (RFC 8516) + Max-Age
+        self.listener = CoapListener(self._on_payload, host=host, port=port,
+                                     path=path, secret=secret,
+                                     admit=self._admit)
+
+    def _admit(self, payload: bytes) -> float:
+        return self.engine.admit_ingress(payload)
+
+    @property
+    def port(self) -> int:
+        return self.listener.port
+
+    async def _on_payload(self, payload: bytes, source: str) -> None:
+        await self.engine.process_payload(
+            payload, f"{self.name}:{source}", self.decoder,
+            ingest_monotonic=time.monotonic())
+
+    async def _do_start(self, monitor) -> None:
+        await self.listener.start()
+
+    async def _run(self) -> None:  # server runs itself
+        await asyncio.Event().wait()
+
+    async def _do_stop(self, monitor) -> None:
+        await super()._do_stop(monitor)
+        await self.listener.stop()
+
+
+class _BrokerEventReceiver(BackgroundTaskComponent):
+    """Shared shape for broker-style endpoints whose listener calls
+    `on_message(key, payload, source)` and takes a credential-checking
+    `authenticate(user, secret)` hook (AMQP, STOMP): one copy of the
+    auth/port/process-payload/lifecycle plumbing, subclasses supply the
+    listener class."""
+
+    LISTENER = None   # subclass: callable(on_message, host, port, authenticate)
+
+    def __init__(self, name: str, engine: "EventSourcesEngine",
+                 decoder: EventDecoder, host: str = "127.0.0.1",
+                 port: int = 0, users: Optional[dict] = None):
+        super().__init__(name)
+        self.engine = engine
+        self.decoder = decoder
+        self.users = dict(users) if users else None
+        self.listener = type(self).LISTENER(
+            self._on_message, host=host, port=port,
+            authenticate=self._authenticate if self.users else None)
+
+    def _authenticate(self, username: str, password: str) -> bool:
+        return self.users.get(username) == password
+
+    @property
+    def port(self) -> int:
+        return self.listener.port
+
+    async def _on_message(self, key: str, payload: bytes,
+                          source: str) -> bool:
+        # False → AMQP answers confirm-mode publishers with basic.nack;
+        # STOMP answers an ERROR frame (each listener's protocol-
+        # appropriate over-quota signal)
+        if self.engine.admit_ingress(payload) > 0:
+            return False
+        await self.engine.process_payload(
+            payload, f"{self.name}:{key}", self.decoder,
+            ingest_monotonic=time.monotonic())
+        return True
+
+    async def _do_start(self, monitor) -> None:
+        await self.listener.start()
+
+    async def _run(self) -> None:  # server runs itself
+        await asyncio.Event().wait()
+
+    async def _do_stop(self, monitor) -> None:
+        await super()._do_stop(monitor)
+        await self.listener.stop()
+
+
+def _amqp_listener(*a, **k):
+    from sitewhere_tpu_torch.services.amqp import AmqpListener
+
+    return AmqpListener(*a, **k)
+
+
+def _stomp_listener(*a, **k):
+    from sitewhere_tpu_torch.services.stomp import StompListener
+
+    return StompListener(*a, **k)
+
+
+class AmqpEventReceiver(_BrokerEventReceiver):
+    """AMQP 0-9-1 ingest endpoint (reference analog: the RabbitMQ
+    inbound receiver): hosts a minimal AMQP server (services/amqp.py) —
+    any standard client (pika, amqplib, gateway SDKs) can connect, open
+    a channel and `basic.publish` SWB1/JSON payloads; confirm-mode
+    publishers get `basic.ack` (at-least-once). The routing key becomes
+    the batch source. `users: {username: password}` enables PLAIN auth
+    (unauthenticated connections are refused with 403)."""
+
+    LISTENER = staticmethod(_amqp_listener)
+
+
+class StompEventReceiver(_BrokerEventReceiver):
+    """STOMP 1.2 ingest endpoint (reference analog: the ActiveMQ
+    inbound receiver — STOMP is ActiveMQ/Artemis' interoperable wire
+    protocol): clients CONNECT and SEND SWB1/JSON bodies; the
+    destination header becomes the batch source; `receipt` headers are
+    honored (at-least-once handshake). `users: {login: passcode}`
+    enables auth."""
+
+    LISTENER = staticmethod(_stomp_listener)
 
 
 class EventSourcesEngine(TenantEngine):
@@ -408,8 +680,37 @@ class EventSourcesEngine(TenantEngine):
             r = TcpEventReceiver(name, self, decoder,
                                  host=cfg.get("host", "127.0.0.1"),
                                  port=cfg.get("port", 0))
-        elif kind in PROTOCOL_RECEIVERS:
-            raise not_ported(f"the {kind} receiver", "A.1.1")
+        elif kind == "mqtt":
+            r = MqttEventReceiver(
+                name, self, decoder,
+                host=cfg.get("host", "127.0.0.1"), port=cfg.get("port", 0),
+                users=cfg.get("users"),
+                command_topic_prefix=cfg.get("command_topic_prefix",
+                                             "swx/commands/"),
+                require_client_id_match=cfg.get("require_client_id_match",
+                                                False),
+                subscribe_allow=cfg.get("subscribe_allow"))
+        elif kind == "websocket":
+            r = WebSocketEventReceiver(name, self, decoder,
+                                       host=cfg.get("host", "127.0.0.1"),
+                                       port=cfg.get("port", 0),
+                                       tokens=cfg.get("tokens"))
+        elif kind == "coap":
+            r = CoapEventReceiver(name, self, decoder,
+                                  host=cfg.get("host", "127.0.0.1"),
+                                  port=cfg.get("port", 0),
+                                  path=cfg.get("path", "telemetry"),
+                                  secret=cfg.get("secret"))
+        elif kind == "amqp":
+            r = AmqpEventReceiver(name, self, decoder,
+                                  host=cfg.get("host", "127.0.0.1"),
+                                  port=cfg.get("port", 0),
+                                  users=cfg.get("users"))
+        elif kind == "stomp":
+            r = StompEventReceiver(name, self, decoder,
+                                   host=cfg.get("host", "127.0.0.1"),
+                                   port=cfg.get("port", 0),
+                                   users=cfg.get("users"))
         else:
             raise ValueError(f"unknown receiver kind {kind!r}")
         self.receivers.append(r)

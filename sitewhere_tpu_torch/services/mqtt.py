@@ -1,0 +1,369 @@
+"""Dependency-free MQTT 3.1.1 ingest listener.
+
+The reference's primary device protocol is MQTT (`MqttInboundEventReceiver`
+connecting out to a broker, [SURVEY.md §2.2 event-sources]). This image has
+no MQTT client library and no broker, so the TPU-native rebuild hosts the
+endpoint itself: a minimal asyncio server speaking the broker side of MQTT
+3.1.1 — enough for any standard device client to CONNECT and PUBLISH
+telemetry at QoS 0/1:
+
+  CONNECT→CONNACK, PUBLISH(QoS0) , PUBLISH(QoS1)→PUBACK,
+  SUBSCRIBE→SUBACK (accepted; no outbound fan-out yet),
+  PINGREQ→PINGRESP, DISCONNECT.
+
+Published payloads are handed to the receiver's decoder exactly like TCP
+frames; the topic is carried as the batch source so per-topic routing
+rules keep working. Command delivery down to subscribed devices rides the
+same connection registry (command-delivery's MQTT provider).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+# MQTT 3.1.1 control packet types (spec §2.2.1)
+CONNECT, CONNACK = 1, 2
+PUBLISH, PUBACK = 3, 4
+PUBREC, PUBREL, PUBCOMP = 5, 6, 7
+SUBSCRIBE, SUBACK = 8, 9
+UNSUBSCRIBE, UNSUBACK = 10, 11
+PINGREQ, PINGRESP = 12, 13
+DISCONNECT = 14
+
+# CONNACK return codes (spec §3.2.2.3)
+CONNACK_ACCEPTED = 0
+CONNACK_BAD_PROTOCOL = 1
+CONNACK_ID_REJECTED = 2
+CONNACK_BAD_CREDENTIALS = 4
+CONNACK_NOT_AUTHORIZED = 5
+
+MAX_PACKET = 16 * 1024 * 1024
+
+
+def _encode_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        byte = n % 128
+        n //= 128
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+async def _read_varint(reader: asyncio.StreamReader) -> int:
+    mult, value = 1, 0
+    for _ in range(4):
+        (byte,) = await reader.readexactly(1)
+        value += (byte & 0x7F) * mult
+        if not byte & 0x80:
+            return value
+        mult *= 128
+    raise ValueError("malformed remaining-length varint")
+
+
+def _utf8(data: bytes, off: int) -> tuple[str, int]:
+    ln = int.from_bytes(data[off:off + 2], "big")
+    return data[off + 2:off + 2 + ln].decode("utf-8"), off + 2 + ln
+
+
+def _packet(ptype: int, flags: int, body: bytes) -> bytes:
+    return bytes([(ptype << 4) | flags]) + _encode_varint(len(body)) + body
+
+
+class MqttSession:
+    """One connected client."""
+
+    def __init__(self, client_id: str, writer: asyncio.StreamWriter):
+        self.client_id = client_id
+        self.writer = writer
+        self.subscriptions: list[str] = []
+        self.connected_at = time.time()
+        # QoS2 packet ids seen (PUBLISH processed, PUBREL not yet received):
+        # a retransmitted QoS2 PUBLISH must not be processed twice
+        self.qos2_pending: set[int] = set()
+
+
+class MqttListener:
+    """The asyncio MQTT endpoint. `on_publish(topic, payload, client_id)`
+    is awaited for every inbound PUBLISH.
+
+    Security hooks (both optional; None = open, for loopback/test use):
+    - `authenticate(client_id, username, password) -> bool`: checked at
+      CONNECT. When set, a client without credentials (or with wrong
+      ones) gets CONNACK return code 4 and the connection is closed —
+      nothing it sends is ever handed to `on_publish`.
+    - `authorize_sub(client_id, topic_filter) -> bool`: checked per
+      SUBSCRIBE filter. A denied filter gets SUBACK failure code 0x80
+      and is not registered — a device cannot subscribe to another
+      device's command topic (or `#`-wildcard its way to the whole
+      command space)."""
+
+    def __init__(self, on_publish, host: str = "127.0.0.1", port: int = 0,
+                 authenticate=None, authorize_sub=None,
+                 max_retained: int = 4096):
+        self.on_publish = on_publish
+        self.host, self.port = host, port
+        self.authenticate = authenticate
+        self.authorize_sub = authorize_sub
+        self.sessions: dict[str, MqttSession] = {}
+        # PUBLISHes refused by the ingest hook (over-quota flow control):
+        # 3.1.1 has no negative PUBACK, so refusal = drop + count here
+        self.rejected = 0
+        # retained messages (PUBLISH with retain flag): delivered to new
+        # matching subscriptions, like any broker; bounded (drop-oldest)
+        self.retained: dict[str, bytes] = {}
+        self.max_retained = max_retained
+        self._conns: set[asyncio.StreamWriter] = set()
+        self._server: Optional[asyncio.AbstractServer] = None
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(self._handle, self.host,
+                                                  self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        # close live client connections BEFORE wait_closed: since 3.12,
+        # Server.wait_closed() waits for handlers, and handlers block in
+        # readexactly until their peer socket dies
+        from sitewhere_tpu_torch.kernel.net import shutdown_server
+
+        if self._server is not None:
+            try:
+                await asyncio.wait_for(
+                    shutdown_server(self._server, self._conns), 5.0)
+            except asyncio.TimeoutError:
+                logger.warning("mqtt: listener handlers did not drain in 5s")
+            self._server = None
+        self.sessions.clear()
+
+    # -- outbound (command delivery) ---------------------------------------
+
+    def matches(self, sub: str, topic: str) -> bool:
+        """MQTT topic filter match (+ single-level, # multi-level)."""
+        sp, tp = sub.split("/"), topic.split("/")
+        for i, s in enumerate(sp):
+            if s == "#":
+                return True
+            if i >= len(tp) or (s != "+" and s != tp[i]):
+                return False
+        return len(sp) == len(tp)
+
+    async def publish_to_subscribers(self, topic: str, payload: bytes,
+                                     exclude: Optional[str] = None,
+                                     retain_flag: bool = False) -> int:
+        """QoS0 PUBLISH to every session subscribed to `topic`."""
+        body = len(topic).to_bytes(2, "big") + topic.encode() + payload
+        pkt = _packet(PUBLISH, 1 if retain_flag else 0, body)
+        n = 0
+        for s in list(self.sessions.values()):
+            if s.client_id == exclude:
+                continue
+            if any(self.matches(sub, topic) for sub in s.subscriptions):
+                try:
+                    s.writer.write(pkt)
+                    await s.writer.drain()
+                    n += 1
+                except (ConnectionError, RuntimeError):
+                    self.sessions.pop(s.client_id, None)
+        return n
+
+    async def publish(self, topic: str, payload: bytes,
+                      retain: bool = False) -> int:
+        """Server-originated PUBLISH: live fan-out to matching
+        subscribers, optionally retained for late subscribers — the
+        one public entry point that keeps the retain protocol rule
+        (store, then deliver unretained live copies) in this class."""
+        if retain:
+            self._retain(topic, payload)
+        return await self.publish_to_subscribers(topic, payload)
+
+    def _retain(self, topic: str, payload: bytes) -> None:
+        if not payload:  # zero-length retained PUBLISH clears (spec §3.3.1.3)
+            self.retained.pop(topic, None)
+            return
+        self.retained[topic] = payload
+        while len(self.retained) > self.max_retained:
+            self.retained.pop(next(iter(self.retained)))
+
+    # -- inbound -----------------------------------------------------------
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        session: Optional[MqttSession] = None
+        self._conns.add(writer)
+        try:
+            while True:
+                (header,) = await reader.readexactly(1)
+                ptype, flags = header >> 4, header & 0x0F
+                length = await _read_varint(reader)
+                if length > MAX_PACKET:
+                    logger.warning("mqtt: packet length %d too large", length)
+                    return
+                body = await reader.readexactly(length) if length else b""
+                if ptype == CONNECT:
+                    session = await self._on_connect(body, writer)
+                    if session is None:
+                        return  # rejected (bad credentials/protocol)
+                elif session is None:
+                    return  # first packet must be CONNECT (spec §3.1)
+                elif ptype == PUBLISH:
+                    await self._on_publish(flags, body, session, writer)
+                elif ptype == PUBREL:
+                    # QoS2 release: the sender may now forget the packet id
+                    packet_id = int.from_bytes(body[0:2], "big")
+                    session.qos2_pending.discard(packet_id)
+                    writer.write(_packet(PUBCOMP, 0,
+                                         packet_id.to_bytes(2, "big")))
+                elif ptype == SUBSCRIBE:
+                    self._on_subscribe(body, session, writer)
+                elif ptype == UNSUBSCRIBE:
+                    self._on_unsubscribe(body, session, writer)
+                elif ptype == PINGREQ:
+                    writer.write(_packet(PINGRESP, 0, b""))
+                elif ptype == DISCONNECT:
+                    return
+                else:
+                    logger.warning("mqtt: unsupported packet type %d", ptype)
+                    return
+                await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionResetError,
+                ValueError, IndexError):
+            # IndexError: truncated/malformed variable headers (hostile or
+            # buggy clients) must drop the connection, not escape the
+            # handler as a traceback
+            pass
+        finally:
+            self._conns.discard(writer)
+            if session is not None:
+                self.sessions.pop(session.client_id, None)
+            writer.close()
+
+    async def _on_connect(self, body: bytes, writer) -> Optional[MqttSession]:
+        proto, off = _utf8(body, 0)
+        level = body[off]
+        off += 1  # protocol level (4 for 3.1.1)
+        connect_flags = body[off]
+        off += 1
+        off += 2  # keepalive
+        client_id, off = _utf8(body, off)
+        if connect_flags & 0x04:  # will flag: skip will topic + message
+            _will_topic, off = _utf8(body, off)
+            will_len = int.from_bytes(body[off:off + 2], "big")
+            off += 2 + will_len
+        username = password = None
+        if connect_flags & 0x80:
+            username, off = _utf8(body, off)
+        if connect_flags & 0x40:
+            pw_len = int.from_bytes(body[off:off + 2], "big")
+            password = body[off + 2:off + 2 + pw_len].decode("utf-8")
+            off += 2 + pw_len
+        if not client_id:
+            client_id = f"anon-{id(writer):x}"
+        if proto != "MQTT" or level != 4:
+            writer.write(_packet(CONNACK, 0, bytes([0, CONNACK_BAD_PROTOCOL])))
+            return None
+        # a client_id containing topic syntax ('#', '+', '/') could forge
+        # its way past prefix-based subscription authorization (e.g.
+        # client_id '#' makes 'swx/commands/#' look like "its own" topic)
+        if any(ch in client_id for ch in "#+/"):
+            logger.warning("mqtt: rejected CONNECT with hostile client id %r",
+                           client_id)
+            writer.write(_packet(CONNACK, 0, bytes([0, CONNACK_ID_REJECTED])))
+            return None
+        if self.authenticate is not None and not self.authenticate(
+                client_id, username, password):
+            logger.warning("mqtt: rejected CONNECT from %r (bad credentials)",
+                           client_id)
+            writer.write(_packet(CONNACK, 0,
+                                 bytes([0, CONNACK_BAD_CREDENTIALS])))
+            return None
+        session = MqttSession(client_id, writer)
+        self.sessions[client_id] = session
+        writer.write(_packet(CONNACK, 0, bytes([0, CONNACK_ACCEPTED])))
+        return session
+
+    async def _on_publish(self, flags: int, body: bytes,
+                          session: MqttSession, writer) -> None:
+        qos = (flags >> 1) & 0x3
+        retain = bool(flags & 0x1)
+        topic, off = _utf8(body, 0)
+        packet_id = None
+        if qos > 0:
+            packet_id = int.from_bytes(body[off:off + 2], "big")
+            off += 2
+        payload = body[off:]
+        if qos == 2 and packet_id is not None:
+            # QoS2 method B: process on first sight, dedup retransmits,
+            # PUBREC now — PUBREL→PUBCOMP completes in the handler loop
+            if packet_id not in session.qos2_pending:
+                session.qos2_pending.add(packet_id)
+                await self._ingest_and_fan_out(topic, payload, session,
+                                               retain)
+            writer.write(_packet(PUBREC, 0, packet_id.to_bytes(2, "big")))
+            return
+        await self._ingest_and_fan_out(topic, payload, session, retain)
+        if qos == 1 and packet_id is not None:
+            writer.write(_packet(PUBACK, 0, packet_id.to_bytes(2, "big")))
+
+    async def _ingest_and_fan_out(self, topic: str, payload: bytes,
+                                  session: MqttSession,
+                                  retain: bool) -> None:
+        """Every accepted PUBLISH goes two ways: into the platform
+        pipeline AND out to matching subscribed peers (real broker
+        semantics — subscription authorization already gated who may
+        listen where). A publish the ingest hook REFUSES (returns False;
+        over-quota flow control) is rejected wholesale: no retain, no
+        peer fan-out — a throttled tenant must not keep the broker side
+        as a free relay."""
+        accepted = await self.on_publish(topic, payload, session.client_id)
+        if accepted is False:
+            self.rejected += 1
+            return
+        if retain:
+            self._retain(topic, payload)
+        await self.publish_to_subscribers(topic, payload,
+                                          exclude=session.client_id)
+
+    def _on_subscribe(self, body: bytes, session: MqttSession,
+                      writer) -> None:
+        packet_id = int.from_bytes(body[0:2], "big")
+        off = 2
+        codes = bytearray()
+        deliver_retained: list[tuple[str, bytes]] = []
+        while off < len(body):
+            topic_filter, off = _utf8(body, off)
+            off += 1  # requested QoS; we grant QoS0
+            if (self.authorize_sub is not None
+                    and not self.authorize_sub(session.client_id,
+                                               topic_filter)):
+                logger.warning("mqtt: denied SUBSCRIBE %r from %r",
+                               topic_filter, session.client_id)
+                codes.append(0x80)  # failure return code (spec §3.9.3)
+                continue
+            session.subscriptions.append(topic_filter)
+            codes.append(0)
+            # retained messages matching the new filter deliver after the
+            # SUBACK (retain flag set so the client knows they're stored)
+            for topic, payload in list(self.retained.items()):
+                if self.matches(topic_filter, topic):
+                    deliver_retained.append((topic, payload))
+        writer.write(_packet(SUBACK, 0, packet_id.to_bytes(2, "big")
+                             + bytes(codes)))
+        for topic, payload in deliver_retained:
+            body2 = len(topic).to_bytes(2, "big") + topic.encode() + payload
+            writer.write(_packet(PUBLISH, 1, body2))
+
+    def _on_unsubscribe(self, body: bytes, session: MqttSession,
+                        writer) -> None:
+        packet_id = int.from_bytes(body[0:2], "big")
+        off = 2
+        while off < len(body):
+            topic_filter, off = _utf8(body, off)
+            if topic_filter in session.subscriptions:
+                session.subscriptions.remove(topic_filter)
+        writer.write(_packet(UNSUBACK, 0, packet_id.to_bytes(2, "big")))

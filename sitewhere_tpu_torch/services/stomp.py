@@ -1,0 +1,238 @@
+"""Dependency-free STOMP 1.2 ingest endpoint.
+
+The reference's event-sources ship an ActiveMQ inbound receiver
+[SURVEY.md §2.2 event-sources: "CoAP/AMQP/ActiveMQ/... receivers"];
+STOMP is ActiveMQ's (and RabbitMQ's, and Artemis') simple interoperable
+wire protocol, so — like the MQTT/AMQP endpoints — the rebuild hosts
+the endpoint itself: any STOMP client or gateway CONNECTs and SENDs
+telemetry frames; every SEND body reaches the tenant's decode pipeline.
+
+Scope (the publish-side subset an ingest endpoint needs, per the STOMP
+1.2 spec):
+- CONNECT/STOMP → CONNECTED (version 1.2; optional login/passcode via
+  the `authenticate` hook, refusal = ERROR frame + close);
+- SEND → payload delivery; `content-length` honored for binary bodies
+  (NUL-terminated scan otherwise); `receipt` header → RECEIPT frame
+  (the at-least-once handshake publishers use);
+- DISCONNECT (+receipt) → clean close; heart-beats negotiated off
+  (`0,0`); EOL tolerance (\r\n accepted, \n emitted);
+- SUBSCRIBE/UNSUBSCRIBE are acknowledged via receipt when asked but
+  deliver nothing — this is an ingest endpoint, downlink is
+  command-delivery's job; other client frames get an ERROR frame.
+
+Header values un-escape per §"Value Encoding" (\\n \\c \\\\ \\r).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from typing import Awaitable, Callable, Optional
+
+logger = logging.getLogger(__name__)
+
+OnMessage = Callable[[str, bytes, str], Awaitable[None]]
+Authenticate = Callable[[str, str], bool]
+
+MAX_FRAME = 16 * 1024 * 1024
+MAX_HEADERS = 10 * 1024
+
+_UNESCAPE = {"n": "\n", "c": ":", "\\": "\\", "r": "\r"}
+_ESCAPE = {"\n": "\\n", ":": "\\c", "\\": "\\\\", "\r": "\\r"}
+
+
+def _decode_header(raw: str) -> str:
+    if "\\" not in raw:
+        return raw
+    out, i = [], 0
+    while i < len(raw):
+        ch = raw[i]
+        if ch == "\\" and i + 1 < len(raw):
+            rep = _UNESCAPE.get(raw[i + 1])
+            if rep is None:
+                raise ValueError(f"bad escape \\{raw[i + 1]}")
+            out.append(rep)
+            i += 2
+        else:
+            out.append(ch)
+            i += 1
+    return "".join(out)
+
+
+def _encode_header(raw: str) -> str:
+    return "".join(_ESCAPE.get(ch, ch) for ch in raw)
+
+
+def _frame(command: str, headers: dict, body: bytes = b"",
+           escape: bool = True) -> bytes:
+    """Server frames escape header values per §Value Encoding (a
+    receipt id containing a decoded newline must not inject header
+    lines); CONNECTED is exempt per spec (`escape=False`)."""
+    enc = _encode_header if escape else (lambda v: v)
+    head = command + "\n" + "".join(
+        f"{k}:{enc(str(v))}\n" for k, v in headers.items()) + "\n"
+    return head.encode() + body + b"\x00"
+
+
+class StompListener:
+    """Minimal STOMP 1.2 server endpoint for telemetry ingest."""
+
+    def __init__(self, on_message: OnMessage, host: str = "127.0.0.1",
+                 port: int = 0, authenticate: Optional[Authenticate] = None):
+        self.on_message = on_message
+        self.host, self.port = host, port
+        self.authenticate = authenticate
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._writers: set[asyncio.StreamWriter] = set()
+        # protocol-violation drops (hostile/broken peers) — the fuzz
+        # suite's observability hook, mirrors CoapListener.malformed
+        self.malformed = 0
+
+    async def start(self) -> None:
+        # stream limit covers a whole NUL-scanned body (the default
+        # 64 KiB limit would drop oversize frames with no ERROR)
+        self._server = await asyncio.start_server(
+            self._handle, self.host, self.port,
+            limit=MAX_FRAME + MAX_HEADERS)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        from sitewhere_tpu_torch.kernel.net import shutdown_server
+
+        await shutdown_server(self._server, self._writers)
+        self._server = None
+
+    # -- frame IO ----------------------------------------------------------
+
+    async def _read_frame(self, reader: asyncio.StreamReader):
+        """→ (command, headers, body) or None on clean EOF/keepalive."""
+        # skip inter-frame EOLs (heart-beats / trailing newlines)
+        while True:
+            try:
+                first = await reader.readexactly(1)
+            except asyncio.IncompleteReadError:
+                return None
+            if first not in (b"\n", b"\r"):
+                break
+        # line-at-a-time until the blank line: EOL may be \n OR \r\n
+        # (readuntil(b"\n\n") can never match a \r\n\r\n terminator)
+        lines: list[str] = []
+        buf = first
+        total = 1
+        while True:
+            buf += await reader.readuntil(b"\n")
+            total += len(buf)
+            if total > MAX_HEADERS:
+                raise ValueError("headers too large")
+            line = buf.decode("utf-8", "replace").rstrip("\r\n")
+            buf = b""
+            if not line and lines:          # blank line ends headers
+                break
+            lines.append(line)
+        command = lines[0].strip()
+        headers: dict[str, str] = {}
+        for line in lines[1:]:
+            k, _, v = line.partition(":")
+            if k and k not in headers:      # first occurrence wins (spec)
+                headers[k] = _decode_header(v)
+        if "content-length" in headers:
+            n = int(headers["content-length"])
+            if n > MAX_FRAME:
+                raise ValueError(f"frame body {n} exceeds bound")
+            body = await reader.readexactly(n)
+            term = await reader.readexactly(1)
+            if term != b"\x00":
+                raise ValueError("missing frame NUL terminator")
+        else:
+            body = (await reader.readuntil(b"\x00"))[:-1]
+            if len(body) > MAX_FRAME:
+                raise ValueError("frame body exceeds bound")
+        return command, headers, body
+
+    @staticmethod
+    async def _send(writer: asyncio.StreamWriter, command: str,
+                    headers: dict, body: bytes = b"") -> None:
+        writer.write(_frame(command, headers, body,
+                            escape=command != "CONNECTED"))
+        await writer.drain()
+
+    async def _receipt(self, writer, headers: dict) -> None:
+        rid = headers.get("receipt")
+        if rid is not None:
+            await self._send(writer, "RECEIPT", {"receipt-id": rid})
+
+    # -- connection --------------------------------------------------------
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        self._writers.add(writer)
+        user = ""
+        try:
+            frame = await self._read_frame(reader)
+            if frame is None:
+                return
+            command, headers, _ = frame
+            if command not in ("CONNECT", "STOMP"):
+                await self._send(writer, "ERROR",
+                                 {"message": "expected CONNECT"})
+                return
+            user = headers.get("login", "")
+            if self.authenticate is not None and not self.authenticate(
+                    user, headers.get("passcode", "")):
+                await self._send(writer, "ERROR",
+                                 {"message": "authentication failed"})
+                return
+            await self._send(writer, "CONNECTED",
+                             {"version": "1.2", "heart-beat": "0,0"})
+            while True:
+                frame = await self._read_frame(reader)
+                if frame is None:
+                    return
+                command, headers, body = frame
+                if command == "SEND":
+                    dest = headers.get("destination", "")
+                    accepted = True
+                    try:
+                        accepted = await self.on_message(dest, body,
+                                                         user or "stomp")
+                    except Exception:
+                        logger.exception("stomp: on_message failed")
+                    if accepted is False:
+                        # over-quota flow control: ERROR + close is the
+                        # STOMP-appropriate refusal (§ERROR: the server
+                        # MUST close the connection after an ERROR frame)
+                        err = {"message": "over quota: publish rejected"}
+                        rid = headers.get("receipt")
+                        if rid is not None:
+                            err["receipt-id"] = rid
+                        await self._send(writer, "ERROR", err)
+                        return
+                    await self._receipt(writer, headers)
+                elif command in ("SUBSCRIBE", "UNSUBSCRIBE", "ACK", "NACK",
+                                 "BEGIN", "COMMIT", "ABORT"):
+                    # ingest endpoint: broker-side semantics are
+                    # bookkeeping only; honor receipts so strict clients
+                    # don't stall
+                    await self._receipt(writer, headers)
+                elif command == "DISCONNECT":
+                    await self._receipt(writer, headers)
+                    return
+                else:
+                    await self._send(writer, "ERROR",
+                                     {"message": f"unsupported {command}"})
+                    return
+        except (asyncio.IncompleteReadError, ConnectionError,
+                asyncio.LimitOverrunError):
+            # benign disconnects (incl. BrokenPipeError writing a
+            # RECEIPT to a just-closed peer) — NOT protocol violations
+            pass
+        except Exception as exc:  # noqa: BLE001 - one peer can't kill the endpoint
+            self.malformed += 1
+            logger.info("stomp: dropping connection: %s", exc)
+        finally:
+            self._writers.discard(writer)
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except Exception:
+                pass

@@ -1,0 +1,269 @@
+"""Dependency-free WebSocket (RFC 6455) ingest endpoint.
+
+The reference's event-sources host a WebSocket receiver alongside
+MQTT/CoAP/sockets [SURVEY.md §2.2 event-sources]; this image has no
+websockets library, so — like the MQTT endpoint — the rebuild speaks the
+wire protocol itself: HTTP Upgrade handshake, masked client frames,
+binary/text messages, fragmentation, ping/pong, close. Binary messages
+carry SWB1 payloads (or JSON for the token-addressed decoder) exactly
+like TCP frames; `send()` pushes server frames down the same socket
+(command delivery can ride the connection).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import hashlib
+import logging
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+OP_CONT, OP_TEXT, OP_BINARY = 0x0, 0x1, 0x2
+OP_CLOSE, OP_PING, OP_PONG = 0x8, 0x9, 0xA
+MAX_MESSAGE = 16 * 1024 * 1024
+
+
+def _accept_key(key: str) -> str:
+    return base64.b64encode(
+        hashlib.sha1((key + _GUID).encode()).digest()).decode()
+
+
+def _frame(opcode: int, payload: bytes) -> bytes:
+    head = bytearray([0x80 | opcode])
+    n = len(payload)
+    if n < 126:
+        head.append(n)
+    elif n < 65536:
+        head.append(126)
+        head += n.to_bytes(2, "big")
+    else:
+        head.append(127)
+        head += n.to_bytes(8, "big")
+    return bytes(head) + payload
+
+
+class WsSession:
+    def __init__(self, client_id: str, writer: asyncio.StreamWriter):
+        self.client_id = client_id
+        self.writer = writer
+
+
+class WebSocketListener:
+    """Asyncio WebSocket server; `on_message(payload, client_id)` is
+    awaited for every complete binary/text message.
+
+    Security (mirrors MqttListener's hooks; None = open, loopback/test):
+    - `authenticate(client_id, token) -> bool`: checked during the
+      Upgrade handshake; the token comes from `Authorization: Bearer`
+      (or `?token=`). A failed check gets 401 and no upgrade — the
+      session registry (which routes command downlink by client id) is
+      never populated with an unauthenticated peer.
+    - duplicate client ids REPLACE the existing session (MQTT CONNECT
+      takeover semantics): with auth on, the newcomer just proved
+      ownership; session hijack by a peer that cannot pass auth is
+      impossible, and an uncleanly-disconnected device can reconnect.
+    """
+
+    def __init__(self, on_message, host: str = "127.0.0.1", port: int = 0,
+                 authenticate=None):
+        self.on_message = on_message
+        self.host, self.port = host, port
+        self.authenticate = authenticate
+        self.sessions: dict[str, WsSession] = {}
+        self._conns: set[asyncio.StreamWriter] = set()
+        self._server: Optional[asyncio.AbstractServer] = None
+        # protocol-violation drops (hostile/broken peers) — the fuzz
+        # suite's observability hook, mirrors CoapListener.malformed
+        self.malformed = 0
+        # messages refused by the ingest hook (over-quota flow control)
+        self.rejected = 0
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(self._handle, self.host,
+                                                  self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        from sitewhere_tpu_torch.kernel.net import shutdown_server
+
+        if self._server is not None:
+            try:
+                await asyncio.wait_for(
+                    shutdown_server(self._server, self._conns), 5.0)
+            except asyncio.TimeoutError:
+                logger.warning("ws: handlers did not drain in 5s")
+            self._server = None
+        self.sessions.clear()
+
+    async def send(self, client_id: str, payload: bytes) -> bool:
+        """Server→client binary message (command delivery downlink)."""
+        session = self.sessions.get(client_id)
+        if session is None:
+            return False
+        try:
+            session.writer.write(_frame(OP_BINARY, payload))
+            await session.writer.drain()
+            return True
+        except (ConnectionError, RuntimeError):
+            self.sessions.pop(client_id, None)
+            return False
+
+    async def _handshake(self, reader, writer) -> Optional[str]:
+        """HTTP Upgrade → 101; returns the client id (last path segment,
+        e.g. /ws/<device-token>, else the peer address)."""
+        request = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 10.0)
+        lines = request.decode("latin-1").split("\r\n")
+        path = lines[0].split(" ")[1] if len(lines[0].split(" ")) > 1 else "/"
+        headers = {}
+        for line in lines[1:]:
+            name, _, value = line.partition(":")
+            if value:
+                headers[name.strip().lower()] = value.strip()
+        key = headers.get("sec-websocket-key")
+        if (headers.get("upgrade", "").lower() != "websocket"
+                or key is None):
+            writer.write(b"HTTP/1.1 400 Bad Request\r\n"
+                         b"Content-Length: 0\r\n\r\n")
+            await writer.drain()
+            return None
+        path, _, query = path.partition("?")
+        seg = path.rstrip("/").rsplit("/", 1)[-1]
+        peer = writer.get_extra_info("peername")
+        client_id = seg or (f"{peer[0]}:{peer[1]}" if peer else "anon")
+        if self.authenticate is not None:
+            auth = headers.get("authorization", "")
+            token = auth[7:] if auth.lower().startswith("bearer ") else None
+            if token is None:
+                for part in query.split("&"):
+                    k, _, v = part.partition("=")
+                    if k == "token":
+                        token = v
+            if not self.authenticate(client_id, token):
+                writer.write(b"HTTP/1.1 401 Unauthorized\r\n"
+                             b"Content-Length: 0\r\n\r\n")
+                await writer.drain()
+                return None
+        if client_id in self.sessions:
+            # duplicate id: REPLACE the old session (MQTT's own CONNECT
+            # takeover semantics). With no server-side ping, a dead
+            # socket is only noticed here — a device rebooting after an
+            # unclean disconnect must be able to reconnect without a
+            # process restart. With auth configured the newcomer proved
+            # ownership (token checked above); without auth a 409 would
+            # add no protection (any peer could claim the id FIRST) while
+            # handing attackers a lockout primitive.
+            stale = self.sessions.pop(client_id)
+            try:
+                stale.writer.close()
+            except RuntimeError:
+                pass
+        # reserve BEFORE the drain await: two racing handshakes for one
+        # id must not both pass the check above
+        self.sessions[client_id] = WsSession(client_id, writer)
+        try:
+            writer.write(
+                b"HTTP/1.1 101 Switching Protocols\r\n"
+                b"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                b"Sec-WebSocket-Accept: " + _accept_key(key).encode()
+                + b"\r\n\r\n")
+            await writer.drain()
+        except BaseException:
+            self.sessions.pop(client_id, None)  # failed upgrade can't
+            raise                               # orphan the reservation
+        return client_id
+
+    async def _read_frame(self, reader) -> tuple[int, bool, bytes]:
+        """RFC 6455 §5.2-strict: nonzero RSV (no extension negotiated),
+        reserved opcodes, unmasked client frames, and fragmented or
+        >125-byte control frames are protocol errors — hostile input,
+        fail the connection rather than guess."""
+        b1, b2 = await reader.readexactly(2)
+        fin = bool(b1 & 0x80)
+        if b1 & 0x70:
+            raise ValueError("nonzero RSV bits without an extension")
+        opcode = b1 & 0x0F
+        if opcode not in (OP_CONT, OP_TEXT, OP_BINARY,
+                          OP_CLOSE, OP_PING, OP_PONG):
+            raise ValueError(f"reserved opcode {opcode:#x}")
+        masked = bool(b2 & 0x80)
+        if not masked:
+            raise ValueError("client frame not masked")
+        length = b2 & 0x7F
+        if opcode >= OP_CLOSE and (not fin or length > 125):
+            raise ValueError("fragmented or oversized control frame")
+        if length == 126:
+            length = int.from_bytes(await reader.readexactly(2), "big")
+        elif length == 127:
+            length = int.from_bytes(await reader.readexactly(8), "big")
+        if length > MAX_MESSAGE:
+            raise ValueError(f"ws frame {length} exceeds max")
+        mask = await reader.readexactly(4)
+        payload = await reader.readexactly(length) if length else b""
+        payload = bytes(c ^ mask[i % 4] for i, c in enumerate(payload))
+        return opcode, fin, payload
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        self._conns.add(writer)
+        session: Optional[WsSession] = None
+        try:
+            client_id = await self._handshake(reader, writer)
+            if client_id is None:
+                return
+            session = self.sessions[client_id]  # reserved in _handshake
+            buffer = bytearray()
+            fragmented = False
+            while True:
+                opcode, fin, payload = await self._read_frame(reader)
+                if opcode == OP_CLOSE:
+                    writer.write(_frame(OP_CLOSE, payload[:2]))
+                    await writer.drain()
+                    return
+                if opcode == OP_PING:
+                    writer.write(_frame(OP_PONG, payload))
+                    await writer.drain()
+                    continue
+                if opcode == OP_PONG:
+                    continue
+                # §5.4 fragmentation state machine: a new data frame
+                # mid-message or a stray continuation is a protocol error
+                if opcode == OP_CONT:
+                    if not fragmented:
+                        raise ValueError("continuation without a message")
+                elif fragmented:
+                    raise ValueError("data frame inside fragmented message")
+                buffer += payload
+                if len(buffer) > MAX_MESSAGE:
+                    raise ValueError("ws message exceeds max")
+                fragmented = not fin
+                if fin:
+                    message = bytes(buffer)
+                    buffer.clear()
+                    accepted = await self.on_message(message, client_id)
+                    if accepted is False:
+                        # over-quota flow control: close 1013 "try again
+                        # later" (RFC 6455 §7.4.1), the WebSocket-
+                        # appropriate overload signal
+                        self.rejected += 1
+                        writer.write(_frame(OP_CLOSE,
+                                            (1013).to_bytes(2, "big")))
+                        await writer.drain()
+                        return
+        except ValueError as exc:
+            self.malformed += 1
+            logger.info("ws: protocol violation, dropping %s: %s",
+                        session.client_id if session else "?", exc)
+        except (asyncio.IncompleteReadError, ConnectionError,
+                asyncio.TimeoutError, IndexError):
+            pass
+        finally:
+            self._conns.discard(writer)
+            if (session is not None
+                    and self.sessions.get(session.client_id) is session):
+                # identity check: a stale handler's teardown must not
+                # evict a NEWER live session registered under the same id
+                self.sessions.pop(session.client_id, None)
+            writer.close()

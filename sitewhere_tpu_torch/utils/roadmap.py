@@ -5,7 +5,6 @@ silent stub."""
 from __future__ import annotations
 
 ITEMS = {
-    "A.1.1": "protocol receivers",
     "A.1.2": "wire bus, remote services and serve-bus",
     "A.1.4": "the other services, REST and geofences",
     "A.1.5": "the other CLI commands",
@@ -14,6 +13,6 @@ ITEMS = {
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a cut path raises: `raise not_ported("mqtt", "A.1.1")`."""
+    """The error a cut path raises: `raise not_ported("geofences", "A.1.4")`."""
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP {item}: {ITEMS[item]})")

@@ -15,6 +15,7 @@ the pool (window 8, hidden 8), `lstm` through a dedicated session
 (hidden 8). The JAX side runs its scorers as its own tests do on the CPU.
 """
 
+import asyncio
 import importlib
 from types import SimpleNamespace
 
@@ -54,7 +55,8 @@ def _package(root: str) -> SimpleNamespace:
     return SimpleNamespace(
         config=mod("config"), service=mod("kernel.service"),
         services=mod("services"), model=mod("domain.model"),
-        bus=mod("kernel.bus"), sim=mod("sim.simulator"))
+        bus=mod("kernel.bus"), sim=mod("sim.simulator"),
+        clients=mod("sim.clients"))
 
 
 JAX_PKG, PORT_PKG = _package("sitewhere_tpu"), _package("sitewhere_tpu_torch")
@@ -71,9 +73,14 @@ def _weights(case: str) -> dict:
             for i, tid in enumerate(TENANTS)}
 
 
-async def _drive(pkg, case: str, weights: dict, port: bool) -> dict:
+async def _drive(pkg, case: str, weights: dict, port: bool,
+                 protocol: str = None) -> dict:
     """One package's six-service runtime through the case; returns
-    {tenant: observables} once everything drained and committed."""
+    {tenant: observables} once everything drained and committed. The
+    ticks go through each tenant's in-proc queue receiver, or with
+    `protocol` ("mqtt", "amqp", ...) through a receiver of that kind,
+    sent by the package's own `sim.clients` sender (one connection and
+    one topic a tenant, so each tenant's stream stays ordered)."""
     extra = {"device": "cpu"} if port else {}
     rt = pkg.service.ServiceRuntime(pkg.config.InstanceSettings(
         instance_id=f"parity-{case}", **extra))
@@ -86,9 +93,13 @@ async def _drive(pkg, case: str, weights: dict, port: bool) -> dict:
     try:
         rule = {**CASES[case],
                 "batch_window_ms": 1.0, "buckets": [256], "capacity": 256}
+        sections = {"rule-processing": rule}
+        if protocol is not None:
+            sections["event-sources"] = {"receivers": [
+                {"kind": protocol, "decoder": "swb1", "name": protocol}]}
         for tid in TENANTS:
             await rt.add_tenant(pkg.config.TenantConfig(
-                tenant_id=tid, sections={"rule-processing": rule}))
+                tenant_id=tid, sections=sections))
             rt.api("device-management").management(tid).bootstrap_fleet(
                 pkg.model.DeviceType(token="thermo", name="T"), N_DEV)
         for tid in TENANTS:
@@ -106,12 +117,26 @@ async def _drive(pkg, case: str, weights: dict, port: bool) -> dict:
             anomaly_magnitude=15.0), tenant_id=tid)
             for i, tid in enumerate(TENANTS)}
         receivers = {tid: rt.api("event-sources").engine(tid)
-                     .receiver("default") for tid in TENANTS}
+                     .receiver(protocol or "default") for tid in TENANTS}
+        senders = {}
+        if protocol is not None:
+            topic = {"mqtt": "topic", "amqp": "routing_key",
+                     "stomp": "destination", "coap": "path"}.get(protocol)
+            for tid in TENANTS:
+                kw = {topic: f"telemetry/{tid}"} if topic else {}
+                senders[tid] = pkg.clients.make_sender(
+                    protocol, "127.0.0.1", receivers[tid].port, **kw)
+                await asyncio.wait_for(senders[tid].connect(), 10.0)
         last_ts = 1000.0 + 60.0 * (TICKS - 1)
         for k in range(TICKS):
             for tid in TENANTS:
                 payload, _ = sims[tid].payload(t=1000.0 + 60.0 * k)
-                assert await receivers[tid].submit(payload)
+                if protocol is None:
+                    assert await receivers[tid].submit(payload)
+                else:
+                    await asyncio.wait_for(senders[tid].send(payload), 10.0)
+        for sender in senders.values():
+            await asyncio.wait_for(sender.close(), 10.0)
         expected = N_DEV * TICKS
         out = {}
         for tid in TENANTS:
@@ -161,12 +186,8 @@ async def _drive(pkg, case: str, weights: dict, port: bool) -> dict:
         await rt.stop()
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_pipeline_matches_jax_pipeline(run, case):
-    weights = _weights(case)
+def assert_same_pipeline(case: str, want: dict, got: dict) -> None:
     bar = CASES[case]["threshold"]
-    want = run(_drive(JAX_PKG, case, weights, port=False))
-    got = run(_drive(PORT_PKG, case, weights, port=True))
     for tid in TENANTS:
         w, g = want[tid], got[tid]
         assert set(g["scored"]) == set(w["scored"])
@@ -186,3 +207,11 @@ def test_pipeline_matches_jax_pipeline(run, case):
         assert g["total"] == w["total"] == N_DEV * TICKS
         assert g["committed"] == w["committed"]
         assert g["last_seen"] == w["last_seen"]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_pipeline_matches_jax_pipeline(run, case):
+    weights = _weights(case)
+    want = run(_drive(JAX_PKG, case, weights, port=False))
+    got = run(_drive(PORT_PKG, case, weights, port=True))
+    assert_same_pipeline(case, want, got)

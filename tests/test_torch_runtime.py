@@ -326,10 +326,6 @@ CUTS = {
     "demo-rest-port": (lambda: __import__(
         "sitewhere_tpu_torch.cli", fromlist=["main"]).main(
         ["demo", "--cpu", "--port", "8080"]), "A.1.4"),
-    **{f"receiver-{kind}": ((lambda kind=kind: _engine(
-        "event-sources", {"event-sources": {"receivers": [
-            {"kind": kind, "decoder": "swb1", "name": "r"}]}})), "A.1.1")
-       for kind in ("mqtt", "websocket", "coap", "amqp", "stomp")},
 }
 
 
