@@ -59,8 +59,10 @@ prints no result):
                 with K1's plain version on the store's windows; then the
                 same paced window;
  10. demo     — `python -m sitewhere_tpu_torch.cli demo --devices 4096
-                --seconds 2` on the card: events persisted == sent,
-                model alerts > 0;
+                --seconds 3 --port P` on the card (all fourteen services):
+                events persisted == sent, model alerts > 0, and while it
+                runs `GET /api/instance/health` on P answers 200 with the
+                fourteen services;
  11. native   — the telemetry store's host library (g++, built in phase
                 2) at 32,768 devices × history 256: six 32,768-event ticks
                 with in-batch duplicates and ring wraparound, the library
@@ -151,7 +153,38 @@ prints no result):
  24. ingress-window — the same 16 MQTT gateways into phase 9's windowed
                 `lstm` on a dedicated session: K1 launches == dispatches
                 > 0, the ring's windows equal the store's, and a sample
-                of the last tick agrees with K1's plain version.
+                of the last tick agrees with K1's plain version;
+ 25. platform — the fourteen-service runtime (`cli.ALL_SERVICES`, REST
+                on port 0, a `data_dir` under build/) driven through its
+                REST socket by a raw asyncio HTTP client: a request
+                without a JWT answers 401, `POST /api/jwt` issues one;
+                `POST /api/tenants` creates the bench's windowed `lstm` at
+                full width on a dedicated session with one geofence, an
+                MQTT receiver and MQTT command delivery; 32,768 devices
+                come in through `bootstrap_fleet` (areas of 256 under one
+                site); 300 devices are created and read back over REST on
+                a second tenant (p50/p99 ms a request); W+4 fleet ticks go
+                through the queue receiver (K1 launches == dispatches);
+                `POST /api/batch/train` (lstm, 100 steps, batch 1,024),
+                polled through `GET /api/batch/{id}`: finished,
+                hot-swapped, checkpoint version 1, finite losses falling,
+                the session's version bumped once (steps/s and the event
+                loop's stall are printed); two more ticks: K1 launches ==
+                dispatches, a 1,024-device sample against the CPU model on
+                the checkpoint's params read back through
+                `CheckpointStore`, and at least half of it moved from the
+                pre-swap weights' scores; `POST /api/zones`, then three
+                location ticks moving 4,096 seeded devices in and out:
+                the zone.enter / zone.exit alerts equal numpy
+                `points_in_polygon`'s prediction; the GNN sweep through
+                `submit_maintenance_operation` (every 97th device an
+                incident): finished, its risks within 1e-5 of the CPU
+                model on its checkpoint and graph, devices at risk == the
+                alerts it raised (risk scores/s printed); an MQTT client
+                of one device subscribes to its command topic, `POST
+                .../invocations` reaches it, its response `POST`ed back
+                shows in `GET /api/invocations/{id}/responses` (the round
+                trip in ms).
 Phases 5–8 and 12–15 check that every event is scored, every score
 finite, the dispatches are the occurrence rounds, injected anomalies
 stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
@@ -252,6 +285,15 @@ LONGWIN_FLEET, LONGWIN_BUCKETS = 8192, (256, 1024)
 SEASONAL_POOL = (4, 4096, (4096,))
 FORECAST_FLEET, FORECAST_QUERIES = 4096, 8
 MAINT_SIZES, MAINT_SECONDS = (10000, 32768), 2.0
+# the platform phase: the scored tenant's fleet and its areas' size, the
+# devices created and read back over REST on a second tenant, the
+# training operation's steps and batch, the devices the geofence moves,
+# and the loop probe's period
+PLATFORM_FLEET, PLATFORM_AREA = FLEET, 256
+PLATFORM_REST_DEVICES = 300
+PLATFORM_TRAIN_STEPS, PLATFORM_TRAIN_BATCH = 100, 1024
+PLATFORM_GEO_SUBSET = 4096
+PROBE_S = 0.005
 
 
 def log(msg: str) -> None:
@@ -1023,22 +1065,61 @@ async def pace_pipeline(pipe, consumer, burst_rate: float, send=None,
 
 
 def phase_demo() -> dict:
-    """The port's CLI demo on the card, its JSON report checked."""
+    """The port's CLI demo on the card with REST on a free port, its
+    JSON report checked; while it runs, `GET /api/instance/health` must
+    answer 200 with all fourteen services."""
     import contextlib
     import io
+    import socket
+    import threading
+    import urllib.request
 
-    from sitewhere_tpu_torch import cli
+    from sitewhere_tpu_torch import cli, services as svc
 
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["demo", "--devices", "4096", "--seconds", "2"])
-    text = out.getvalue()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out, done = io.StringIO(), {}
+
+    def run():
+        try:
+            with contextlib.redirect_stdout(out):
+                done["rc"] = cli.main(["demo", "--devices", "4096",
+                                       "--seconds", "3", "--port",
+                                       str(port)])
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            done["error"] = exc
+
+    thread = threading.Thread(target=run, name="demo")
+    thread.start()
+    health, t0 = None, time.monotonic()
+    while health is None and thread.is_alive():
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/api/instance/health",
+                    timeout=10) as resp:
+                if resp.status == 200:
+                    health = json.loads(resp.read())
+                    health_s = time.monotonic() - t0
+        except OSError:
+            time.sleep(0.05)
+    thread.join()
+    if "error" in done:
+        raise done["error"]
+    rc, text = done["rc"], out.getvalue()
     report = json.loads(text[text.index("{"):])
+    ids = {getattr(svc, name).identifier for name in cli.ALL_SERVICES}
+    services = sorted({c["name"] for c in (health or {}).get(
+        "children", [])} & ids)
+    report["rest_health"] = {"status": (health or {}).get("status"),
+                             "services": len(services),
+                             "first_answer_s": health_s if health else None}
     log(f"demo: {json.dumps(report)}")
     if (rc != 0 or report["events_sent"] == 0
             or report["events_persisted"] != report["events_sent"]
-            or report["model_alerts"] <= 0):
-        raise AssertionError(f"demo: exit {rc}, report {report}")
+            or report["model_alerts"] <= 0 or len(services) != 14):
+        raise AssertionError(f"demo: exit {rc}, report {report}, services "
+                             f"{services}")
     return report
 
 
@@ -2120,6 +2201,508 @@ async def phase_ingress_window(torch) -> dict:
     return stats
 
 
+# -- the platform: fourteen services driven through REST ----------------------
+
+async def rest_call(port: int, method: str, path: str, body=None, *,
+                    token: str | None = None, basic: str | None = None,
+                    tenant: str | None = None):
+    """One HTTP/1.1 request to the REST facade on its own connection:
+    (status, JSON body)."""
+    import base64
+
+    reader, writer = await asyncio.wait_for(
+        asyncio.open_connection("127.0.0.1", port), 30.0)
+    payload = json.dumps(body).encode() if body is not None else b""
+    lines = [f"{method} {path} HTTP/1.1", "Host: localhost",
+             f"Content-Length: {len(payload)}"]
+    if token:
+        lines.append(f"Authorization: Bearer {token}")
+    if basic:
+        lines.append("Authorization: Basic "
+                     + base64.b64encode(basic.encode()).decode())
+    if tenant:
+        lines.append(f"X-SiteWhere-Tenant: {tenant}")
+    try:
+        writer.write(("\r\n".join(lines) + "\r\n\r\n").encode() + payload)
+        await writer.drain()
+        status = int((await asyncio.wait_for(reader.readline(), 120.0))
+                     .split()[1])
+        length = 0
+        while True:
+            line = await reader.readline()
+            if line in (b"\r\n", b"\n", b""):
+                break
+            key, _, value = line.decode().partition(":")
+            if key.strip().lower() == "content-length":
+                length = int(value)
+        data = await reader.readexactly(length) if length else b""
+    finally:
+        writer.close()
+    return status, (json.loads(data) if data else None)
+
+
+class LoopProbe:
+    """The event loop's longest stall while it runs: a task that sleeps
+    PROBE_S and records how late each wake-up came."""
+
+    def __init__(self):
+        self.max_s, self._task = 0.0, None
+
+    async def _run(self):
+        loop = asyncio.get_running_loop()
+        while True:
+            t = loop.time()
+            await asyncio.sleep(PROBE_S)
+            self.max_s = max(self.max_s, loop.time() - t - PROBE_S)
+
+    def __enter__(self):
+        self._task = asyncio.get_running_loop().create_task(self._run())
+        return self
+
+    def __exit__(self, *exc):
+        self._task.cancel()
+
+
+async def platform_serve(rt, receiver, consumer, ticks, label: str):
+    """Submit fleet ticks to the tenant's queue receiver and collect
+    their scored records; K1 launches must equal the dispatches.
+    Returns (scored batches, K1 launches)."""
+    from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.tools import pipeline as pl
+
+    dispatches = rt.metrics.counter("scoring.dispatches")
+    d0 = dispatches.value
+    lstm_kernel.launches = 0
+    for batch, _ in ticks:
+        if not await receiver.submit(batch.encode()):
+            raise AssertionError(f"{label}: a tick was shed at ingress")
+    got, _ = await pl.collect_scored(consumer,
+                                     sum(len(b) for b, _ in ticks))
+    launches, n = lstm_kernel.launches, int(dispatches.value - d0)
+    if launches == 0 or launches != n:
+        raise AssertionError(f"{label}: K1 launches {launches} != "
+                             f"dispatches {n}")
+    if not all(np.isfinite(b.score).all() for b in got):
+        raise AssertionError(f"{label}: a score is not finite")
+    return got, launches
+
+
+def platform_fleet(dm, n: int):
+    """The platform tenant's fleet through `bootstrap_fleet`: n devices
+    in areas of PLATFORM_AREA devices under one site (so the GNN sweep
+    has a graph), dense indices 0..n-1."""
+    from sitewhere_tpu_torch.domain.model import Area, DeviceType
+
+    dt = DeviceType(token="thermo", name="Thermometer")
+    site = dm.create_area(Area(token="site", name="Site"))
+    for j in range(n // PLATFORM_AREA):
+        area = dm.create_area(Area(token=f"area-{j}", name=f"Area {j}",
+                                   parent_area_id=site.id))
+        dm.bootstrap_fleet(dt, PLATFORM_AREA, token_prefix=f"dev-{j}",
+                           area_id=area.id)
+    return dt
+
+
+async def phase_platform(torch) -> dict:
+    """All fourteen services on the card, driven through the REST
+    facade: auth, tenant CRUD, REST device CRUD timed, the windowed
+    `lstm` served through K1, `POST /api/batch/train` hot-swapping the
+    trained weights into the session, geofence alerts, the GNN
+    maintenance sweep and an MQTT command round trip."""
+    from sitewhere_tpu_torch.cli import ALL_SERVICES, build_runtime
+    from sitewhere_tpu_torch.config import InstanceSettings
+    from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from sitewhere_tpu_torch.domain.batch import BatchContext, LocationBatch
+    from sitewhere_tpu_torch.domain.events import AlertLevel, DeviceAlert
+    from sitewhere_tpu_torch.kernel.bus import TopicNaming
+    from sitewhere_tpu_torch.models import build_model, graph as graph_mod
+    from sitewhere_tpu_torch.services.geofence import points_in_polygon
+    from sitewhere_tpu_torch.sim.clients import make_sender
+    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator
+    from sitewhere_tpu_torch.tools import pipeline as pl
+    from sitewhere_tpu_torch.training.checkpoint import CheckpointStore
+    from sitewhere_tpu_torch.training.maintenance import (
+        MaintenanceTrainer,
+        build_maintenance_model,
+    )
+
+    n, tenant = PLATFORM_FLEET, "platform"
+    out: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-platform-",
+                                     dir=scratch_dir()) as data_dir:
+        rt = build_runtime(InstanceSettings(
+            instance_id="platform", rest_port=0, data_dir=data_dir,
+            flow_degrade_at=10.0, flow_defer_at=10.0), ALL_SERVICES)
+        await rt.start()
+        try:
+            port = rt.services["instance-management"].rest.port
+
+            # 1. auth
+            status, _ = await rest_call(port, "GET", "/api/tenants")
+            if status != 401:
+                raise AssertionError(f"platform: no token answered {status}")
+            status, doc = await rest_call(port, "POST", "/api/jwt",
+                                          basic="admin:password")
+            if status != 200:
+                raise AssertionError(f"platform: POST /api/jwt {status}")
+            tok = doc["token"]
+
+            async def call(method, path, body=None, tenant_id=tenant,
+                           expect=200):
+                status, doc = await rest_call(port, method, path, body,
+                                              token=tok, tenant=tenant_id)
+                if status != expect:
+                    raise AssertionError(f"platform: {method} {path} "
+                                         f"answered {status}: {doc}")
+                return doc
+
+            # 2. the tenant: the bench's windowed lstm at full width on a
+            # dedicated session, one geofence, MQTT ingress and downlink
+            t0 = time.perf_counter()
+            await call("POST", "/api/tenants", {
+                "token": tenant, "name": "Platform", "sections": {
+                    "egress": {"fused": True, "lanes": 1,
+                               "autotune": False},
+                    "event-management": {"history": pl.HISTORY},
+                    "event-sources": {"receivers": [
+                        {"kind": "queue", "decoder": "swb1",
+                         "name": "default"},
+                        {"kind": "mqtt", "decoder": "swb1",
+                         "name": "mqtt"}]},
+                    "command-delivery": {"provider": "mqtt",
+                                         "encoder": "json"},
+                    "batch-operations": {"checkpoint_root": os.path.join(
+                        data_dir, "checkpoints")},
+                    "rule-processing": {
+                        "model": "lstm", "model_config": {"window": WINDOW},
+                        "threshold": THRESHOLD, "batch_window_ms": 2.0,
+                        "buckets": [n], "capacity": n, "max_inflight": 8,
+                        "readback": "full", "shared": False,
+                        "megabatch": {"enabled": False},
+                        "geofences": [{"zone": "dock", "alert_on": "both",
+                                       "level": "warning"}]}}})
+            await call("POST", "/api/tenants", {
+                "token": "rest", "sections": {"rule-processing": {
+                    "model": None}}}, tenant_id=None)
+            create_s = time.perf_counter() - t0
+            dm = rt.api("device-management").management(tenant)
+            em = rt.api("event-management").management(tenant)
+            engine = rt.api("rule-processing").engine(tenant)
+            session = engine.session
+            if session is None or "geofence" not in engine.hooks:
+                raise AssertionError("platform: no dedicated session or "
+                                     "no geofence hook")
+            t0 = time.perf_counter()
+            platform_fleet(dm, n)
+            deadline = time.monotonic() + 300.0
+            while not (session.ready and dm.snapshot_current):
+                if time.monotonic() > deadline:
+                    raise AssertionError("platform: warmup or the registry "
+                                         "snapshot not done")
+                await asyncio.sleep(0.01)
+            fleet_s = time.perf_counter() - t0
+
+            # REST CRUD timed on a second tenant (its devices stay out of
+            # the scored fleet's dense indices)
+            await call("POST", "/api/devicetypes",
+                       {"token": "meter", "name": "Meter"}, "rest")
+            post_ms, get_ms = [], []
+            for i in range(PLATFORM_REST_DEVICES):
+                t0 = time.perf_counter()
+                doc = await call("POST", "/api/devices",
+                                 {"token": f"m-{i}", "deviceType": "meter"},
+                                 "rest")
+                post_ms.append(1e3 * (time.perf_counter() - t0))
+                t0 = time.perf_counter()
+                back = await call("GET", f"/api/devices/m-{i}",
+                                  tenant_id="rest")
+                get_ms.append(1e3 * (time.perf_counter() - t0))
+                if back != doc or back["index"] != i:
+                    raise AssertionError(f"platform: device m-{i} read "
+                                         f"back {back}, wrote {doc}")
+            out["rest"] = {
+                "tenant_create_s": create_s, "fleet_register_s": fleet_s,
+                "requests": 2 * PLATFORM_REST_DEVICES,
+                "post_device_p50_ms": float(np.percentile(post_ms, 50)),
+                "post_device_p99_ms": float(np.percentile(post_ms, 99)),
+                "get_device_p50_ms": float(np.percentile(get_ms, 50)),
+                "get_device_p99_ms": float(np.percentile(get_ms, 99))}
+            log(f"platform-rest: {json.dumps(out['rest'])}")
+
+            # 3. serve: W+4 ticks through the queue receiver
+            sim_cfg = SimConfig(num_devices=n, seed=SEED)
+            sim = DeviceSimulator(sim_cfg, tenant_id=tenant)
+            receiver = rt.api("event-sources").engine(tenant) \
+                .receiver("default")
+            consumer = rt.bus.subscribe(rt.naming.tenant_topic(
+                tenant, TopicNaming.SCORED_EVENTS), group="smoke-scored")
+            warm = [sim.tick(t=TICK_S * k) for k in range(WINDOW + 4)]
+            t0 = time.perf_counter()
+            _, launches = await platform_serve(rt, receiver, consumer, warm,
+                                               "platform-serve")
+            serve_s = time.perf_counter() - t0
+            out["serve"] = {"ticks": len(warm), "events": len(warm) * n,
+                            "events_per_s": len(warm) * n / serve_s,
+                            "kernel_launches": launches}
+            log(f"platform-serve: {json.dumps(out['serve'])}")
+
+            # 4. train through REST; the loop stall it causes is measured
+            rng = np.random.default_rng(SEED + 7)
+            sample = np.sort(rng.choice(n, SAMPLE, replace=False))
+            before = params_to_numpy(session.params)
+            v0 = session.version
+            with LoopProbe() as probe:
+                t0 = time.perf_counter()
+                op = await call("POST", "/api/batch/train", {
+                    "model": "lstm", "steps": PLATFORM_TRAIN_STEPS,
+                    "batchSize": PLATFORM_TRAIN_BATCH})
+                while op["processing_status"] in ("processing",
+                                                  "initializing"):
+                    await asyncio.sleep(0.05)
+                    op = await call("GET", f"/api/batch/{op['id']}")
+                op_s = time.perf_counter() - t0
+            result = op["parameters"].get("result", {})
+            losses = result.get("losses", [])
+            if (op["processing_status"] != "finished"
+                    or result.get("hot_swapped") is not True
+                    or result.get("checkpoint_version") != 1
+                    or not losses or not np.isfinite(losses).all()
+                    or not losses[-1] < losses[0]
+                    or session.version != v0 + 1):
+                raise AssertionError(
+                    f"platform-train: {op['processing_status']}, result "
+                    f"{ {k: v for k, v in result.items() if k != 'losses'} }"
+                    f", losses {losses}, version {v0} → {session.version}")
+            out["train"] = {
+                "steps": result["steps"], "windows": result["windows"],
+                "batch": PLATFORM_TRAIN_BATCH,
+                "train_seconds": result["train_seconds"],
+                "steps_per_s": result["steps"] / result["seconds"],
+                "first_loss": losses[0], "final_loss": losses[-1],
+                "loop_stall_s": probe.max_s, "op_seconds": op_s}
+            log(f"platform-train: {json.dumps(out['train'])}")
+
+            # 5. score with the trained weights: K1 on the next ticks, a
+            # sample against the CPU model on the checkpoint's params
+            after = [sim.tick(t=TICK_S * (WINDOW + 4 + k)) for k in range(2)]
+            got, launches = await platform_serve(rt, receiver, consumer,
+                                                 after, "platform-swapped")
+            table = pl.scored_table(got)
+            last, _ = after[-1]
+            ts = dict(zip(last.device_index.tolist(), last.ts.tolist()))
+            served = np.array([table[(int(d), ts[int(d)])][0]
+                               for d in sample], np.float32)
+            params, meta = CheckpointStore(os.path.join(
+                data_dir, "checkpoints")).load(tenant, "lstm")
+            if meta["version"] != 1:
+                raise AssertionError(f"platform: checkpoint {meta}")
+            cpu = build_model("lstm", device="cpu", window=WINDOW)
+            x, valid = em.telemetry.window(sample, WINDOW)
+            xt, vt = torch.from_numpy(x), torch.from_numpy(valid)
+            with torch.no_grad():
+                want = cpu.score_fused(params_from_numpy(params, "cpu"),
+                                       xt, vt).float().numpy()
+                old = cpu.score_fused(params_from_numpy(before, "cpu"),
+                                      xt, vt).float().numpy()
+            err = check_close("platform-swapped", served, want)
+            old_ref = old.astype(np.float16).astype(np.float32)
+            moved = float(np.mean(np.abs(served - old_ref)
+                                  > SCORE_ATOL + SCORE_RTOL
+                                  * np.abs(old_ref)))
+            if moved < 0.5:
+                raise AssertionError(f"platform-swapped: only {moved:.3f} "
+                                     "of the sample moved from the "
+                                     "pre-swap weights")
+            out["swapped"] = {"kernel_launches": launches,
+                              "max_err_vs_cpu_checkpoint": err,
+                              "share_moved_from_pre_swap": moved}
+            log(f"platform-swapped: {json.dumps(out['swapped'])}")
+
+            # 6. geofence: a zone over REST, a seeded subset moved in,
+            # half of it out and another subset in, then everyone out
+            await call("POST", "/api/zones", {
+                "token": "dock", "name": "Dock",
+                "bounds": [[10.0, 10.0], [10.0, 20.0], [20.0, 20.0],
+                           [20.0, 10.0]]})
+            geo = np.random.default_rng(SEED + 8)
+            poly = np.asarray([[10.0, 10.0], [10.0, 20.0], [20.0, 20.0],
+                               [20.0, 10.0]])
+            devices = np.arange(n, dtype=np.uint32)
+            subset = geo.choice(n, PLATFORM_GEO_SUBSET, replace=False)
+            inside_sets = [subset, np.concatenate([
+                subset[: PLATFORM_GEO_SUBSET // 2],
+                geo.choice(np.setdiff1d(np.arange(n), subset),
+                           PLATFORM_GEO_SUBSET // 2, replace=False)]),
+                np.array([], np.int64)]
+            was, enters, exits, moves = set(), 0, 0, []
+            for k, inside in enumerate(inside_sets):
+                lat = geo.uniform(40.0, 60.0, n)
+                lon = geo.uniform(40.0, 60.0, n)
+                lat[inside] = geo.uniform(11.0, 19.0, inside.shape[0])
+                lon[inside] = geo.uniform(11.0, 19.0, inside.shape[0])
+                now = set(np.nonzero(points_in_polygon(lat, lon, poly))[0]
+                          .tolist())
+                enters += len(now - was)
+                exits += len(was - now)
+                was = now
+                moves.append(LocationBatch(
+                    BatchContext(tenant_id=tenant, source="smoke"),
+                    devices, lat, lon, np.zeros(n, np.float32),
+                    np.full(n, TICK_S * (WINDOW + 10 + k))))
+
+            def zone_alerts():
+                counts = Counter(a.type for a in em.list_alerts(
+                    limit=10 * n) if a.type.startswith("zone."))
+                return counts["zone.enter"], counts["zone.exit"]
+
+            t0 = time.perf_counter()
+            for batch in moves:
+                if not await receiver.submit(batch.encode()):
+                    raise AssertionError("platform-geofence: shed")
+            deadline = time.monotonic() + 120.0
+            while zone_alerts() != (enters, exits):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"platform-geofence: alerts {zone_alerts()}, "
+                        f"numpy predicts {(enters, exits)}")
+                await asyncio.sleep(0.02)
+            geo_s = time.perf_counter() - t0
+            await asyncio.sleep(0.5)
+            if zone_alerts() != (enters, exits):
+                raise AssertionError(f"platform-geofence: alerts "
+                                     f"{zone_alerts()} past the prediction "
+                                     f"{(enters, exits)}")
+            out["geofence"] = {"location_events": len(moves) * n,
+                               "enter": enters, "exit": exits,
+                               "location_events_per_s":
+                                   len(moves) * n / geo_s}
+            log(f"platform-geofence: {json.dumps(out['geofence'])}")
+
+            # 7. the GNN maintenance sweep through the batch-operations
+            # API handle (no REST route), every 97th device an incident
+            await em.add_alerts([DeviceAlert(
+                device_id=d.id, type="incident", level=AlertLevel.ERROR,
+                message="failed") for d in dm.list_devices(
+                    page_size=n) if d.index % 97 == 0])
+            seen: dict = {}
+            real_graph, real_score = (graph_mod.build_fleet_graph,
+                                      MaintenanceTrainer.score)
+
+            def spy_graph(*a, **kw):
+                seen["graph"] = real_graph(*a, **kw)
+                return seen["graph"]
+
+            def spy_score(self, params, graph):
+                t = time.perf_counter()
+                risk = real_score(self, params, graph)
+                seen["score_s"] = time.perf_counter() - t
+                seen["risk"] = risk
+                return risk
+
+            graph_mod.build_fleet_graph = spy_graph
+            MaintenanceTrainer.score = spy_score
+            try:
+                ops = rt.api("batch-operations").operations(tenant)
+                t0 = time.perf_counter()
+                mop = await ops.submit_maintenance_operation(
+                    window=WINDOW, label_alert_types=["incident"])
+                mop = await ops.wait_for_operation(mop.id, timeout=600.0)
+                maint_s = time.perf_counter() - t0
+            finally:
+                graph_mod.build_fleet_graph = real_graph
+                MaintenanceTrainer.score = real_score
+            report = mop.parameters.get("result", {})
+            emitted = sum(1 for a in em.list_alerts(limit=10 * n)
+                          if a.type == "maintenance.risk")
+            gparams, gmeta = CheckpointStore(os.path.join(
+                data_dir, "checkpoints")).load(tenant, "gnn")
+            cpu_risk = MaintenanceTrainer(build_maintenance_model(
+                device="cpu")).score(params_from_numpy(gparams, "cpu"),
+                                     seen["graph"])
+            risk = seen["risk"]
+            rerr = np.abs(risk - cpu_risk)
+            if (mop.processing_status.value != "finished"
+                    or risk.shape != (n,) or report.get("devices") != n
+                    or not (rerr <= RISK_ATOL).all()
+                    or report.get("devices_at_risk") != emitted):
+                raise AssertionError(
+                    f"platform-maintenance: {mop.processing_status}, risk "
+                    f"{risk.shape}, max |err| vs the CPU {rerr.max()}, at "
+                    f"risk {report.get('devices_at_risk')} vs {emitted} "
+                    f"alerts, report {report}")
+            out["maintenance"] = {
+                "devices": n, "edges": report["edges"],
+                "labeled_failures": report["labeled_failures"],
+                "train_steps_per_s": report["steps"] / report["seconds"],
+                "risk_scores_per_s": n / seen["score_s"],
+                "devices_at_risk": emitted, "op_seconds": maint_s,
+                "max_abs_err_vs_cpu": float(rerr.max())}
+            log(f"platform-maintenance: {json.dumps(out['maintenance'])}")
+
+            # 8. command round trip: a device's MQTT client on its command
+            # topic; the invocation over REST; its response back over
+            # REST (no ingest protocol carries a response in either
+            # package), read back through the invocation's responses
+            device = "dev-0-7"
+            mqtt_port = rt.api("event-sources").engine(tenant) \
+                .receiver("mqtt").port
+            client = make_sender("mqtt", "127.0.0.1", mqtt_port,
+                                 client_id=device)
+            await client.connect()
+            # the sender only publishes: the SUBSCRIBE and the downlink
+            # PUBLISH go over its connection's own reader and writer
+            topic = f"swx/commands/{device}".encode()
+            client._writer.write(client._packet(0x82, b"\x00\x07" + len(
+                topic).to_bytes(2, "big") + topic + b"\x00"))   # SUBSCRIBE
+            await client._writer.drain()
+            suback = await asyncio.wait_for(client._reader.readexactly(5),
+                                            10.0)
+            if suback[0] != 0x90 or suback[4] == 0x80:
+                raise AssertionError(f"platform-command: SUBACK {suback}")
+            await call("POST", "/api/devicetypes/thermo/commands",
+                       {"token": "reboot", "name": "reboot"})
+            t0 = time.perf_counter()
+            inv = await call("POST",
+                             f"/api/assignments/{device}-a/invocations",
+                             {"commandToken": "reboot",
+                              "parameterValues": {"delay": 1}})
+            head = await asyncio.wait_for(client._reader.readexactly(1), 10.0)
+            length, mult = 0, 1
+            while True:
+                (b,) = await client._reader.readexactly(1)
+                length += (b & 0x7F) * mult
+                mult *= 128
+                if not b & 0x80:
+                    break
+            body = await client._reader.readexactly(length)
+            down_ms = 1e3 * (time.perf_counter() - t0)
+            tlen = int.from_bytes(body[:2], "big")
+            msg = json.loads(body[2 + tlen:])
+            if (head[0] >> 4 != 3 or body[2:2 + tlen] != topic
+                    or msg["invocation_id"] != inv["id"]
+                    or msg["command"] != "reboot"):
+                raise AssertionError(f"platform-command: got {head} "
+                                     f"{body[:200]}")
+            await call("POST", f"/api/assignments/{device}-a/responses",
+                       {"originatingEventId": msg["invocation_id"],
+                        "response": "rebooted"})
+            resps = await call("GET",
+                               f"/api/invocations/{inv['id']}/responses")
+            rtt_ms = 1e3 * (time.perf_counter() - t0)
+            await client.close()
+            if [r["response"] for r in resps] != ["rebooted"]:
+                raise AssertionError(f"platform-command: responses {resps}")
+            out["command"] = {"downlink_ms": down_ms, "round_trip_ms": rtt_ms}
+            log(f"platform-command: {json.dumps(out['command'])}")
+            consumer.close()
+        finally:
+            await rt.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"platform: {out['seconds']:.3f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2166,6 +2749,7 @@ def main() -> int:
         phase_replay_candidate(data_dir, ckpt)
     asyncio.run(phase_ingress(torch))
     asyncio.run(phase_ingress_window(torch))
+    asyncio.run(phase_platform(torch))
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

@@ -10,3 +10,5 @@ Entry points (`ScoringSession`, `DeviceRing`, `build_model`) run on the
 CUDA card unless the caller passes `device="cpu"`; with no card and no
 device they raise instead of quietly running on the CPU.
 """
+
+__version__ = "0.1.0"

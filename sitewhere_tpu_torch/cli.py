@@ -1,6 +1,7 @@
 """`python -m sitewhere_tpu_torch.cli` — the port's entry point.
 
-    python -m sitewhere_tpu_torch.cli demo [--devices N] [--seconds S] [--cpu]
+    python -m sitewhere_tpu_torch.cli demo [--devices N] [--seconds S]
+        [--port P] [--cpu]
     python -m sitewhere_tpu_torch.cli replay --data-dir D --tenant T [--cpu]
         [--candidate DIR [--candidate-version N] [--max-divergence X]]
     python -m sitewhere_tpu_torch.cli train [--model lstm] [--steps N]
@@ -8,15 +9,14 @@
     python -m sitewhere_tpu_torch.cli simulate [--protocol P] [--port N]
         [--devices N] [--seconds S] [--rate R]
 
-`demo` (the JAX package's `swx demo`): one process hosts the scored pipeline's six services (device-management,
-event-sources, inbound-processing, event-management, device-state,
-rule-processing), adds a tenant with a zscore rule, streams a simulated
-fleet with injected anomalies through the tenant's in-proc receiver for
-`--seconds`, and prints one JSON report. The JAX demo hosts all fourteen
-services and creates its tenant through instance-management; this one
-adds it with `ServiceRuntime.add_tenant`, as the bench does. Scoring runs
-on the CUDA card; `--cpu` names the CPU instead. Without `--cpu` and
-with no card, it exits with "no CUDA device" — there is no probe and no
+`demo` (the JAX package's `swx demo`): one process hosts all fourteen
+services (`ALL_SERVICES`, in the JAX start order) and serves the REST
+facade on `--port` (port 0, a free one, when none is given); it creates
+a tenant with a zscore rule through instance-management, streams a
+simulated fleet with injected anomalies through the tenant's in-proc
+receiver for `--seconds`, and prints one JSON report. Scoring runs on
+the CUDA card; `--cpu` names the CPU instead. Without `--cpu` and with
+no card, it exits with "no CUDA device" — there is no probe and no
 fallback.
 
 `replay` (the JAX package's `swx replay`): open one tenant's durable log
@@ -55,21 +55,31 @@ import os
 import sys
 import time
 
-from sitewhere_tpu_torch.config import InstanceSettings, TenantConfig
+from sitewhere_tpu_torch.config import InstanceSettings
 from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 PIPELINE_SERVICES = ("DeviceManagementService", "EventSourcesService",
                      "InboundProcessingService", "EventManagementService",
                      "DeviceStateService", "RuleProcessingService")
+# start order: identity/config first, then the pipeline, then aux (the
+# JAX package's `_service_classes`)
+ALL_SERVICES = ("InstanceManagementService", "DeviceManagementService",
+                "AssetManagementService", "EventSourcesService",
+                "InboundProcessingService", "EventManagementService",
+                "DeviceStateService", "RuleProcessingService",
+                "DeviceRegistrationService", "CommandDeliveryService",
+                "OutboundConnectorsService", "BatchOperationsService",
+                "ScheduleManagementService", "LabelGenerationService")
 
 
-def build_runtime(settings: InstanceSettings):
-    """A `ServiceRuntime` hosting the scored pipeline's six services."""
+def build_runtime(settings: InstanceSettings, names=PIPELINE_SERVICES):
+    """A `ServiceRuntime` hosting `names` (default: the scored
+    pipeline's six services; `ALL_SERVICES` for the whole platform)."""
     from sitewhere_tpu_torch import services
     from sitewhere_tpu_torch.kernel.service import ServiceRuntime
 
     rt = ServiceRuntime(settings)
-    for name in PIPELINE_SERVICES:
+    for name in names:
         rt.add_service(getattr(services, name)(rt))
     return rt
 
@@ -124,17 +134,17 @@ async def cmd_demo(args) -> int:
     from sitewhere_tpu_torch.domain.model import DeviceType
     from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
 
-    if args.port:
-        raise not_ported("the REST facade (--port)", "A.1.4")
     rt = build_runtime(InstanceSettings(
-        instance_id="demo", device="cpu" if args.cpu else None))
+        instance_id="demo", rest_port=args.port or 0,
+        device="cpu" if args.cpu else None), ALL_SERVICES)
     await rt.start()
     try:
-        await rt.add_tenant(TenantConfig(
-            tenant_id="demo", name="Demo", sections={"rule-processing": {
-                "model": "zscore", "model_config": {"window": 32},
-                "threshold": 5.0, "batch_window_ms": 2.0,
-                "buckets": [args.devices]}}))
+        im = rt.services["instance-management"]
+        await im.create_tenant("demo", "Demo", {
+            "rule-processing": {"model": "zscore",
+                                "model_config": {"window": 32},
+                                "threshold": 5.0, "batch_window_ms": 2.0,
+                                "buckets": [args.devices]}})
         dm = rt.api("device-management").management("demo")
         dm.bootstrap_fleet(DeviceType(token="thermo", name="Thermometer"),
                            args.devices)
@@ -147,7 +157,8 @@ async def cmd_demo(args) -> int:
         while not session.ready:
             await asyncio.sleep(0.05)
         print(f"demo: {args.devices} devices streaming for {args.seconds}s "
-              f"on {session.device} ...", flush=True)
+              f"on {session.device}, REST on port {im.rest.port} ...",
+              flush=True)
         t0 = time.monotonic()
         k = 0
         while time.monotonic() - t0 < args.seconds:
@@ -319,13 +330,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m sitewhere_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_demo = sub.add_parser(
-        "demo", help="one-process end-to-end demo: the six pipeline "
-        "services, a tenant added with add_tenant (the JAX demo hosts "
-        "fourteen and creates it through instance-management)")
+        "demo", help="one-process end-to-end demo: all fourteen "
+        "services, REST, a tenant created through instance-management")
     p_demo.add_argument("--devices", type=int, default=1000)
     p_demo.add_argument("--seconds", type=float, default=5.0)
     p_demo.add_argument("--port", type=int,
-                        help="REST port (the REST facade is not ported)")
+                        help="REST port (default: a free one)")
     p_demo.add_argument("--cpu", action="store_true",
                         help="score on the CPU instead of the CUDA card")
     p_replay = sub.add_parser(

@@ -1,0 +1,1559 @@
+"""REST facade (reference: Spring MVC controllers + Swagger + JWT in
+instance-management's web module — [SURVEY.md §1 L7, §2.2]).
+
+Dependency-free asyncio HTTP server exposing the SiteWhere-style API
+surface the configs need: JWT auth (`POST /api/jwt` with basic auth, then
+`Authorization: Bearer`), tenant scoping via the `X-SiteWhere-Tenant`
+header (reference: tenant token header), JSON bodies, and the resource
+routes listed in `ROUTES` below.
+
+Route naming follows the reference's REST layout (devicetypes, devices,
+assignments, areas, customers, assets, batch, schedules, tenants, users)
+so a reference client's calls map 1:1; responses are JSON with the same
+field names as the domain model.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import json
+import logging
+import re
+from typing import Any, Callable, Optional
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+
+from sitewhere_tpu_torch.domain.events import event_to_dict
+from sitewhere_tpu_torch.domain.model import (
+    Area,
+    Asset,
+    AssetType,
+    Customer,
+    Device,
+    DeviceAssignment,
+    DeviceCommand,
+    DeviceGroup,
+    DeviceGroupElement,
+    DeviceType,
+    Schedule,
+    ScheduledJob,
+    Zone,
+    entity_to_dict,
+)
+from sitewhere_tpu_torch.kernel.lifecycle import LifecycleComponent
+from sitewhere_tpu_torch.kernel.security import (
+    AUTH_ADMIN_SCRIPTS,
+    AUTH_ADMIN_TENANTS,
+    AUTH_ADMIN_USERS,
+    AUTH_REST,
+    AuthContext,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class HttpError(Exception):
+    def __init__(self, status: int, message: str,
+                 headers: Optional[dict] = None):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+        self.headers = headers or {}   # e.g. Retry-After on 429
+
+
+class Request:
+    def __init__(self, method: str, path: str, query: dict, headers: dict,
+                 body: bytes, auth: Optional[AuthContext]):
+        self.method = method
+        self.path = path
+        self.query = query
+        self.headers = headers
+        self.body = body
+        self.auth = auth
+        self.params: dict[str, str] = {}
+
+    def json(self) -> dict:
+        if not self.body:
+            return {}
+        try:
+            return json.loads(self.body)
+        except json.JSONDecodeError as exc:
+            raise HttpError(400, f"invalid JSON body: {exc}") from exc
+
+    def qp(self, name: str, default=None):
+        vals = self.query.get(name)
+        return vals[0] if vals else default
+
+    def int_qp(self, name: str, default: int) -> int:
+        try:
+            return int(self.qp(name, default))
+        except (TypeError, ValueError):
+            raise HttpError(400, f"query param {name} must be an integer")
+
+    def float_qp(self, name: str, default: float) -> float:
+        try:
+            return float(self.qp(name, default))
+        except (TypeError, ValueError):
+            raise HttpError(400, f"query param {name} must be a number")
+
+
+class RestServer(LifecycleComponent):
+    """The HTTP listener + router (hosted by instance-management)."""
+
+    def __init__(self, runtime, host: Optional[str] = None,
+                 port: Optional[int] = None):
+        super().__init__("rest-server")
+        self.runtime = runtime
+        self.host = host or runtime.settings.rest_host
+        self.port = port if port is not None else runtime.settings.rest_port
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._writers: set[asyncio.StreamWriter] = set()
+        self._routes: list[tuple[str, re.Pattern, Callable, Optional[str]]] = []
+        self._install_routes()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def _do_start(self, monitor) -> None:
+        self._server = await asyncio.start_server(self._handle, self.host,
+                                                  self.port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        logger.info("REST listening on %s:%d", self.host, self.port)
+
+    async def _do_stop(self, monitor) -> None:
+        # a client holding a keep-alive connection (normal HTTP
+        # behavior) must not wedge instance shutdown — found by a
+        # kill/restart drive that held one open
+        from sitewhere_tpu_torch.kernel.net import shutdown_server
+
+        await shutdown_server(self._server, self._writers)
+        self._server = None
+
+    # -- http plumbing -----------------------------------------------------
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        self._writers.add(writer)
+        try:
+            while True:
+                line = await reader.readline()
+                if not line or line in (b"\r\n", b"\n"):
+                    return
+                try:
+                    method, target, _version = line.decode().split()
+                except ValueError:
+                    return
+                headers: dict[str, str] = {}
+                while True:
+                    h = await reader.readline()
+                    if h in (b"\r\n", b"\n", b""):
+                        break
+                    k, _, v = h.decode().partition(":")
+                    headers[k.strip().lower()] = v.strip()
+                extra: dict = {}
+                try:
+                    length = int(headers.get("content-length", 0) or 0)
+                    if length < 0:
+                        raise ValueError(length)
+                except ValueError:
+                    status, ctype, payload = 400, "application/json", _dumps(
+                        {"error": "invalid Content-Length", "status": 400})
+                    length = None
+                if length is not None and length > 8 * 1024 * 1024:
+                    status, ctype, payload = 413, "application/json", _dumps(
+                        {"error": "body too large", "status": 413})
+                    length = None
+                if length is not None:
+                    body = await reader.readexactly(length) if length else b""
+                    status, ctype, payload, extra = await self._dispatch(
+                        method, target, headers, body)
+                conn = "keep-alive" if length is not None else "close"
+                extra_lines = "".join(f"{k}: {v}\r\n"
+                                      for k, v in extra.items())
+                writer.write(
+                    f"HTTP/1.1 {status} {_reason(status)}\r\n"
+                    f"Content-Type: {ctype}\r\n"
+                    f"Content-Length: {len(payload)}\r\n"
+                    f"{extra_lines}"
+                    f"Connection: {conn}\r\n\r\n".encode() + payload)
+                await writer.drain()
+                if length is None:  # unread request body: can't reuse conn
+                    return
+        except (asyncio.IncompleteReadError, ConnectionResetError):
+            pass
+        finally:
+            self._writers.discard(writer)
+            try:
+                writer.close()
+            except Exception:  # noqa: BLE001
+                pass
+
+    async def _dispatch(self, method: str, target: str, headers: dict,
+                        body: bytes) -> tuple[int, str, bytes, dict]:
+        parsed = urlparse(target)
+        path = parsed.path.rstrip("/") or "/"
+        query = parse_qs(parsed.query)
+        try:
+            auth = self._authenticate(headers, path, method)
+            req = Request(method, path, query, headers, body, auth)
+            for m, pattern, handler, authority in self._routes:
+                if m != method:
+                    continue
+                match = pattern.fullmatch(path)
+                if match is None:
+                    continue
+                if authority is not None:
+                    if req.auth is None:
+                        raise HttpError(401, "authentication required")
+                    if not req.auth.has_authority(authority):
+                        raise HttpError(403, f"requires {authority}")
+                req.params = match.groupdict()
+                result = await handler(req)
+                if isinstance(result, tuple):  # (content_type, bytes)
+                    return 200, result[0], result[1], {}
+                return 200, "application/json", _dumps(result), {}
+            raise HttpError(404, f"no route {method} {path}")
+        except HttpError as exc:
+            return exc.status, "application/json", _dumps(
+                {"error": exc.message, "status": exc.status}), exc.headers
+        except Exception as exc:  # noqa: BLE001 - don't leak stacks to clients
+            logger.exception("REST handler error for %s %s", method, target)
+            return 500, "application/json", _dumps(
+                {"error": f"internal error: {type(exc).__name__}",
+                 "status": 500}), {}
+
+    def _authenticate(self, headers: dict, path: str,
+                      method: str) -> Optional[AuthContext]:
+        im = self.runtime.services.get("instance-management")
+        authz = headers.get("authorization", "")
+        if authz.lower().startswith("bearer ") and im is not None:
+            return im.validate(authz[7:].strip())
+        return None
+
+    # -- helpers -----------------------------------------------------------
+
+    def _tenant_id(self, req: Request) -> str:
+        tenant = req.headers.get("x-sitewhere-tenant")
+        if not tenant:
+            raise HttpError(400, "X-SiteWhere-Tenant header required")
+        if tenant not in self.runtime.tenants:
+            raise HttpError(404, f"unknown tenant {tenant!r}")
+        return tenant
+
+    def _dm(self, req: Request):
+        return self.runtime.api("device-management").management(
+            self._tenant_id(req))
+
+    def _em(self, req: Request):
+        return self.runtime.api("event-management").management(
+            self._tenant_id(req))
+
+    def _im(self):
+        im = self.runtime.services.get("instance-management")
+        if im is None:
+            raise HttpError(503, "instance-management not available")
+        return im
+
+    def _engine(self, req: Request, service: str):
+        try:
+            return self.runtime.services[service].engine(self._tenant_id(req))
+        except KeyError as exc:
+            raise HttpError(503, f"{service} not available") from exc
+
+    def _device_by_token(self, req: Request, token: str) -> Device:
+        device = self._dm(req).get_device_by_token(token)
+        if device is None:
+            raise HttpError(404, f"unknown device {token!r}")
+        return device
+
+    # -- route table -------------------------------------------------------
+
+    def _route(self, method: str, pattern: str, handler: Callable,
+               authority: Optional[str] = AUTH_REST) -> None:
+        self._routes.append((method, re.compile(pattern), handler, authority))
+
+    # -- OpenAPI (reference: the Swagger UI instance-management hosts) -----
+
+    async def get_openapi(self, req: Request) -> dict:
+        """Machine-readable API description generated from the live
+        route table (every route, its JWT authority, and its path
+        params) — the rebuild's Swagger analog. Unauthenticated, like
+        upstream's swagger.json."""
+        if getattr(self, "_openapi", None) is None:
+            self._openapi = self._build_openapi()
+        return self._openapi
+
+    def _build_openapi(self) -> dict:
+        paths: dict = {}
+        for method, pattern, handler, authority in self._routes:
+            path = re.sub(r"\(\?P<([^>]+)>[^)]*\)", r"{\1}",
+                          pattern.pattern)
+            doc = (handler.__doc__ or "").strip().split("\n")[0]
+            op = {
+                "operationId": handler.__name__,
+                "summary": doc or handler.__name__.replace("_", " "),
+                "responses": {"200": {"description": "OK"}},
+            }
+            params = re.findall(r"\{([^}]+)\}", path)
+            if params:
+                op["parameters"] = [
+                    {"name": p, "in": "path", "required": True,
+                     "schema": {"type": "string"}} for p in params]
+            if authority is not None:
+                op["security"] = [{"bearerAuth": []}]
+                # the JWT must carry this authority (kernel/security.py)
+                op["x-authority"] = authority
+            paths.setdefault(path, {})[method.lower()] = op
+        return {
+            "openapi": "3.0.3",
+            "info": {
+                "title": "swx REST API",
+                "description": "TPU-native device-event platform "
+                               "(SiteWhere-compatible resource layout; "
+                               "see docs/MIGRATION.md)",
+                "version": __import__("sitewhere_tpu_torch").__version__,
+            },
+            "components": {"securitySchemes": {"bearerAuth": {
+                "type": "http", "scheme": "bearer",
+                "bearerFormat": "JWT"}}},
+            "paths": paths,
+        }
+
+    def _install_routes(self) -> None:
+        r = self._route
+        # auth + instance
+        r("POST", r"/api/jwt", self.post_jwt, authority=None)
+        r("GET", r"/api/openapi\.json", self.get_openapi, authority=None)
+        r("GET", r"/api/instance/health", self.get_health, authority=None)
+        r("GET", r"/api/instance/metrics", self.get_metrics)
+        # Prometheus exposition off the existing registry (the beat's
+        # observe.* gauges/histograms ride it with zero new plumbing)
+        r("GET", r"/api/instance/metrics/prometheus",
+          self.get_metrics_prometheus)
+        r("GET", r"/api/instance/topics", self.get_topics)
+        # pipeline flight recorder (kernel/observe.py): critical path +
+        # telemetry beat, the `swx top` data source
+        r("GET", r"/api/instance/observe", self.get_observe)
+        # fleet control plane (the JAX package's fleet/): placement epoch,
+        # worker liveness, autoscaler decisions — `swx fleet status`
+        r("GET", r"/api/fleet", self.get_fleet)
+        # predictive control plane (fleet/forecast.py): per-tenant load
+        # forecasts off the tenant-0 slot, the confidence gate's state,
+        # and the deployed forecaster version — `swx top --fleet`'s
+        # forecast rows
+        r("GET", r"/api/fleet/forecast", self.get_fleet_forecast)
+        # fleet observability plane (fleet/observer.py): the merged
+        # per-worker beat view — fleet critical path, lag matrix, mesh
+        # occupancy, broker stats — `swx top --fleet`'s data source,
+        # plus the fleet-merged Prometheus exposition (one scrape on
+        # the controller host instead of N workers)
+        r("GET", r"/api/fleet/observe", self.get_fleet_observe)
+        r("GET", r"/api/fleet/metrics/prometheus",
+          self.get_fleet_prometheus)
+        # durable telemetry history (persistence/durable.py): windowed
+        # per-tenant signal series readback — ?tenant=&signal=&since=
+        # &until=&limit= (no params lists the available series)
+        r("GET", r"/api/instance/history", self.get_history)
+        r("GET", r"/api/instance/replay", self.get_replay)
+        # pipeline tracing [SURVEY.md §5.1]; all three accept ?tenant=
+        # and the listing endpoints paginate with ?limit=&offset=
+        r("GET", r"/api/instance/traces", self.get_trace_summary)
+        r("GET", r"/api/instance/traces/spans", self.get_trace_spans)
+        r("GET", r"/api/instance/traces/(?P<id>\d+)", self.get_trace)
+        # users / tenants
+        r("GET", r"/api/users", self.list_users, AUTH_ADMIN_USERS)
+        r("POST", r"/api/users", self.create_user, AUTH_ADMIN_USERS)
+        r("GET", r"/api/tenants", self.list_tenants)
+        r("POST", r"/api/tenants", self.create_tenant, AUTH_ADMIN_TENANTS)
+        r("GET", r"/api/tenants/(?P<token>[^/]+)", self.get_tenant)
+        # flow-control quotas (kernel/flow.py): inspect/set at runtime
+        r("GET", r"/api/tenants/(?P<token>[^/]+)/quota",
+          self.get_tenant_quota)
+        r("PUT", r"/api/tenants/(?P<token>[^/]+)/quota",
+          self.put_tenant_quota, AUTH_ADMIN_TENANTS)
+        r("PUT", r"/api/tenants/(?P<token>[^/]+)", self.update_tenant,
+          AUTH_ADMIN_TENANTS)
+        r("DELETE", r"/api/tenants/(?P<token>[^/]+)", self.delete_tenant,
+          AUTH_ADMIN_TENANTS)
+        # device types + commands
+        r("GET", r"/api/devicetypes", self.list_device_types)
+        r("POST", r"/api/devicetypes", self.create_device_type)
+        r("GET", r"/api/devicetypes/(?P<token>[^/]+)", self.get_device_type)
+        r("POST", r"/api/devicetypes/(?P<token>[^/]+)/commands",
+          self.create_command)
+        r("GET", r"/api/devicetypes/(?P<token>[^/]+)/commands",
+          self.list_commands)
+        # devices
+        r("GET", r"/api/devices", self.list_devices)
+        r("POST", r"/api/devices", self.create_device)
+        r("GET", r"/api/devices/(?P<token>[^/]+)", self.get_device)
+        r("DELETE", r"/api/devices/(?P<token>[^/]+)", self.delete_device)
+        r("GET", r"/api/devicestates/missing", self.list_missing_devices)
+        r("GET", r"/api/devices/(?P<token>[^/]+)/state", self.get_device_state)
+        r("GET", r"/api/devices/(?P<token>[^/]+)/forecast",
+          self.get_device_forecast)
+        # device groups
+        r("GET", r"/api/devicegroups", self.list_device_groups)
+        r("POST", r"/api/devicegroups", self.create_device_group)
+        r("GET", r"/api/devicegroups/(?P<token>[^/]+)", self.get_device_group)
+        r("DELETE", r"/api/devicegroups/(?P<token>[^/]+)",
+          self.delete_device_group)
+        r("GET", r"/api/devicegroups/(?P<token>[^/]+)/elements",
+          self.list_group_elements)
+        r("POST", r"/api/devicegroups/(?P<token>[^/]+)/elements",
+          self.add_group_elements)
+        r("GET", r"/api/devicegroups/(?P<token>[^/]+)/devices",
+          self.expand_group)
+        # assignments + events
+        r("GET", r"/api/assignments", self.list_assignments)
+        r("POST", r"/api/assignments", self.create_assignment)
+        r("GET", r"/api/assignments/(?P<token>[^/]+)", self.get_assignment)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/end",
+          self.release_assignment)
+        r("GET", r"/api/assignments/(?P<token>[^/]+)/measurements",
+          self.list_measurements)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/measurements",
+          self.add_measurement)
+        r("GET", r"/api/assignments/(?P<token>[^/]+)/locations",
+          self.list_locations)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/locations",
+          self.add_location)
+        r("GET", r"/api/assignments/(?P<token>[^/]+)/alerts", self.list_alerts)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/alerts", self.add_alert)
+        r("GET", r"/api/assignments/(?P<token>[^/]+)/invocations",
+          self.list_invocations)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/responses",
+          self.add_command_response)
+        r("GET", r"/api/invocations/(?P<id>[^/]+)/responses",
+          self.list_command_responses)
+        r("GET", r"/api/assignments/(?P<token>[^/]+)/statechanges",
+          self.list_state_changes)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/statechanges",
+          self.add_state_change)
+        r("POST", r"/api/assignments/(?P<token>[^/]+)/invocations",
+          self.invoke_command)
+        # areas / customers / zones / assets
+        r("GET", r"/api/areas", self.list_areas)
+        r("POST", r"/api/areas", self.create_area)
+        r("GET", r"/api/customers", self.list_customers)
+        r("POST", r"/api/customers", self.create_customer)
+        r("GET", r"/api/zones", self.list_zones)
+        r("POST", r"/api/zones", self.create_zone)
+        r("GET", r"/api/assettypes", self.list_asset_types)
+        r("POST", r"/api/assettypes", self.create_asset_type)
+        r("GET", r"/api/assets", self.list_assets)
+        r("POST", r"/api/assets", self.create_asset)
+        # alerts (tenant-wide)
+        r("GET", r"/api/alerts", self.list_tenant_alerts)
+        # dead-letter quarantine (poison records; kernel/dlq.py)
+        r("GET", r"/api/dlq", self.list_dlq)
+        r("POST", r"/api/dlq/replay", self.replay_dlq)
+        # batch + training
+        r("POST", r"/api/batch/command", self.batch_command)
+        r("POST", r"/api/batch/train", self.batch_train)
+        r("GET", r"/api/batch/(?P<id>[^/]+)", self.get_batch)
+        r("GET", r"/api/batch/(?P<id>[^/]+)/elements", self.get_batch_elements)
+        # schedules
+        r("GET", r"/api/schedules", self.list_schedules)
+        r("POST", r"/api/schedules", self.create_schedule)
+        r("POST", r"/api/jobs", self.create_job)
+        # scripts (rule-processing extension surface)
+        r("GET", r"/api/scripts", self.list_scripts, AUTH_ADMIN_SCRIPTS)
+        r("PUT", r"/api/scripts/(?P<name>[^/]+)", self.put_script,
+          AUTH_ADMIN_SCRIPTS)
+        r("DELETE", r"/api/scripts/(?P<name>[^/]+)", self.delete_script,
+          AUTH_ADMIN_SCRIPTS)
+        # decoder scripts (event-sources extension surface)
+        r("GET", r"/api/decoder-scripts", self.list_decoder_scripts,
+          AUTH_ADMIN_SCRIPTS)
+        r("PUT", r"/api/decoder-scripts/(?P<name>[^/]+)",
+          self.put_decoder_script, AUTH_ADMIN_SCRIPTS)
+        r("DELETE", r"/api/decoder-scripts/(?P<name>[^/]+)",
+          self.delete_decoder_script, AUTH_ADMIN_SCRIPTS)
+        r("GET", r"/api/connector-scripts", self.list_connector_scripts,
+          AUTH_ADMIN_SCRIPTS)
+        r("PUT", r"/api/connector-scripts/(?P<name>[^/]+)",
+          self.put_connector_script, AUTH_ADMIN_SCRIPTS)
+        r("DELETE", r"/api/connector-scripts/(?P<name>[^/]+)",
+          self.delete_connector_script, AUTH_ADMIN_SCRIPTS)
+        r("GET", r"/api/encoder-scripts", self.list_encoder_scripts,
+          AUTH_ADMIN_SCRIPTS)
+        r("PUT", r"/api/encoder-scripts/(?P<name>[^/]+)",
+          self.put_encoder_script, AUTH_ADMIN_SCRIPTS)
+        r("DELETE", r"/api/encoder-scripts/(?P<name>[^/]+)",
+          self.delete_encoder_script, AUTH_ADMIN_SCRIPTS)
+        # event-source receivers (dynamic source management; a decoder
+        # script's delete-409 is resolvable through this surface)
+        r("GET", r"/api/eventsources/receivers", self.list_receivers,
+          AUTH_ADMIN_SCRIPTS)
+        r("POST", r"/api/eventsources/receivers", self.add_receiver,
+          AUTH_ADMIN_SCRIPTS)
+        r("DELETE", r"/api/eventsources/receivers/(?P<name>[^/]+)",
+          self.delete_receiver, AUTH_ADMIN_SCRIPTS)
+        # outbound connectors (dynamic sink management; a connector
+        # script's delete-409 is resolvable through this surface)
+        r("GET", r"/api/connectors", self.list_connectors,
+          AUTH_ADMIN_SCRIPTS)
+        r("POST", r"/api/connectors", self.add_connector,
+          AUTH_ADMIN_SCRIPTS)
+        r("DELETE", r"/api/connectors/(?P<name>[^/]+)",
+          self.delete_connector, AUTH_ADMIN_SCRIPTS)
+        # labels
+        r("GET", r"/api/labels/devices/(?P<token>[^/]+)", self.device_label)
+
+    # -- handlers: auth/instance -------------------------------------------
+
+    async def post_jwt(self, req: Request):
+        authz = req.headers.get("authorization", "")
+        if not authz.lower().startswith("basic "):
+            raise HttpError(401, "basic auth required")
+        try:
+            username, _, password = base64.b64decode(
+                authz[6:]).decode().partition(":")
+        except Exception as exc:  # noqa: BLE001
+            raise HttpError(400, "malformed basic auth") from exc
+        token = self._im().authenticate(username, password)
+        if token is None:
+            raise HttpError(401, "invalid credentials")
+        return {"token": token}
+
+    async def get_health(self, req: Request):
+        return self.runtime.health()
+
+    async def get_metrics(self, req: Request):
+        return self.runtime.metrics.snapshot()
+
+    async def get_metrics_prometheus(self, req: Request):
+        """The metrics registry in Prometheus exposition format (the
+        text a scraper reads; kernel/metrics.py prometheus_text)."""
+        return ("text/plain; version=0.0.4",
+                self.runtime.metrics.prometheus_text().encode())
+
+    async def get_observe(self, req: Request):
+        """Flight-recorder report: critical path over sampled traces
+        (queue-wait vs service split) + the telemetry beat's live
+        state (loop lag, consumer lag, backlog, flow modes)."""
+        from sitewhere_tpu_torch.kernel.observe import observe_report
+
+        return observe_report(self.runtime, tenant=req.qp("tenant"))
+
+    async def get_fleet(self, req: Request):
+        """Fleet placement/liveness/autoscaler status — served by the
+        process hosting the FleetController (the broker-side runtime).
+        Includes the broker's own stats (`EventBus.stats()`) when the
+        bus is local: per-topic depth, per-group lag + membership,
+        fence rejections, members evicted."""
+        fleet = getattr(self.runtime, "fleet", None)
+        if fleet is None:
+            raise HttpError(404, "no fleet controller in this process")
+        snap = fleet.snapshot()
+        stats_fn = getattr(self.runtime.bus, "stats", None)
+        broker = stats_fn() if callable(stats_fn) else None
+        snap["broker"] = broker if isinstance(broker, dict) else None
+        return snap
+
+    async def get_fleet_forecast(self, req: Request):
+        """Predictive-planner state (fleet/forecast.py): live per-tenant
+        load forecasts at the horizon, gate/demotion status, horizon
+        error EMA, deployed model version, and the last train report."""
+        fleet = getattr(self.runtime, "fleet", None)
+        if fleet is None:
+            raise HttpError(404, "no fleet controller in this process")
+        planner = getattr(fleet, "planner", None)
+        if planner is None:
+            raise HttpError(404, "predictive planner not running "
+                            "(fleet_forecast off or no telemetry history)")
+        return planner.snapshot()
+
+    def _fleet_observer(self):
+        observer = getattr(self.runtime, "fleet_observer", None)
+        if observer is None:
+            raise HttpError(404, "no fleet observer in this process "
+                            "(runs beside the FleetController)")
+        return observer
+
+    async def get_fleet_observe(self, req: Request):
+        """The fleet-wide flight recorder (fleet/observer.py): merged
+        critical path, per-worker beats, per-tenant lag matrix, mesh
+        occupancy, broker stats, history-tier counts."""
+        return self._fleet_observer().snapshot()
+
+    async def get_fleet_prometheus(self, req: Request):
+        """Fleet-merged Prometheus exposition: per-worker/per-tenant
+        labeled gauges + merged critical-path quantiles."""
+        return ("text/plain; version=0.0.4",
+                self._fleet_observer().prometheus_text().encode())
+
+    async def get_history(self, req: Request):
+        """Durable telemetry history readback (persistence/durable.py
+        TelemetryHistory): `?tenant=&signal=` reads one series'
+        windowed rows (filtered by `since`/`until` on window start,
+        bounded by `limit`); without params, the available series and
+        store stats."""
+        history = getattr(self.runtime, "history", None)
+        if history is None:
+            raise HttpError(404, "no telemetry history in this process "
+                            "(needs data_dir + observe_history)")
+        tenant, signal = req.qp("tenant"), req.qp("signal")
+        if tenant is None or signal is None:
+            return {"series": [list(s) for s in history.series()],
+                    "stats": history.stats()}
+        until = req.float_qp("until", float("inf"))
+        rows = history.history(
+            tenant, signal,
+            since=req.float_qp("since", 0.0),
+            until=None if until == float("inf") else until,
+            limit=req.int_qp("limit", -1))
+        return {"tenant": tenant, "signal": signal,
+                "window_s": history.window_s, "rows": rows}
+
+    async def get_replay(self, req: Request):
+        """Historical replay plane state (sitewhere_tpu/history): each
+        tenant's cold-tier store stats (blocks, windows, events,
+        compaction high-water mark, tail skips) plus the last replay
+        rate / shadow divergence gauges. `?tenant=` filters to one
+        tenant. Read-only — compaction and replay runs are driven by
+        `swx replay` (offline) or the maintenance cadence. (The first
+        line names the reference's module, whose copy here is
+        `sitewhere_tpu_torch/history`: it is this route's OpenAPI
+        summary, equal in both packages.)"""
+        svc = self.runtime.services.get("event-management")
+        if svc is None:
+            raise HttpError(404, "no event-management in this process")
+        only = req.qp("tenant")
+        tenants = {}
+        for tid, engine in sorted(svc.engines.items()):
+            if only is not None and tid != only:
+                continue
+            store = getattr(engine, "history_store", None)
+            if store is not None:
+                tenants[tid] = store.stats()
+        if not tenants:
+            raise HttpError(404, "no cold tier in this process "
+                            "(needs data_dir)" if only is None else
+                            f"no cold tier for tenant {only!r}")
+        metrics = self.runtime.metrics
+        return {"tenants": tenants,
+                "replay_rate": metrics.gauge("history.replay_rate").value,
+                "divergence_max":
+                    metrics.gauge("history.divergence_max").value,
+                "replay_events":
+                    metrics.counter("history.replay_events").value,
+                "compactions": metrics.counter("history.compactions").value}
+
+    async def get_trace_summary(self, req: Request):
+        return self.runtime.tracer.stage_summary(tenant=req.qp("tenant"))
+
+    async def get_trace_spans(self, req: Request):
+        spans = self.runtime.tracer.spans(
+            stage=req.qp("stage"), tenant=req.qp("tenant"),
+            limit=req.int_qp("limit", 256),
+            offset=req.int_qp("offset", 0))
+        return {"spans": [s.to_dict() for s in spans],
+                "offset": req.int_qp("offset", 0)}
+
+    async def get_trace(self, req: Request):
+        spans = self.runtime.tracer.trace(int(req.params["id"]),
+                                          tenant=req.qp("tenant"))
+        return {"trace_id": int(req.params["id"]),
+                "spans": [s.to_dict() for s in spans]}
+
+    async def get_topics(self, req: Request):
+        bus = self.runtime.bus
+        import inspect
+
+        names = bus.topic_names()
+        if inspect.isawaitable(names):  # wire bus: the broker answers
+            names = await names
+        out = {}
+        for t in names:
+            offs = bus.end_offsets(t)
+            if inspect.isawaitable(offs):
+                offs = await offs
+            out[t] = offs
+        return out
+
+    # -- handlers: users/tenants -------------------------------------------
+
+    async def list_users(self, req: Request):
+        return [entity_to_dict(u) for u in self._im().users.list_users()]
+
+    async def create_user(self, req: Request):
+        b = req.json()
+        try:
+            user = self._im().create_user(
+                b["username"], b["password"],
+                tuple(b.get("authorities", ["REST"])),
+                b.get("firstName", ""), b.get("lastName", ""))
+        except ValueError as exc:
+            raise HttpError(409, str(exc)) from exc
+        return entity_to_dict(user)
+
+    async def list_tenants(self, req: Request):
+        return [entity_to_dict(t) for t in self._im().list_tenants()]
+
+    async def create_tenant(self, req: Request):
+        b = req.json()
+        if "token" not in b:
+            raise HttpError(400, "token required")
+        try:
+            tenant = await self._im().create_tenant(
+                b["token"], b.get("name", ""), b.get("sections"),
+                tuple(b.get("authorizedUserIds", ())),
+                template=b.get("template"))
+        except ValueError as exc:
+            raise HttpError(409, str(exc)) from exc
+        return entity_to_dict(tenant)
+
+    async def get_tenant(self, req: Request):
+        tenant = self._im().get_tenant(req.params["token"])
+        if tenant is None:
+            raise HttpError(404, "unknown tenant")
+        return entity_to_dict(tenant)
+
+    async def update_tenant(self, req: Request):
+        b = req.json()
+        try:
+            tenant = await self._im().update_tenant(
+                req.params["token"], b.get("sections"), b.get("name"))
+        except KeyError as exc:
+            raise HttpError(404, str(exc)) from exc
+        return entity_to_dict(tenant)
+
+    async def delete_tenant(self, req: Request):
+        tenant = await self._im().delete_tenant(req.params["token"])
+        if tenant is None:
+            raise HttpError(404, "unknown tenant")
+        return entity_to_dict(tenant)
+
+    # -- handlers: device model --------------------------------------------
+
+    async def list_device_types(self, req: Request):
+        return [entity_to_dict(t) for t in self._dm(req).list_device_types(
+            page=req.int_qp("page", 1), page_size=req.int_qp("pageSize", 100))]
+
+    async def create_device_type(self, req: Request):
+        b = req.json()
+        dt = self._dm(req).create_device_type(DeviceType(
+            token=b.get("token", ""), name=b.get("name", ""),
+            description=b.get("description", ""),
+            channels=tuple(b.get("channels", ("value",)))))
+        return entity_to_dict(dt)
+
+    async def get_device_type(self, req: Request):
+        dt = self._dm(req).get_device_type_by_token(req.params["token"])
+        if dt is None:
+            raise HttpError(404, "unknown device type")
+        return entity_to_dict(dt)
+
+    async def create_command(self, req: Request):
+        dm = self._dm(req)
+        dt = dm.get_device_type_by_token(req.params["token"])
+        if dt is None:
+            raise HttpError(404, "unknown device type")
+        b = req.json()
+        cmd = dm.create_device_command(DeviceCommand(
+            token=b.get("token", ""), device_type_id=dt.id,
+            name=b.get("name", ""), namespace=b.get("namespace",
+                                                    "http://swx/default"),
+            parameters=tuple((p["name"], p.get("type", "string"),
+                              p.get("required", False))
+                             for p in b.get("parameters", []))))
+        return entity_to_dict(cmd)
+
+    async def list_commands(self, req: Request):
+        dm = self._dm(req)
+        dt = dm.get_device_type_by_token(req.params["token"])
+        if dt is None:
+            raise HttpError(404, "unknown device type")
+        return [entity_to_dict(c) for c in dm.list_device_commands(dt.id)]
+
+    async def list_devices(self, req: Request):
+        return [entity_to_dict(d) for d in self._dm(req).list_devices(
+            page=req.int_qp("page", 1), page_size=req.int_qp("pageSize", 100))]
+
+    async def create_device(self, req: Request):
+        dm = self._dm(req)
+        b = req.json()
+        dt = dm.get_device_type_by_token(b.get("deviceType", ""))
+        if dt is None:
+            raise HttpError(400, "deviceType token required and must exist")
+        try:
+            device = dm.create_device(Device(
+                token=b.get("token", ""), device_type_id=dt.id,
+                comments=b.get("comments", ""),
+                metadata=b.get("metadata", {})))
+        except ValueError as exc:
+            raise HttpError(409, str(exc)) from exc
+        if b.get("createAssignment", True):
+            dm.create_device_assignment(DeviceAssignment(
+                device_id=device.id, token=f"{device.token}-a"))
+        return entity_to_dict(device)
+
+    async def get_device(self, req: Request):
+        return entity_to_dict(self._device_by_token(req, req.params["token"]))
+
+    async def delete_device(self, req: Request):
+        device = self._device_by_token(req, req.params["token"])
+        return entity_to_dict(self._dm(req).delete_device(device.id))
+
+    async def get_device_state(self, req: Request):
+        device = self._device_by_token(req, req.params["token"])
+        engine = self._engine(req, "device-state")
+        return engine.get_state(device.index)
+
+    async def get_device_forecast(self, req: Request):
+        """Model forecast for a device (config 3's capability as a
+        product surface): [horizon, quantiles] values in original
+        units. 404 when the tenant's model has no forecast."""
+        device = self._device_by_token(req, req.params["token"])
+        engine = self._engine(req, "rule-processing")
+        want_attn = req.qp("attention", "false").lower() \
+            in ("1", "true", "yes")
+        try:
+            return await engine.forecast_device(
+                device.index, include_attention=want_attn)
+        except LookupError as exc:
+            raise HttpError(404, str(exc)) from exc
+
+    async def list_missing_devices(self, req: Request):
+        """Devices seen before but silent for olderThan seconds
+        (reference: device-state missing-device marking). `now` is an
+        optional epoch override for simulated-clock fleets."""
+        engine = self._engine(req, "device-state")
+        dm = self._dm(req)
+        idxs = engine.missing_devices(
+            req.float_qp("olderThan", 300.0),
+            now=req.float_qp("now", 0.0) or None)
+        out = []
+        for i in idxs.tolist():
+            device = dm.get_device_by_index(i)
+            if device is not None:
+                out.append({"token": device.token, "index": i})
+        return out
+
+    # -- handlers: assignments + events ------------------------------------
+
+    def _assignment(self, req: Request) -> DeviceAssignment:
+        a = self._dm(req).get_device_assignment_by_token(req.params["token"])
+        if a is None:
+            raise HttpError(404, "unknown assignment")
+        return a
+
+    async def list_assignments(self, req: Request):
+        return [entity_to_dict(a) for a in self._dm(req).list_device_assignments(
+            page=req.int_qp("page", 1), page_size=req.int_qp("pageSize", 100))]
+
+    async def create_assignment(self, req: Request):
+        dm = self._dm(req)
+        b = req.json()
+        device = dm.get_device_by_token(b.get("deviceToken", ""))
+        if device is None:
+            raise HttpError(400, "deviceToken required and must exist")
+        a = dm.create_device_assignment(DeviceAssignment(
+            token=b.get("token", ""), device_id=device.id,
+            customer_id=b.get("customerId"), area_id=b.get("areaId"),
+            asset_id=b.get("assetId")))
+        return entity_to_dict(a)
+
+    async def get_assignment(self, req: Request):
+        return entity_to_dict(self._assignment(req))
+
+    async def release_assignment(self, req: Request):
+        a = self._assignment(req)
+        return entity_to_dict(self._dm(req).release_device_assignment(a.id))
+
+    def _assignment_device_index(self, req: Request) -> int:
+        a = self._assignment(req)
+        device = self._dm(req).get_device(a.device_id)
+        if device is None:
+            raise HttpError(404, "assignment's device is gone")
+        return device.index
+
+    async def list_measurements(self, req: Request):
+        idx = self._assignment_device_index(req)
+        ms = self._em(req).list_measurements(
+            idx, mtype=req.int_qp("mtype", 0),
+            start=req.float_qp("start", 0.0),
+            end=req.float_qp("end", 1e18),
+            limit=req.int_qp("limit", 100))
+        return [event_to_dict(m) for m in ms]
+
+    async def _ingest_cold_batch(self, req: Request, build) -> dict:
+        """Shared cold-path single-event ingest (reference REST parity;
+        bulk telemetry uses the SWB1 gateway path): build the columnar
+        batch — dtype coercion errors are the CLIENT's (400, not a
+        poisoned persister loop) — and publish it on the decoded topic,
+        the same route gateway batches take."""
+        from sitewhere_tpu_torch.kernel.bus import TopicNaming
+
+        idx = self._assignment_device_index(req)
+        tenant_id = self._tenant_id(req)
+        # flow control: REST ingest charges the tenant quota like every
+        # other ingress edge; over quota → 429 + Retry-After
+        decision = self.runtime.flow.admit_ingress(tenant_id, 1)
+        if not decision.admitted:
+            raise HttpError(
+                429, f"tenant {tenant_id!r} over quota ({decision.reason})",
+                headers={"Retry-After":
+                         str(max(int(decision.retry_after + 0.999), 1))})
+        b = req.json()
+        if b.get("eventDate", 0) is None:
+            # explicit JSON null = "unset" (common serializer output);
+            # coalesce to now in ONE place for every event builder
+            del b["eventDate"]
+        try:
+            batch = build(idx, b, tenant_id)
+        except (TypeError, ValueError) as exc:
+            raise HttpError(400, f"bad event payload: {exc}") from exc
+        # REST is a receiver edge like any other: stamp a trace id and
+        # record the spine's first span so a sampled cold-path event is
+        # traceable receiver → egress.publish like gateway traffic
+        import time as _time
+
+        tracer = self.runtime.tracer
+        batch.ctx.trace_id = tracer.new_trace_id()
+        tracer.record(batch.ctx.trace_id, "event-sources.receive",
+                      tenant_id, batch.ctx.ingest_monotonic,
+                      max(_time.monotonic() - batch.ctx.ingest_monotonic,
+                          0.0), len(batch))
+        sources = self._engine(req, "event-sources")
+        await self.runtime.bus.produce(
+            sources.tenant_topic(TopicNaming.EVENT_SOURCE_DECODED), batch,
+            key="rest")
+        return {"accepted": 1}
+
+    # -- handlers: flow-control quotas -------------------------------------
+
+    async def get_tenant_quota(self, req: Request):
+        """Live flow-control state for a tenant: quota, remaining burst
+        tokens, shed mode/pressure, and admission counters."""
+        tenant = req.params["token"]
+        if tenant not in self.runtime.tenants:
+            raise HttpError(404, f"unknown tenant {tenant!r}")
+        return self.runtime.flow.quota(tenant)
+
+    async def put_tenant_quota(self, req: Request):
+        """Runtime quota update (rate events/s, burst events, fair-share
+        weight); takes effect immediately, no engine respin. rate 0 =
+        unlimited."""
+        tenant = req.params["token"]
+        if tenant not in self.runtime.tenants:
+            raise HttpError(404, f"unknown tenant {tenant!r}")
+        b = req.json()
+        kwargs = {}
+        for key in ("rate", "burst", "weight"):
+            if key in b:
+                try:
+                    kwargs[key] = float(b[key])
+                except (TypeError, ValueError) as exc:
+                    raise HttpError(400, f"{key} must be a number") from exc
+        if "mode" in b:
+            # operator override: pin a shed mode ("auto" resumes the
+            # controller) — the overloaded-tenant runbook's lever
+            try:
+                self.runtime.flow.force_mode(tenant, b["mode"])
+            except ValueError as exc:
+                raise HttpError(400, str(exc)) from exc
+        elif not kwargs:
+            raise HttpError(400, "body needs rate, burst, weight, or mode")
+        if kwargs:
+            self.runtime.flow.set_quota(tenant, **kwargs)
+            # persist the EFFECTIVE quota into the runtime's tenant
+            # config: a later tenant update re-applies configure_tenant,
+            # which would otherwise silently revert an operator-set
+            # quota. Persisting the request body instead of the read-back
+            # would re-introduce the stale-burst bug (a rate-only PUT
+            # rescales the live burst; the old section value must not
+            # survive it). In-place update — no broadcast, no respin.
+            q = self.runtime.flow.quota(tenant)
+            cfg = self.runtime.tenants.get(tenant)
+            if cfg is not None:
+                self.runtime.tenants[tenant] = cfg.with_section(
+                    "flow", {"rate": q["rate"], "burst": q["burst"],
+                             "weight": q["weight"]})
+        return self.runtime.flow.quota(tenant)
+
+    async def add_measurement(self, req: Request):
+        from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch
+        import time as _time
+
+        def build(idx, b, tenant_id):
+            return MeasurementBatch(
+                BatchContext(tenant_id=tenant_id, source="rest"),
+                np.asarray([idx], np.uint32),
+                np.asarray([b.get("mtype", 0)], np.uint16),
+                np.asarray([b.get("value", 0.0)], np.float32),
+                np.asarray([b.get("eventDate", _time.time())], np.float64))
+
+        return await self._ingest_cold_batch(req, build)
+
+    async def list_locations(self, req: Request):
+        idx = self._assignment_device_index(req)
+        return [event_to_dict(loc) for loc in self._em(req).list_locations(
+            idx, limit=req.int_qp("limit", 100))]
+
+    async def add_location(self, req: Request):
+        from sitewhere_tpu_torch.domain.batch import BatchContext, LocationBatch
+        import time as _time
+
+        def build(idx, b, tenant_id):
+            return LocationBatch(
+                BatchContext(tenant_id=tenant_id, source="rest"),
+                np.asarray([idx], np.uint32),
+                np.asarray([b.get("latitude", 0.0)], np.float64),
+                np.asarray([b.get("longitude", 0.0)], np.float64),
+                np.asarray([b.get("elevation", 0.0)], np.float32),
+                np.asarray([b.get("eventDate", _time.time())], np.float64))
+
+        return await self._ingest_cold_batch(req, build)
+
+    async def add_alert(self, req: Request):
+        """Operator-sourced alert (reference REST parity; model alerts
+        come from the scoring plane)."""
+        import time as _time
+
+        from sitewhere_tpu_torch.domain.events import AlertLevel, DeviceAlert
+
+        a = self._assignment(req)
+        b = req.json()
+        try:
+            level = AlertLevel[str(b.get("level", "INFO")).upper()]
+        except KeyError as exc:
+            raise HttpError(400, f"unknown alert level {b.get('level')!r}") \
+                from exc
+        alert = DeviceAlert(
+            device_id=a.device_id, assignment_id=a.id,
+            type=b.get("type", "operator"),
+            message=b.get("message", ""),
+            level=level,
+            source=b.get("source", "rest"),
+            event_date=(b["eventDate"] if b.get("eventDate") is not None
+                        else _time.time()))
+        out = await self._em(req).add_alerts([alert])
+        return event_to_dict(out[0])
+
+    async def list_invocations(self, req: Request):
+        idx = self._assignment_device_index(req)
+        return [event_to_dict(i)
+                for i in self._em(req).list_command_invocations(
+                    idx, limit=req.int_qp("limit", 100))]
+
+    async def add_command_response(self, req: Request):
+        from sitewhere_tpu_torch.domain.events import DeviceCommandResponse
+
+        a = self._assignment(req)
+        b = req.json()
+        resp = DeviceCommandResponse(
+            device_id=a.device_id, assignment_id=a.id,
+            originating_event_id=b.get("originatingEventId", ""),
+            response=b.get("response", ""))
+        out = await self._em(req).add_command_responses([resp])
+        return event_to_dict(out[0])
+
+    async def list_command_responses(self, req: Request):
+        return [event_to_dict(r)
+                for r in self._em(req).list_command_responses(
+                    originating_event_id=req.params["id"],
+                    limit=req.int_qp("limit", 100))]
+
+    async def add_state_change(self, req: Request):
+        from sitewhere_tpu_torch.domain.events import DeviceStateChange
+
+        a = self._assignment(req)
+        b = req.json()
+        change = DeviceStateChange(
+            device_id=a.device_id, assignment_id=a.id,
+            attribute=b.get("attribute", "state"),
+            state_change_type=b.get("type", "state"),
+            previous_state=b.get("previousState", ""),
+            new_state=b.get("newState", ""))
+        out = await self._em(req).add_state_changes([change])
+        return event_to_dict(out[0])
+
+    async def list_state_changes(self, req: Request):
+        idx = self._assignment_device_index(req)
+        return [event_to_dict(c)
+                for c in self._em(req).list_state_changes(
+                    idx, limit=req.int_qp("limit", 100))]
+
+    async def list_alerts(self, req: Request):
+        idx = self._assignment_device_index(req)
+        return [event_to_dict(a) for a in self._em(req).list_alerts(
+            idx, limit=req.int_qp("limit", 100))]
+
+    async def invoke_command(self, req: Request):
+        from sitewhere_tpu_torch.domain.events import DeviceCommandInvocation
+
+        a = self._assignment(req)
+        dm = self._dm(req)
+        b = req.json()
+        command = None
+        if b.get("commandToken"):
+            command = dm.get_device_command_by_token(
+                a.device_type_id, b["commandToken"])
+            if command is None:
+                raise HttpError(400, "unknown commandToken")
+        inv = DeviceCommandInvocation(
+            device_id=a.device_id, assignment_id=a.id,
+            initiator="rest", initiator_id=req.auth.username if req.auth else "",
+            command_id=command.id if command else b.get("commandId", ""),
+            parameter_values=b.get("parameterValues", {}))
+        em = self._em(req)
+        await em.add_command_invocations([inv])
+        return event_to_dict(inv)
+
+    async def list_tenant_alerts(self, req: Request):
+        return [event_to_dict(a) for a in self._em(req).list_alerts(
+            limit=req.int_qp("limit", 100))]
+
+    # -- handlers: dead-letter quarantine ----------------------------------
+
+    def _dlq_topic(self, req: Request) -> str:
+        from sitewhere_tpu_torch.kernel.bus import TopicNaming
+
+        if not hasattr(self.runtime.bus, "peek"):
+            raise HttpError(501, "dead-letter surface needs the in-proc "
+                                 "bus (this process attaches to a wire "
+                                 "broker)")
+        return self.runtime.naming.tenant_topic(
+            self._tenant_id(req), TopicNaming.DEAD_LETTER)
+
+    async def list_dlq(self, req: Request):
+        """Newest dead letters for the tenant: provenance (original
+        topic/partition/offset, failing component, error summary) plus
+        a jsonable view of the quarantined value."""
+        from sitewhere_tpu_torch.kernel.dlq import list_dead_letters
+        from sitewhere_tpu_torch.services.outbound_connectors import (
+            record_to_jsonable,
+        )
+
+        out = []
+        for rec, entry in list_dead_letters(
+                self.runtime.bus, self._dlq_topic(req),
+                limit=req.int_qp("limit", 100)):
+            try:
+                value = record_to_jsonable(entry["value"])
+            except Exception:  # noqa: BLE001 - poison may not serialize
+                value = {"kind": "unserializable",
+                         "repr": repr(entry["value"])[:500]}
+            out.append({
+                "dlq_partition": rec.partition,
+                "dlq_offset": rec.offset,
+                "original_topic": entry["original_topic"],
+                "partition": entry["partition"],
+                "offset": entry["offset"],
+                "key": entry.get("key"),
+                "stage": entry["stage"],
+                "error": entry["error"],
+                "quarantined_at": entry["quarantined_at"],
+                "value": value,
+            })
+        return out
+
+    async def replay_dlq(self, req: Request):
+        """Re-produce dead letters onto their original topics (body:
+        {"limit": N}, default all outstanding). Progress commits under
+        a replay group, so repeated calls never duplicate."""
+        from sitewhere_tpu_torch.kernel.dlq import replay_dead_letters
+
+        limit = req.json().get("limit")
+        # replay passes through flow control like live traffic (no
+        # bypass that lets a replay re-trigger the original overload)
+        n = await replay_dead_letters(
+            self.runtime.bus, self._dlq_topic(req), limit=limit,
+            metrics=self.runtime.metrics, flow=self.runtime.flow,
+            tenant_id=self._tenant_id(req), tracer=self.runtime.tracer)
+        return {"replayed": n}
+
+    # -- handlers: areas/customers/zones/assets ----------------------------
+
+    async def list_areas(self, req: Request):
+        return [entity_to_dict(a) for a in self._dm(req).list_areas()]
+
+    async def create_area(self, req: Request):
+        b = req.json()
+        return entity_to_dict(self._dm(req).create_area(Area(
+            token=b.get("token", ""), name=b.get("name", ""),
+            description=b.get("description", ""),
+            bounds=tuple(map(tuple, b.get("bounds", ()))))))
+
+    async def list_customers(self, req: Request):
+        return [entity_to_dict(c) for c in self._dm(req).list_customers()]
+
+    async def create_customer(self, req: Request):
+        b = req.json()
+        return entity_to_dict(self._dm(req).create_customer(Customer(
+            token=b.get("token", ""), name=b.get("name", ""))))
+
+    async def list_zones(self, req: Request):
+        return [entity_to_dict(z) for z in self._dm(req).list_zones()]
+
+    async def create_zone(self, req: Request):
+        b = req.json()
+        return entity_to_dict(self._dm(req).create_zone(Zone(
+            token=b.get("token", ""), area_id=b.get("areaId", ""),
+            name=b.get("name", ""),
+            bounds=tuple(map(tuple, b.get("bounds", ()))))))
+
+    def _am(self, req: Request):
+        return self.runtime.api("asset-management").management(
+            self._tenant_id(req))
+
+    async def list_asset_types(self, req: Request):
+        return [entity_to_dict(t) for t in self._am(req).list_asset_types()]
+
+    async def create_asset_type(self, req: Request):
+        b = req.json()
+        return entity_to_dict(self._am(req).create_asset_type(AssetType(
+            token=b.get("token", ""), name=b.get("name", ""),
+            asset_category=b.get("assetCategory", "hardware"))))
+
+    async def list_assets(self, req: Request):
+        return [entity_to_dict(a) for a in self._am(req).list_assets()]
+
+    async def create_asset(self, req: Request):
+        am = self._am(req)
+        b = req.json()
+        at = am.get_asset_type_by_token(b.get("assetType", ""))
+        return entity_to_dict(am.create_asset(Asset(
+            token=b.get("token", ""), name=b.get("name", ""),
+            asset_type_id=at.id if at else "")))
+
+    # -- handlers: batch/training ------------------------------------------
+
+    async def batch_command(self, req: Request):
+        b = req.json()
+        dm = self._dm(req)
+        ops = self._engine(req, "batch-operations")
+        device_ids = []
+        if b.get("deviceTokens"):
+            for t in b["deviceTokens"]:
+                d = dm.get_device_by_token(t)
+                if d is not None:
+                    device_ids.append(d.id)
+        elif b.get("groupToken"):
+            g = dm.get_device_group_by_token(b["groupToken"])
+            if g is not None:
+                device_ids = [d.id for d in dm.expand_group_devices(g.id)]
+        command = None
+        if b.get("commandToken"):
+            command = dm.find_device_command_by_token(b["commandToken"])
+            if command is None:
+                raise HttpError(400, f"unknown commandToken "
+                                     f"{b['commandToken']!r}")
+            # commands are scoped to a device type: drop mismatched targets
+            device_ids = [d for d in device_ids
+                          if dm.get_device(d).device_type_id
+                          == command.device_type_id]
+        if not device_ids:
+            raise HttpError(400, "no matching target devices")
+        op = await ops.submit_command_operation(
+            device_ids,
+            command.id if command else b.get("commandId", ""),
+            b.get("parameterValues", {}),
+            initiator="rest",
+            initiator_id=req.auth.username if req.auth else "")
+        return entity_to_dict(op)
+
+    async def batch_train(self, req: Request):
+        b = req.json()
+        ops = self._engine(req, "batch-operations")
+        op = await ops.submit_training_operation(
+            b.get("model"), steps=b.get("steps", 200),
+            batch_size=b.get("batchSize", 1024),
+            learning_rate=b.get("learningRate", 1e-3),
+            window=b.get("window"), mtype=b.get("mtype", 0))
+        return entity_to_dict(op)
+
+    async def get_batch(self, req: Request):
+        ops = self._engine(req, "batch-operations")
+        op = ops.get_operation(req.params["id"])
+        if op is None:
+            raise HttpError(404, "unknown batch operation")
+        return entity_to_dict(op)
+
+    async def get_batch_elements(self, req: Request):
+        ops = self._engine(req, "batch-operations")
+        return [entity_to_dict(e)
+                for e in ops.list_batch_elements(req.params["id"])]
+
+    # -- handlers: schedules -----------------------------------------------
+
+    async def list_schedules(self, req: Request):
+        sched = self._engine(req, "schedule-management")
+        return [entity_to_dict(s) for s in sched.list_schedules()]
+
+    async def create_schedule(self, req: Request):
+        sched = self._engine(req, "schedule-management")
+        b = req.json()
+        return entity_to_dict(sched.create_schedule(Schedule(
+            token=b.get("token", ""), name=b.get("name", ""),
+            trigger_type=b.get("triggerType", "simple"),
+            trigger_configuration=b.get("triggerConfiguration", {}),
+            start_date=b.get("startDate"), end_date=b.get("endDate"))))
+
+    async def create_job(self, req: Request):
+        sched = self._engine(req, "schedule-management")
+        b = req.json()
+        schedule = sched.get_schedule_by_token(b.get("scheduleToken", "")) \
+            or sched.get_schedule(b.get("scheduleId", ""))
+        if schedule is None:
+            raise HttpError(400, "scheduleToken/scheduleId must exist")
+        return entity_to_dict(sched.create_scheduled_job(ScheduledJob(
+            schedule_id=schedule.id, job_type=b.get("jobType",
+                                                    "command-invocation"),
+            configuration=b.get("configuration", {}))))
+
+    # -- handlers: scripts --------------------------------------------------
+
+    # the two script surfaces (rule hooks on rule-processing, payload
+    # decoders on event-sources) share one handler set, parameterized by
+    # (service id, uploader, manager accessor)
+
+    def _script_list(self, req: Request, service: str, manager):
+        engine = self._engine(req, service)
+        return [{"name": s.name, "version": s.version,
+                 "updatedAt": s.updated_at} for s in manager(engine).list()]
+
+    def _script_put(self, req: Request, service: str, put):
+        engine = self._engine(req, service)
+        b = req.json()
+        if "source" not in b:
+            raise HttpError(400, "source required")
+        try:
+            script = put(engine)(req.params["name"], b["source"])
+        except Exception as exc:  # noqa: BLE001 - module body runs at upload;
+            # any exception there is the uploader's bug, not a server error
+            raise HttpError(400, f"script error: {type(exc).__name__}: "
+                                 f"{exc}") from exc
+        return {"name": script.name, "version": script.version}
+
+    def _script_delete(self, req: Request, service: str, delete):
+        engine = self._engine(req, service)
+        try:
+            delete(engine)(req.params["name"])
+        except ValueError as exc:   # e.g. decoder still bound to a receiver
+            raise HttpError(409, str(exc)) from exc
+        return {"deleted": req.params["name"]}
+
+    async def list_scripts(self, req: Request):
+        return self._script_list(req, "rule-processing",
+                                 lambda e: e.scripts)
+
+    async def put_script(self, req: Request):
+        return self._script_put(req, "rule-processing",
+                                lambda e: e.put_script)
+
+    async def delete_script(self, req: Request):
+        return self._script_delete(req, "rule-processing",
+                                   lambda e: e.delete_script)
+
+    async def list_decoder_scripts(self, req: Request):
+        return self._script_list(req, "event-sources",
+                                 lambda e: e.decoder_scripts)
+
+    async def put_decoder_script(self, req: Request):
+        return self._script_put(req, "event-sources",
+                                lambda e: e.put_decoder_script)
+
+    async def delete_decoder_script(self, req: Request):
+        return self._script_delete(req, "event-sources",
+                                   lambda e: e.delete_decoder_script)
+
+    async def list_connector_scripts(self, req: Request):
+        return self._script_list(req, "outbound-connectors",
+                                 lambda e: e.connector_scripts)
+
+    async def put_connector_script(self, req: Request):
+        return self._script_put(req, "outbound-connectors",
+                                lambda e: e.put_connector_script)
+
+    async def delete_connector_script(self, req: Request):
+        return self._script_delete(req, "outbound-connectors",
+                                   lambda e: e.delete_connector_script)
+
+    async def list_encoder_scripts(self, req: Request):
+        return self._script_list(req, "command-delivery",
+                                 lambda e: e.encoder_scripts)
+
+    async def put_encoder_script(self, req: Request):
+        return self._script_put(req, "command-delivery",
+                                lambda e: e.put_encoder_script)
+
+    async def delete_encoder_script(self, req: Request):
+        return self._script_delete(req, "command-delivery",
+                                   lambda e: e.delete_encoder_script)
+
+    # -- handlers: outbound connectors --------------------------------------
+
+    async def list_connectors(self, req: Request):
+        engine = self._engine(req, "outbound-connectors")
+        return [{"name": c.name, "kind": type(c).__name__,
+                 "script": getattr(c, "script_name", None)}
+                for c in engine.connectors.values()]
+
+    async def add_connector(self, req: Request):
+        engine = self._engine(req, "outbound-connectors")
+        b = req.json()
+        if b.get("name") in engine.connectors:
+            raise HttpError(409, f"connector {b.get('name')!r} exists")
+        try:
+            conn = engine.add_connector_config(b)
+        except (KeyError, ValueError, OSError) as exc:
+            # OSError: e.g. a jsonl path that can't be opened — the
+            # client's config problem, not a server fault
+            raise HttpError(400, f"bad connector config: {exc}") from exc
+        return {"name": conn.name, "kind": type(conn).__name__}
+
+    async def delete_connector(self, req: Request):
+        engine = self._engine(req, "outbound-connectors")
+        try:
+            engine.remove_connector(req.params["name"])
+        except KeyError as exc:
+            raise HttpError(404, str(exc)) from exc
+        return {"deleted": req.params["name"]}
+
+    # -- handlers: event-source receivers -----------------------------------
+
+    async def list_receivers(self, req: Request):
+        engine = self._engine(req, "event-sources")
+        return [{"name": r.name, "kind": type(r).__name__,
+                 "port": getattr(r, "port", None)}
+                for r in engine.receivers]
+
+    async def add_receiver(self, req: Request):
+        engine = self._engine(req, "event-sources")
+        b = req.json()
+        existing = {r.name for r in engine.receivers}
+        if b.get("name") in existing:
+            raise HttpError(409, f"receiver {b.get('name')!r} exists")
+        try:
+            receiver = engine.add_receiver(b)
+        except (KeyError, ValueError) as exc:
+            raise HttpError(400, f"bad receiver config: {exc}") from exc
+        try:
+            await receiver.start()
+        except Exception as exc:
+            # a receiver that never started must not squat its name or
+            # pin its decoder script
+            await engine.remove_receiver(receiver.name)
+            raise HttpError(400, f"receiver failed to start: {exc}") \
+                from exc
+        return {"name": receiver.name,
+                "port": getattr(receiver, "port", None)}
+
+    async def delete_receiver(self, req: Request):
+        engine = self._engine(req, "event-sources")
+        if not await engine.remove_receiver(req.params["name"]):
+            raise HttpError(404,
+                            f"unknown receiver {req.params['name']!r}")
+        return {"deleted": req.params["name"]}
+
+    # -- handlers: device groups -------------------------------------------
+
+    def _group(self, req: Request):
+        g = self._dm(req).get_device_group_by_token(req.params["token"])
+        if g is None:
+            raise HttpError(404, f"unknown device group "
+                                 f"{req.params['token']!r}")
+        return g
+
+    async def list_device_groups(self, req: Request):
+        return [entity_to_dict(g)
+                for g in self._dm(req).list_device_groups()]
+
+    async def create_device_group(self, req: Request):
+        b = req.json()
+        if not b.get("token"):
+            raise HttpError(400, "token required")
+        try:
+            g = self._dm(req).create_device_group(DeviceGroup(
+                token=b["token"], name=b.get("name", b["token"]),
+                description=b.get("description", ""),
+                roles=tuple(b.get("roles", ()))))
+        except ValueError as exc:
+            raise HttpError(409, str(exc)) from exc
+        return entity_to_dict(g)
+
+    async def get_device_group(self, req: Request):
+        return entity_to_dict(self._group(req))
+
+    async def delete_device_group(self, req: Request):
+        g = self._group(req)
+        self._dm(req).delete_device_group(g.id)
+        return {"deleted": g.token}
+
+    async def list_group_elements(self, req: Request):
+        g = self._group(req)
+        return [entity_to_dict(el)
+                for el in self._dm(req).list_device_group_elements(g.id)]
+
+    async def add_group_elements(self, req: Request):
+        dm = self._dm(req)
+        g = self._group(req)
+        b = req.json()
+        elements = []
+        for item in b.get("elements", []):
+            device_id = nested_id = None
+            if "device" in item:
+                device = dm.get_device_by_token(item["device"])
+                if device is None:
+                    raise HttpError(400, f"unknown device {item['device']!r}")
+                device_id = device.id
+            elif "group" in item:
+                nested = dm.get_device_group_by_token(item["group"])
+                if nested is None:
+                    raise HttpError(400, f"unknown group {item['group']!r}")
+                nested_id = nested.id
+            else:
+                raise HttpError(400, "element needs 'device' or 'group'")
+            elements.append(DeviceGroupElement(
+                group_id=g.id, device_id=device_id,
+                nested_group_id=nested_id,
+                roles=tuple(item.get("roles", ()))))
+        stored = dm.add_device_group_elements(g.id, elements)
+        return [entity_to_dict(el) for el in stored]
+
+    async def expand_group(self, req: Request):
+        g = self._group(req)
+        return [entity_to_dict(d)
+                for d in self._dm(req).expand_group_devices(g.id)]
+
+    # -- handlers: labels ---------------------------------------------------
+
+    async def device_label(self, req: Request):
+        labels = self._engine(req, "label-generation")
+        try:
+            svg = labels.device_label(req.params["token"],
+                                      generator=req.qp("generator"))
+        except KeyError as exc:
+            raise HttpError(404, str(exc)) from exc
+        return ("image/svg+xml", svg)
+
+
+def _reason(status: int) -> str:
+    return {200: "OK", 400: "Bad Request", 401: "Unauthorized",
+            403: "Forbidden", 404: "Not Found", 409: "Conflict",
+            413: "Payload Too Large", 429: "Too Many Requests",
+            500: "Internal Server Error",
+            503: "Service Unavailable"}.get(status, "Unknown")
+
+
+def _dumps(obj: Any) -> bytes:
+    return json.dumps(obj, default=_json_default).encode()
+
+
+def _json_default(o):
+    import enum
+
+    if isinstance(o, enum.Enum):
+        return o.value
+    if isinstance(o, (np.integer,)):
+        return int(o)
+    if isinstance(o, (np.floating,)):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    return str(o)

@@ -221,8 +221,12 @@ class RuleProcessingEngine(TenantEngine):
         self.scripts = ScriptManager(self.tenant_id)
         for name, source in cfg.get("scripts", {}).items():
             self.put_script(name, source)
-        if cfg.get("geofences"):
-            raise not_ported("tenant geofences", "A.1.4")
+        fences = cfg.get("geofences")
+        if fences:
+            from sitewhere_tpu_torch.services.geofence import GeofenceHook
+
+            self.add_hook("geofence",
+                          GeofenceHook(self.runtime, self.tenant_id, fences))
         self.processor = RuleProcessor(self)
         self.add_child(self.processor)
         # fused ingress fast lane (kernel/fastlane.py): when the tenant's

@@ -5,10 +5,9 @@ epoch moved, collect the snapshot ON the event loop (shallow list
 copies — nothing can mutate mid-iteration) and hand codec-encode +
 atomic file IO to the executor. Writes are lock-serialized against the
 stop-time save (task cancellation doesn't stop a worker thread already
-writing). Used by device-management (per-tenant registry; the JAX
-package's asset- and instance-management snapshotters belong to
-services that are ROADMAP A.1.4); restore is the owning service's job
-at initialize time
+writing). Used by device-management (per-tenant registry),
+asset-management, and instance-management (users + tenants);
+restore is the owning service's job at initialize time
 (persistence/durable.load_snapshot).
 """
 

@@ -6,13 +6,12 @@ from __future__ import annotations
 
 ITEMS = {
     "A.1.2": "wire bus, remote services and serve-bus",
-    "A.1.4": "the other services, REST and geofences",
     "A.1.5": "the other CLI commands",
     "A.2": "mesh sharding, multi-GPU",
 }
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a cut path raises: `raise not_ported("geofences", "A.1.4")`."""
+    """The error a cut path raises: `raise not_ported("remote services", "A.1.2")`."""
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP {item}: {ITEMS[item]})")

@@ -60,6 +60,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.services.snapshot\n"
         "import sitewhere_tpu_torch.training, sitewhere_tpu_torch.models.gnn\n"
         "import sitewhere_tpu_torch.models.graph, sitewhere_tpu_torch.parallel.ring\n"
+        "import sitewhere_tpu_torch.rest, sitewhere_tpu_torch.domain.spi\n"
+        "import sitewhere_tpu_torch.kernel.security, sitewhere_tpu_torch.utils.http\n"
+        "import sitewhere_tpu_torch.kernel.templates\n"
+        "import sitewhere_tpu_torch.services.geofence, sitewhere_tpu_torch.services.qrcode\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'sitewhere_tpu')]\n"
         "print(bad)\n"
@@ -148,6 +152,62 @@ def test_runtime_with_rule_processing_without_device_raises(no_card):
         RuleProcessingService(rt)
     cpu = ServiceRuntime(InstanceSettings(device="cpu"))
     assert RuleProcessingService(cpu).device.type == "cpu"
+
+
+def test_training_service_without_device_raises(no_card):
+    """batch-operations trains and sweeps on the runtime's device: with
+    no card and no device named it refuses at once, as rule-processing
+    does; with the CPU named it trains there."""
+    from sitewhere_tpu_torch.config import InstanceSettings
+    from sitewhere_tpu_torch.kernel.service import ServiceRuntime
+    from sitewhere_tpu_torch.services import BatchOperationsService
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchOperationsService(ServiceRuntime(InstanceSettings()))
+    cpu = ServiceRuntime(InstanceSettings(device="cpu"))
+    assert BatchOperationsService(cpu).device.type == "cpu"
+
+
+def test_demo_cli_serves_rest_with_all_fourteen_services(no_card):
+    """`cli demo --port P` hosts all fourteen services and answers
+    `GET /api/instance/health` on P while it streams."""
+    import socket
+    import time
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sitewhere_tpu_torch.cli", "demo", "--cpu",
+         "--devices", "64", "--seconds", "4", "--port", str(port)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        health = None
+        deadline = time.monotonic() + 90
+        while health is None and time.monotonic() < deadline:
+            assert proc.poll() is None, proc.communicate()
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/api/instance/health",
+                        timeout=5) as r:
+                    assert r.status == 200
+                    health = json.loads(r.read())
+            except OSError:
+                time.sleep(0.2)
+        out, err = proc.communicate(timeout=90)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err
+    assert health is not None, err
+    from sitewhere_tpu_torch import cli, services as svc
+
+    ids = {getattr(svc, name).identifier for name in cli.ALL_SERVICES}
+    services = {c["name"] for c in health["children"]}
+    assert len(ids) == 14 and ids <= services, sorted(services)
+    report = json.loads(out[out.index("{"):])
+    assert report["events_persisted"] == report["events_sent"] > 0
 
 
 def test_demo_cli_needs_the_card_or_the_cpu_named(no_card):

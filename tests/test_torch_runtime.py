@@ -293,12 +293,6 @@ def _runtime(**settings):
     return build_runtime(tconfig.InstanceSettings(device="cpu", **settings))
 
 
-def _engine(service: str, sections: dict):
-    rt = _runtime()
-    return rt.services[service].create_tenant_engine(
-        tconfig.TenantConfig(tenant_id="t", sections=sections))
-
-
 CUTS = {
     "wire-bus": (lambda: _runtime().__class__(
         tconfig.InstanceSettings(device="cpu"), bus=object()), "A.1.2"),
@@ -315,17 +309,11 @@ CUTS = {
     "trainer-mesh": (lambda: __import__(
         "sitewhere_tpu_torch.training.trainer", fromlist=["Trainer"]).Trainer(
         None, mesh=object()), "A.2"),
-    "geofences": (lambda: _engine(
-        "rule-processing", {"rule-processing": {"geofences": [{"id": "z"}]}}),
-        "A.1.4"),
     "mesh": (lambda: _runtime().services["rule-processing"].shared_pool(
         "zscore", {}, __import__(
             "sitewhere_tpu_torch.scoring.server",
             fromlist=["ScoringConfig"]).ScoringConfig(),
         {"data": 2, "model": 2}), "A.2"),
-    "demo-rest-port": (lambda: __import__(
-        "sitewhere_tpu_torch.cli", fromlist=["main"]).main(
-        ["demo", "--cpu", "--port", "8080"]), "A.1.4"),
 }
 
 
