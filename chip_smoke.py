@@ -184,7 +184,36 @@ prints no result):
                 of one device subscribes to its command topic, `POST
                 .../invocations` reaches it, its response `POST`ed back
                 shows in `GET /api/invocations/{id}/responses` (the round
-                trip in ms).
+                trip in ms);
+ 26. split-window — the bench's process split (`tools/split.py`,
+                `bench.py --split`) at 32,768 devices: the broker (an
+                in-proc bus behind a `BusServer`), event-sources and the
+                simulator in this process, device-management,
+                inbound-processing, event-management, device-state and
+                rule-processing (pipeline-window's tenant: K1 on a
+                dedicated session) in a fresh interpreter on a
+                `RemoteEventBus`; W+4 warm ticks into its store, six fleet
+                ticks, then 24 paced at half the burst's rate. Every event
+                scored exactly once (read back over the broker), every
+                consumer group of the tenant committed through the end
+                offsets, finite scores, anomalies standing out, K1 launches
+                == dispatches in the scorer process, and a 1,024-device
+                sample against K1's plain version on the CPU over the
+                scorer's params and store windows (written under build/);
+                prints events/s, the scorer's e2e p50/p99 (wire decode →
+                scored) and its stage breakdown, `wire_stats()`,
+                dispatches and K1 launches;
+ 27. split-stream — the same with `lstm-stream` through the pool: K1
+                launches 0, the sample against the CPU streaming model
+                stepped over every tick;
+ 28. cli-split — `cli serve-bus --port 0`, `cli run --bus` hosting the
+                five scoring services with `--no-tenants` and an
+                `--api-port` (on the card), `cli run --bus --services
+                event-sources` with the default tenant and a TCP gateway;
+                2,048 devices registered over the API port, `cli
+                simulate` at the gateway for 2 s: every event sent is
+                persisted in the scoring process (read back over its API
+                port), and SIGTERM stops all three with exit 0.
 Phases 5–8 and 12–15 check that every event is scored, every score
 finite, the dispatches are the occurrence rounds, injected anomalies
 stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
@@ -200,7 +229,7 @@ held in aggregate (a floor on the share of rows within the tolerance, a
 ceiling on the p99 |err|: BF16_SHARE_FLOOR), and the same served paths
 in float32 hold every sampled row to the tolerance. No CUDA
 kernel of the port runs on these paths (their steps are plain PyTorch),
-so K1's launch count must stay 0 there, and in phases 18–19 and 23. Each
+so K1's launch count must stay 0 there, and in phases 18–19, 23 and 27. Each
 path prints one stats line.
 The second-to-last line is the `{"kernels": [...]}` record; the last is
 `{"ok": true, "device": {...}}`.
@@ -2098,6 +2127,31 @@ async def coap_non_burst(pipe) -> dict:
     return stats
 
 
+def cli_exec(*args: str, stderr=asyncio.subprocess.PIPE):
+    """`python -u -m sitewhere_tpu_torch.cli *args` from the checkout's
+    root, its stdout piped (a coroutine giving the process)."""
+    return asyncio.create_subprocess_exec(
+        sys.executable, "-u", "-m", "sitewhere_tpu_torch.cli", *args,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=asyncio.subprocess.PIPE, stderr=stderr)
+
+
+async def run_simulate(protocol: str, port: int, *flags: str):
+    """`cli simulate` over `protocol` at `port`, SIMULATE_DEVICES for
+    2 s: exit 0 and a report of the events sent; returns (sent, its
+    stdout)."""
+    proc = await cli_exec("simulate", "--protocol", protocol, "--port",
+                          str(port), "--devices", str(SIMULATE_DEVICES),
+                          "--seconds", "2", *flags)
+    out, err = await asyncio.wait_for(proc.communicate(), 300.0)
+    text = out.decode()
+    m = re.search(rf"sent (\d+) events over {protocol}", text)
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"cli simulate: exit {proc.returncode}, "
+                             f"{text!r} {err.decode()[-2000:]}")
+    return int(m.group(1)), text
+
+
 async def simulate_over(pipe, port: int, stored: int) -> dict:
     """`python -m sitewhere_tpu_torch.cli simulate --protocol mqtt` as a
     subprocess against the live runtime: exit 0, and the events it
@@ -2108,19 +2162,8 @@ async def simulate_over(pipe, port: int, stored: int) -> dict:
     decoded = pipe.rt.bus.subscribe(pipe.rt.naming.tenant_topic(
         pipe.tenant, TopicNaming.EVENT_SOURCE_DECODED), group="smoke-simulate")
     t0 = time.monotonic()
-    proc = await asyncio.create_subprocess_exec(
-        sys.executable, "-m", "sitewhere_tpu_torch.cli", "simulate",
-        "--protocol", "mqtt", "--port", str(port), "--devices",
-        str(SIMULATE_DEVICES), "--seconds", "2", "--rate", "20",
-        "--topic", topic, cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
-    out, err = await asyncio.wait_for(proc.communicate(), 300.0)
-    text = out.decode()
-    m = re.search(r"sent (\d+) events over mqtt", text)
-    if proc.returncode != 0 or m is None:
-        raise AssertionError(f"cli simulate: exit {proc.returncode}, "
-                             f"{text!r} {err.decode()[-2000:]}")
-    sent = int(m.group(1))
+    sent, text = await run_simulate("mqtt", port, "--rate", "20",
+                                    "--topic", topic)
     deadline = time.monotonic() + 60.0
     while pipe.em.telemetry.total_events < stored + sent:
         if time.monotonic() > deadline:
@@ -2309,7 +2352,7 @@ async def phase_platform(torch) -> dict:
     `lstm` served through K1, `POST /api/batch/train` hot-swapping the
     trained weights into the session, geofence alerts, the GNN
     maintenance sweep and an MQTT command round trip."""
-    from sitewhere_tpu_torch.cli import ALL_SERVICES, build_runtime
+    from sitewhere_tpu_torch.cli import build_runtime
     from sitewhere_tpu_torch.config import InstanceSettings
     from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
     from sitewhere_tpu_torch.domain.batch import BatchContext, LocationBatch
@@ -2333,7 +2376,7 @@ async def phase_platform(torch) -> dict:
                                      dir=scratch_dir()) as data_dir:
         rt = build_runtime(InstanceSettings(
             instance_id="platform", rest_port=0, data_dir=data_dir,
-            flow_degrade_at=10.0, flow_defer_at=10.0), ALL_SERVICES)
+            flow_degrade_at=10.0, flow_defer_at=10.0), services=None)
         await rt.start()
         try:
             port = rt.services["instance-management"].rest.port
@@ -2703,6 +2746,247 @@ async def phase_platform(torch) -> dict:
     return out
 
 
+# -- the process split: the scorer in a process of its own --------------------
+
+def ticks_window(ticks, devices: np.ndarray, w: int):
+    """The last `w` readings of `devices` over `ticks` (fleet ticks of
+    one channel, every device once each, oldest first), as the store's
+    window gives them: ([D, w] float32, [D, w] valid), built from the
+    batches this process sent and nothing the scorer returned."""
+    cols = []
+    for batch in ticks[-w:]:
+        col = np.full(int(devices.max()) + 1, np.nan, np.float32)
+        keep = batch.device_index <= devices.max()
+        col[batch.device_index[keep]] = batch.value[keep]
+        cols.append(col[devices])
+    x = np.stack(cols, axis=1)
+    if len(cols) != w or np.isnan(x).any():
+        raise AssertionError(f"{len(cols)} ticks do not fill a window of "
+                             f"{w} for every sampled device")
+    return x, np.ones_like(x, bool)
+
+
+async def phase_split(torch, label: str, model: str) -> dict:
+    """`tools/split.py` at full width: the broker, event-sources and the
+    simulator here, the five scoring services (K1 on the windowed
+    session, or the `lstm-stream` pool) in a fresh interpreter on a
+    `RemoteEventBus`; every event scored exactly once (read back over
+    the broker), every consumer group of the tenant committed through
+    the end offsets, finite scores, the anomalous tick standing out, K1
+    launches == dispatches on the windowed session (0 on the pool), and
+    SAMPLE devices against the CPU reference on the child's params and
+    on windows built here from the ticks sent (the child's own store
+    windows, written under `scratch_dir()`, must equal them)."""
+    from types import SimpleNamespace
+
+    from sitewhere_tpu_torch.convert import params_from_numpy
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.tools import pipeline as pl
+    from sitewhere_tpu_torch.tools import split as sp
+    from sitewhere_tpu_torch.training.checkpoint import CheckpointStore
+
+    # the scorer process allocates on the same card
+    torch.cuda.empty_cache()
+    cfg = sp.SplitConfig(devices=FLEET, model=model, window=WINDOW,
+                         burst_ticks=PIPELINE_TICKS,
+                         anomaly_at=PIPELINE_ANOMALY_AT,
+                         paced_ticks=PACED_TICKS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke-split-",
+                                     dir=scratch_dir()) as d:
+        report, rec = await sp.run(cfg, sample=SAMPLE, sample_dir=d)
+        params, _ = CheckpointStore(d).load(sp.TENANT, model)
+        with np.load(os.path.join(d, "windows.npz")) as win:
+            sample, child_x, child_valid = (win["devices"], win["x"],
+                                            win["valid"])
+    # the pool's ring was seeded from the warm history before any tick;
+    # the windowed session is sampled after the burst
+    sent = [b for b, _ in rec["ticks"][:0 if cfg.pooled else PIPELINE_TICKS]]
+    x, valid = ticks_window(sp.warm_ticks(cfg) + sent, sample, WINDOW)
+    if not (np.array_equal(child_x, x) and np.array_equal(child_valid, valid)):
+        raise AssertionError(f"{label}: the scorer's store windows differ "
+                             f"from the ticks sent, max |diff| "
+                             f"{np.nanmax(np.abs(child_x - x))}")
+    table = pl.scored_table(rec["burst"] + rec["paced"])
+    scores = [np.array([table[k][0] for k in zip(
+        batch.device_index.tolist(), batch.ts.tolist())], np.float32)
+        for batch, _ in rec["ticks"]]
+    if not all(np.isfinite(sc).all() for sc in scores):
+        raise AssertionError(f"{label}: a score is not finite")
+    check_anomalies(label, scores[PIPELINE_ANOMALY_AT],
+                    rec["ticks"][PIPELINE_ANOMALY_AT][1])
+    launches, n_dispatch = report["kernel_launches"], report["dispatches"]
+    params = params_from_numpy(params, "cpu")
+    if model == "lstm-stream":
+        store = SimpleNamespace(window=lambda devices, w: (x, valid))
+        ref = StreamReference(torch, params, store, sample)
+        err = check_stream_sample(label, ref, rec["ticks"], scores)
+        if launches:
+            raise AssertionError(f"{label}: {launches} K1 launches")
+    else:
+        # the last burst tick's scores
+        cpu_model = build_model("lstm", device="cpu", window=WINDOW,
+                                hidden=HIDDEN)
+        ref_sc = plain_scores(torch, cpu_model, params, torch.from_numpy(x),
+                              torch.from_numpy(valid))
+        err = check_close(label, scores[PIPELINE_TICKS - 1][sample],
+                          ref_sc.float().numpy())
+        if launches == 0 or launches != n_dispatch:
+            raise AssertionError(f"{label}: K1 launches {launches} != "
+                                 f"dispatches {n_dispatch}")
+    if n_dispatch < PIPELINE_TICKS + PACED_TICKS:
+        raise AssertionError(f"{label}: {n_dispatch} dispatches for "
+                             f"{PIPELINE_TICKS + PACED_TICKS} fleet ticks")
+    stats = {**report, "max_err": err,
+             "seconds": time.perf_counter() - t0}
+    log(f"{label}: {json.dumps(stats)}")
+    return stats
+
+
+class CliProcess:
+    """One `python -m sitewhere_tpu_torch.cli` process: its stdout read
+    line by line with a deadline, its stderr kept in a file for the
+    failure message, stopped by SIGTERM."""
+
+    def __init__(self, *args: str):
+        self.args = args
+        self.err = tempfile.TemporaryFile(dir=scratch_dir())
+
+    async def start(self) -> "CliProcess":
+        self.proc = await cli_exec(*self.args, stderr=self.err)
+        return self
+
+    def tail(self) -> str:
+        self.err.seek(0)
+        return self.err.read().decode(errors="replace")[-3000:]
+
+    async def expect(self, pattern: str, timeout: float = 300.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise AssertionError(f"cli {self.args[0]}: no {pattern!r} "
+                                     f"in {timeout} s: {self.tail()}")
+            line = await asyncio.wait_for(self.proc.stdout.readline(), left)
+            if not line:
+                raise AssertionError(
+                    f"cli {self.args[0]}: exited {await self.proc.wait()} "
+                    f"before {pattern!r}: {self.tail()}")
+            m = re.search(pattern, line.decode())
+            if m:
+                return m
+
+    async def stop(self, timeout: float = 60.0) -> int:
+        if self.proc.returncode is None:
+            self.proc.terminate()
+        try:
+            rc = await asyncio.wait_for(self.proc.wait(), timeout)
+        except asyncio.TimeoutError:
+            self.proc.kill()
+            await self.proc.wait()
+            raise AssertionError(f"cli {self.args[0]}: no exit {timeout} s "
+                                 f"after SIGTERM: {self.tail()}") from None
+        if rc != 0:
+            raise AssertionError(f"cli {self.args[0]}: exit {rc} after "
+                                 f"SIGTERM: {self.tail()}")
+        return rc
+
+
+async def phase_cli_split() -> dict:
+    """The process split through the CLI: `serve-bus --port 0`; `run
+    --bus` hosting the five scoring services with `--no-tenants` and an
+    `--api-port` (on the card); `run --bus --services event-sources`
+    with the default tenant and a TCP gateway; the fleet registered in
+    the scoring process over its API port; `cli simulate` at the gateway
+    for 2 s. Every event sent is persisted in the scoring process (read
+    back over its API port), and SIGTERM stops all three with exit 0."""
+    import socket
+
+    from sitewhere_tpu_torch.domain.model import DeviceType
+    from sitewhere_tpu_torch.kernel.wire import ApiChannel
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    t0 = time.monotonic()
+    steps = {}  # seconds from the phase's start to each step's end
+    mark = lambda step: steps.__setitem__(  # noqa: E731
+        step, time.monotonic() - t0)
+    api_port, gateway = free_port(), free_port()
+    bus = await CliProcess("serve-bus", "--port", "0").start()
+    procs = [bus]
+    channel = None
+    try:
+        m = await bus.expect(r"bus broker on ([\d.]+):(\d+)", 60.0)
+        mark("serve-bus")
+        addr = f"{m.group(1)}:{m.group(2)}"
+        scorer = await CliProcess(
+            "run", "--bus", addr, "--services",
+            "device-management,inbound-processing,event-management,"
+            "device-state,rule-processing", "--no-tenants", "--api-port",
+            str(api_port)).start()
+        ingest = await CliProcess(
+            "run", "--bus", addr, "--services", "event-sources",
+            "--gateway-port", str(gateway)).start()
+        procs += [scorer, ingest]
+        await scorer.expect(r"instance .* up", 300.0)
+        mark("scorer-run")
+        await ingest.expect(r"instance .* up", 300.0)
+        mark("ingest-run")
+        channel = ApiChannel("127.0.0.1", api_port)
+        await asyncio.gather(*(asyncio.wait_for(channel.wait_engine(
+            service, "default", timeout=300.0), 310.0) for service in (
+            "device-management", "event-management", "rule-processing")))
+        mark("engines")
+        await asyncio.wait_for(channel.call(
+            "device-management", "bootstrap_fleet", tenant="default",
+            args=[DeviceType(token="thermo", name="Thermometer"),
+                  SIMULATE_DEVICES]), 120.0)
+        mark("fleet")
+        deadline = time.monotonic() + 60.0
+        while True:  # the gateway listens once its engine is up
+            try:
+                _, w = await asyncio.open_connection("127.0.0.1", gateway)
+                w.close()
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"cli split: no gateway on "
+                                         f"{gateway}: {ingest.tail()}")
+                await asyncio.sleep(0.1)
+        mark("gateway")
+        sent, _ = await run_simulate("tcp", gateway)
+        mark("simulate")
+        devices = np.arange(SIMULATE_DEVICES)
+        deadline = time.monotonic() + 60.0
+        while True:
+            _, valid = await asyncio.wait_for(channel.call(
+                "event-management", "window", tenant="default",
+                sub="telemetry", args=[devices, WINDOW]), 60.0)
+            persisted = int(valid.sum())
+            if persisted >= sent or time.monotonic() > deadline:
+                break
+            await asyncio.sleep(0.1)
+        mark("persisted")
+    finally:
+        if channel is not None:
+            channel.close()
+        # the two `run`s together, then their broker
+        names = [" ".join(p.args[:1] + p.args[3:5]) for p in procs]
+        rcs = dict(zip(names[1:], await asyncio.gather(
+            *(p.stop() for p in procs[1:]))))
+        rcs[names[0]] = await bus.stop()
+    mark("stopped")
+    stats = {"sent": sent, "persisted": persisted, "exit": rcs,
+             "steps_s": steps, "seconds": time.monotonic() - t0}
+    log(f"cli-split: {json.dumps(stats)}")
+    if not sent or persisted != sent:
+        raise AssertionError(f"cli split: {stats}")
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -2750,6 +3034,10 @@ def main() -> int:
     asyncio.run(phase_ingress(torch))
     asyncio.run(phase_ingress_window(torch))
     asyncio.run(phase_platform(torch))
+    for label, model in (("split-window", "lstm"),
+                         ("split-stream", "lstm-stream")):
+        asyncio.run(phase_split(torch, label, model))
+    asyncio.run(phase_cli_split())
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

@@ -39,7 +39,6 @@ from sitewhere_tpu_torch.kernel.lifecycle import (
     LifecycleStatus,
 )
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -366,32 +365,49 @@ class ServiceRuntime(LifecycleComponent):
     def __init__(self, settings: Optional[InstanceSettings] = None,
                  bus: Optional[Any] = None):
         settings = settings or InstanceSettings()
-        if bus is not None and not isinstance(bus, EventBus):
-            raise not_ported("a bus other than the in-process EventBus",
-                             "A.1.2")
         super().__init__(f"instance-{settings.instance_id}")
         self.settings = settings
         self.naming = TopicNaming(settings.instance_id)
         self.metrics = MetricsRegistry()
         from sitewhere_tpu_torch.kernel.tracing import Tracer
         self.tracer = Tracer(sample=settings.trace_sample)
-        # `bus` may be an in-proc EventBus another runtime owns (N
-        # runtimes sharing one bus); a wire bus is not ported yet
+        # `bus` may be a RemoteEventBus (kernel/wire.py): this process
+        # then shares one broker's topics with peer processes — the
+        # process-split deployment the reference runs as 14 JVMs
         self.bus = bus if bus is not None else EventBus(
             default_partitions=settings.bus_default_partitions,
             retention=settings.bus_retention)
-        if self.bus.parent is None:
-            self.add_child(self.bus)
-            # the owning runtime's registry counts broker-side
-            # fenced rejections (`fence.rejections`)
-            self.bus.metrics = self.metrics
-        # else: an in-proc bus another runtime already owns — use it,
-        # leave its lifecycle to the owning runtime
+        if isinstance(self.bus, LifecycleComponent):
+            if self.bus.parent is None:
+                self.add_child(self.bus)
+                # the owning runtime's registry counts broker-side
+                # fenced rejections (`fence.rejections`)
+                if hasattr(self.bus, "metrics"):
+                    self.bus.metrics = self.metrics
+            # else: an in-proc bus another runtime already owns (the
+            # in-proc fleet topology: N runtimes share one bus) — use
+            # it, leave its lifecycle to the owning runtime
+        else:
+            self._external_bus = self.bus
+            if hasattr(self.bus, "metrics"):
+                # wire bus: the fast path's gauges/counters
+                # (wire.prefetch_credit / linger_batches /
+                # frames_coalesced) land on this runtime's registry
+                self.bus.metrics = self.metrics
         # epoch fencing, worker side (docs/FLEET.md): the ledger of
         # (tenant, epoch) grants this process holds. FleetWorker sets
         # worker_id/on_lost; non-fleet runtimes never grant, so every
         # token resolves to None and writes stay unfenced.
         self.fence = FenceState()
+        if hasattr(self.bus, "on_fenced"):
+            # wire bus: a fire-and-forget commit/produce rejection
+            # surfaces through the client callback instead of a raise
+            self.bus.on_fenced = self.fence.mark_fenced
+        if hasattr(self.bus, "tracer"):
+            # wire bus: the broker hop records wire.produce/wire.poll
+            # spans for traced batches (kernel/wire.py), so a split
+            # deployment's trace spine covers the hop between processes
+            self.bus.tracer = self.tracer
         # per-tenant flow control (kernel/flow.py): quotas, weighted-fair
         # inbound admission, overload shedding — every ingress edge and
         # the rule-processing shed path consult this
@@ -409,6 +425,7 @@ class ServiceRuntime(LifecycleComponent):
             self.beat = TelemetryBeat(self)
             self.add_child(self.beat)
         self.services: dict[str, Service] = {}
+        self.remotes: dict[str, Any] = {}   # identifier -> RemoteService
         # fleet control plane handle (the JAX package's fleet/): the
         # FleetController registers itself here on the runtime that
         # hosts it, so REST (`GET /api/fleet`) and the observe report
@@ -449,8 +466,14 @@ class ServiceRuntime(LifecycleComponent):
 
     def add_remote_service(self, identifier: str, host: str, port: int,
                            secret: Optional[str] = None) -> Any:
-        """Register a peer process's service (wire RPC): not ported."""
-        raise not_ported("remote services (wire RPC)", "A.1.2")
+        """Register a peer process's service: `api(identifier)` and
+        `wait_for_engine` resolve to wire proxies (kernel/wire.py)."""
+        from sitewhere_tpu_torch.kernel.wire import ApiChannel, RemoteService
+
+        remote = RemoteService(identifier, ApiChannel(host, port,
+                                                      secret=secret))
+        self.remotes[identifier] = remote
+        return remote
 
     def install_faults(self, injector: Any) -> Any:
         """Install a FaultInjector on the runtime and its bus (chaos
@@ -465,7 +488,10 @@ class ServiceRuntime(LifecycleComponent):
 
     def api(self, identifier: str) -> Any:
         """In-proc equivalent of a gRPC ApiChannel to `identifier`."""
-        return self.services[identifier].api()
+        svc = self.services.get(identifier)
+        if svc is not None:
+            return svc.api()
+        return self.remotes[identifier].api()
 
     async def wait_for_api(self, identifier: str, timeout: float = 10.0) -> Any:
         """Wait-for-available retry (reference: ApiChannel.waitForApiAvailable)."""
@@ -487,6 +513,9 @@ class ServiceRuntime(LifecycleComponent):
         start order across services is scheduler timing — consumers that
         need a peer's engine must wait, exactly like the reference's
         ApiChannel wait-for-available."""
+        remote = self.remotes.get(identifier)
+        if remote is not None and identifier not in self.services:
+            return await remote.wait_engine(tenant_id, timeout=timeout)
         deadline = asyncio.get_event_loop().time() + timeout
         while True:
             svc = self.services.get(identifier)
@@ -618,7 +647,19 @@ class ServiceRuntime(LifecycleComponent):
             if service.multitenant:
                 await service.stop_tenant_engine(tenant_id)
 
+    # -- external (wire) bus lifecycle --------------------------------------
+
+    async def _do_initialize(self, monitor: LifecycleProgressMonitor) -> None:
+        eb = getattr(self, "_external_bus", None)
+        if eb is not None:
+            await eb.initialize()
+
     async def _do_stop(self, monitor: LifecycleProgressMonitor) -> None:
+        eb = getattr(self, "_external_bus", None)
+        if eb is not None:
+            await eb.stop()
+        for remote in self.remotes.values():
+            remote.channel.close()
         if self.history is not None:
             # flush the open telemetry windows to disk (the readback
             # across a restart is the whole point of the tier)

@@ -15,11 +15,11 @@ compacted `registry-state` topic, so it needs no shared `data_dir`:
   compaction). Every publish threads the owner's fencing token: a
   zombie owner cannot pollute the replicated state.
 - **read_state_topic** — the adopter's side: drain the retained
-  records (the in-proc bus's `peek`; the wire bus's consumer branch is
-  ROADMAP A.1.2), pick the newest snapshot, return it plus the
+  records (in-proc `peek`, or a throwaway wire consumer reading from
+  the beginning), pick the newest snapshot, return it plus the
   mutation records after it. `DeviceManagementEngine._do_initialize`
   applies them and a fresh worker with an EMPTY local data_dir adopts
-  a moved tenant from nothing but the bus.
+  a moved tenant from nothing but the wire bus.
 
 Clean release seals the stream: the replicator's stop path flushes the
 mutation buffer and publishes a final snapshot BEFORE the fleet worker
@@ -43,7 +43,6 @@ from sitewhere_tpu_torch.kernel.lifecycle import (
     BackgroundTaskComponent,
     LifecycleProgressMonitor,
 )
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -152,16 +151,30 @@ async def read_state_topic(runtime, tenant_id: str, *,
     """Drain a tenant's retained registry-state records; returns
     `(latest snapshot record or None, mutation records after it)`.
 
-    In-proc buses are peeked (no consumer group). The JAX package reads
-    a wire bus with a worker-tagged reader group seeked to the
-    beginning; the port has no wire bus yet, and that branch raises."""
+    In-proc buses are peeked (no consumer group); wire buses use a
+    worker-tagged reader group seeked to the beginning — the group name
+    deliberately does NOT start with the tenant id, so the controller's
+    per-tenant lag aggregation (`{tenant}.{service}` groups) never
+    counts replay backlog as scoring lag."""
     topic = runtime.naming.tenant_topic(tenant_id,
                                         TopicNaming.REGISTRY_STATE)
-    peek = getattr(runtime.bus, "peek", None)
-    if peek is None:
-        raise not_ported(f"registry replay from a wire bus (reader "
-                         f"{reader_tag!r})", "A.1.2")
-    values = [r.value for r in peek(topic, limit=-1)]
+    bus = runtime.bus
+    values: list = []
+    peek = getattr(bus, "peek", None)
+    if peek is not None:
+        values = [r.value for r in peek(topic, limit=-1)]
+    else:
+        group = f"registry-replay.{tenant_id}.{reader_tag}"
+        consumer = bus.subscribe(topic, group=group, name=group)
+        try:
+            consumer.seek_to_beginning()
+            while True:
+                records = await consumer.poll(max_records=512, timeout=0.3)
+                if not records:
+                    break
+                values.extend(r.value for r in records)
+        finally:
+            consumer.close()
     snap: dict | None = None
     muts: list[dict] = []
     for value in values:

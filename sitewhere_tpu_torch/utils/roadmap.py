@@ -5,13 +5,14 @@ silent stub."""
 from __future__ import annotations
 
 ITEMS = {
-    "A.1.2": "wire bus, remote services and serve-bus",
-    "A.1.5": "the other CLI commands",
+    "A.1.5": "a bench entry for the port",
     "A.2": "mesh sharding, multi-GPU",
+    "A.5": "the fleet control plane",
+    "A.6": "swxlint over the port",
 }
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a cut path raises: `raise not_ported("remote services", "A.1.2")`."""
+    """The error a cut path raises: `raise not_ported("fleet-worker", "A.5")`."""
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP {item}: {ITEMS[item]})")

@@ -48,7 +48,6 @@ from sitewhere_tpu_torch.kernel import flow as tflow
 from sitewhere_tpu_torch.kernel import metrics as tmetrics
 from sitewhere_tpu_torch.kernel import service as tservice
 from sitewhere_tpu_torch.kernel import tracing as ttracing
-from sitewhere_tpu_torch.services import replication as treplication
 from sitewhere_tpu_torch.sim import simulator as tsim
 
 # the tier-1 run shares the host's cores between test workers
@@ -294,13 +293,13 @@ def _runtime(**settings):
 
 
 CUTS = {
-    "wire-bus": (lambda: _runtime().__class__(
-        tconfig.InstanceSettings(device="cpu"), bus=object()), "A.1.2"),
-    "remote-service": (lambda: _runtime().add_remote_service(
-        "device-management", "127.0.0.1", 1), "A.1.2"),
-    "replication-wire-bus": (lambda: asyncio.run(
-        treplication.read_state_topic(SimpleNamespace(
-            naming=tbus.TopicNaming("i"), bus=object()), "t")), "A.1.2"),
+    "run-fleet-controller": (lambda: tcli.main(
+        ["run", "--cpu", "--fleet-controller"]), "A.5"),
+    "fleet-worker": (lambda: tcli.main(
+        ["fleet-worker", "--bus", "127.0.0.1:1", "--worker-id", "w0"]),
+        "A.5"),
+    "lint": (lambda: tcli.main(["lint"]), "A.6"),
+    "bench": (lambda: tcli.main(["bench", "--split"]), "A.1.5"),
     "train-distributed": (lambda: tcli.main(
         ["train", "--cpu", "--distributed"]), "A.2"),
     "longwin-mesh": (lambda: __import__(
