@@ -213,7 +213,42 @@ prints no result):
                 2,048 devices registered over the API port, `cli
                 simulate` at the gateway for 2 s: every event sent is
                 persisted in the scoring process (read back over its API
-                port), and SIGTERM stops all three with exit 0.
+                port), and SIGTERM stops all three with exit 0;
+ 29. fleet-window — the bench's fleet (`tools/fleet.py`, `bench.py
+                --workers 2`): the broker, event-sources, the controller
+                and the simulator in this process, two worker processes on
+                the card hosting the five scoring services for 4 tenants
+                × 8,192 devices (pipeline-window's windowed `lstm`, K1 on
+                each tenant's session), registries adopted by bus replay,
+                the tenants placed while the workers start (as the bench
+                does: the second worker's placement moves some); W+4 warm
+                ticks and six burst ticks: every event scored
+                once, the anomalous tick standing out, K1 launches ==
+                dispatches in each worker (its `stats` op), 1,024 devices
+                against K1's plain version on windows built from the ticks
+                sent; then a 6 s flood with the busiest worker SIGKILLed:
+                0 accepted events lost, the decoded backlog 0, every
+                tenant group committed through the end, the death detected
+                within the 6 s bound (plus the polling step), the
+                replacement in; prints events/s and the seconds to detect,
+                reassign, converge and take the replacement in;
+ 30. fleet-forecast — the controller's predictive planner on a runtime
+                with a telemetry history: synthetic ramp history,
+                `seasonal` trained and checkpointed, tenant-0 served
+                through the pool on the card until the controller's
+                `autoscale()` records a forecast-attributed `add_replica`
+                with its provenance; the slot's store windows equal to the
+                lag appended, the forecasts against the CPU model on the
+                checkpoint's weights over those windows;
+ 31. cli-fleet — `cli run --fleet-controller --serve-bus-port 0` (REST,
+                the default tenant, a TCP gateway), 2,048 devices
+                registered onto the broker's bus, two `cli fleet-worker`
+                processes on the card, `cli fleet status` until adopted,
+                `cli simulate` for 2 s, SIGKILL of the tenant's owner,
+                `fleet status` until the survivor owns it, `cli simulate`
+                again: every event sent persisted (the event-management
+                group committed through the end, every (device, time) on
+                the persisted topic), SIGTERM stops the rest with exit 0.
 Phases 5–8 and 12–15 check that every event is scored, every score
 finite, the dispatches are the occurrence rounds, injected anomalies
 stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
@@ -239,6 +274,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
 from collections import Counter
 import re
@@ -323,6 +359,9 @@ PLATFORM_REST_DEVICES = 300
 PLATFORM_TRAIN_STEPS, PLATFORM_TRAIN_BATCH = 100, 1024
 PLATFORM_GEO_SUBSET = 4096
 PROBE_S = 0.005
+# the fleet-window phase: the slack allowed past `fleet_dead_after_s`
+# for the controller's tick and this process's polling
+FLEET_POLL_SLACK_S = 0.5
 
 
 def log(msg: str) -> None:
@@ -2987,6 +3026,411 @@ async def phase_cli_split() -> dict:
     return stats
 
 
+
+# -- the fleet: placement, handoff, a kill drill, the predictive planner -----
+
+async def phase_fleet_window(torch) -> dict:
+    """`tools/fleet.py` at full width: the broker, event-sources, the
+    controller and the simulator here, two worker processes on the card
+    (`tools.fleet.TENANTS` tenants of pipeline-window's windowed `lstm`, K1 on
+    each tenant's dedicated session). W+4 warm ticks, then a burst of
+    `tools.fleet.BURST_TICKS`: every event scored once (read back over the broker),
+    the anomalous tick standing out, K1 launches == dispatches in each
+    worker (its `stats` op), and SAMPLE devices (spread over the tenants)
+    of the last burst tick against K1's plain version on the CPU, over
+    the sessions' params (seed 0) and windows built here from the ticks
+    sent; then the kill drill: 0 accepted events lost, the decoded
+    backlog 0, every tenant group drained, the death detected within
+    `fleet_dead_after_s` (plus the polling step), the replacement in."""
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.tools import fleet as fl
+    from sitewhere_tpu_torch.tools.pipeline import scored_table
+
+    import logging
+
+    # the worker processes allocate on the same card
+    torch.cuda.empty_cache()
+    label = "fleet-window"
+    # the run's steps and the controller's placement trail, in this log
+    handler = logging.StreamHandler(sys.stdout)
+    for name in ("sitewhere_tpu_torch.tools.fleet",
+                 "sitewhere_tpu_torch.fleet"):
+        logging.getLogger(name).setLevel(logging.INFO)
+        logging.getLogger(name).addHandler(handler)
+    cfg = fl.FleetConfig(devices=FLEET)
+    t0 = time.perf_counter()
+    report, rec = await fl.run(cfg)
+    workers = report["burst_workers"]
+    owned = [w for w, s in workers.items() if s["owned"]]
+    if len(owned) < 2:
+        raise AssertionError(f"{label}: placement used {owned} of {workers}")
+    for wid, st in workers.items():
+        if st["kernel_launches"] != st["dispatches"] \
+                or bool(st["owned"]) != (st["dispatches"] > 0):
+            raise AssertionError(f"{label}: worker {wid}: K1 launches "
+                                 f"{st['kernel_launches']} != dispatches "
+                                 f"{st['dispatches']} (owns {st['owned']})")
+    cpu_model = build_model("lstm", device="cpu", window=fl.WINDOW,
+                            hidden=HIDDEN)
+    # a dedicated session's params: `model.init` from ScoringConfig.seed
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    warm_n = fl.WINDOW + 4
+    rng = np.random.default_rng(SEED + 7)
+    errs = []
+    for tid in cfg.tenant_ids:
+        ticks = rec["ticks"][tid]
+        table = scored_table(rec["burst"][tid])
+        scores = [np.array([table[k][0] for k in zip(
+            b.device_index.tolist(), b.ts.tolist())], np.float32)
+            for b, _ in ticks[warm_n:]]
+        if not all(np.isfinite(sc).all() for sc in scores):
+            raise AssertionError(f"{label} {tid}: a score is not finite")
+        check_anomalies(f"{label} {tid}", scores[fl.ANOMALY_AT],
+                        ticks[warm_n + fl.ANOMALY_AT][1])
+        sample = np.sort(rng.choice(cfg.per_tenant, SAMPLE // fl.TENANTS,
+                                    replace=False))
+        x, valid = ticks_window([b for b, _ in ticks], sample, fl.WINDOW)
+        ref = plain_scores(torch, cpu_model, params, torch.from_numpy(x),
+                           torch.from_numpy(valid))
+        errs.append(check_close(f"{label} {tid}", scores[-1][sample],
+                                ref.float().numpy()))
+    kill = report["kill"]
+    if (kill["lost_accepted_events"] or kill["decoded_backlog_after_drain"]
+            or not kill["death_detected"] or not kill["replacement_spawned"]
+            or kill["detected_after_kill_s"] > fl.DEAD_AFTER_S
+            + FLEET_POLL_SLACK_S):
+        raise AssertionError(f"{label}: kill drill {kill}")
+    stats = {**report, "max_err": max(errs),
+             "seconds": time.perf_counter() - t0}
+    log(f"{label}: {json.dumps(stats)}")
+    log(f"{label}: after the SIGKILL, death detected in "
+        f"{kill['detected_after_kill_s']:.3f} s, tenants reassigned in "
+        f"{kill['reassigned_after_kill_s']:.3f} s, converged in "
+        f"{kill['converged_after_kill_s']:.3f} s, replacement in "
+        f"{kill['replacement_joined_s']:.3f} s")
+    return stats
+
+
+def lag_windows(points, ws: float, lo: float, hi: float, w: int):
+    """A tenant's store window as the planner should hold it, from the
+    (t, value) points this process appended to the history and nothing
+    the planner computed: the in-window mean of every aggregation window
+    with a point and a start in [lo, hi], the last `w` of them, oldest
+    first and left-padded invalid ([w] float32, [w] valid, [w] starts)."""
+    sums: dict = {}
+    for t, v in points:
+        start = math.floor(t / ws) * ws
+        if lo <= start <= hi:
+            acc = sums.setdefault(start, [0.0, 0])
+            acc[0] += v
+            acc[1] += 1
+    starts = sorted(sums)[-w:]
+    x = np.zeros(w, np.float32)
+    valid = np.zeros(w, bool)
+    ts = np.zeros(w, np.float64)
+    k = len(starts)
+    if k:
+        x[w - k:] = [sums[t][0] / sums[t][1] for t in starts]
+        valid[w - k:] = True
+        ts[w - k:] = starts
+    return x, valid, ts
+
+
+async def phase_fleet_forecast(torch) -> dict:
+    """The controller's predictive planner (`fleet/forecast.py`) on the
+    card, as the JAX package's forecast smoke drives it: synthetic ramp
+    history in the controller runtime's telemetry tier, `seasonal`
+    trained from it and checkpointed, tenant-0 served through the pool
+    on the card until both tenants have a forecast; the controller's
+    `autoscale()` then records one `add_replica` whose reason is the
+    forecast, with its provenance. The slot's store windows must equal
+    the windows built here from the lag points this phase appended (their
+    in-window means), and the forecasts are held against the CPU model on
+    the checkpoint's weights over those windows."""
+    import tempfile as tf
+
+    from sitewhere_tpu_torch.config import (
+        RESERVED_TENANT,
+        InstanceSettings,
+        TenantConfig,
+    )
+    from sitewhere_tpu_torch.convert import params_from_numpy
+    from sitewhere_tpu_torch.fleet import AutoscalerPolicy, FleetController
+    from sitewhere_tpu_torch.kernel.service import ServiceRuntime
+    from sitewhere_tpu_torch.models import build_model
+
+    label = "fleet-forecast"
+    t0 = time.perf_counter()
+    ws = 1.0
+    tenants = ("acme", "beta")
+    with tf.TemporaryDirectory(prefix="smoke-forecast-",
+                               dir=scratch_dir()) as d:
+        rt = ServiceRuntime(InstanceSettings(
+            instance_id="forecast", data_dir=d, observe_history_window_s=ws,
+            fleet_forecast_window=16, fleet_forecast_horizon_s=4.0,
+            fleet_forecast_interval_s=0.0, fleet_forecast_min_windows=6))
+        await rt.start()
+        try:
+            controller = FleetController(rt, policy=AutoscalerPolicy(
+                scale_up_lag=300.0, cooldown_s=0.0))
+            for tid in tenants:
+                controller.add_tenant(TenantConfig(tenant_id=tid))
+            controller.handle_control({"kind": "heartbeat", "worker": "w1",
+                                       "seq": 1, "epoch": 0,
+                                       "owned": list(tenants),
+                                       "ready": True})
+            h = rt.history
+            points = {tid: [] for tid in tenants}
+
+            def append(tid, value, t):
+                h.append(tid, "lag", value, t=t)
+                points[tid].append((t, value))
+
+            base = math.floor(time.time() / ws) * ws - 60 * ws
+            for i in range(58):  # a clean per-tenant load ramp
+                for tid in tenants:
+                    append(tid, 40.0 * i, base + i * ws + 0.5)
+            h.flush()
+            controller._ensure_planner()
+            planner = controller.planner
+            t_train = time.perf_counter()
+            report = planner.train_from_history()
+            train_s = time.perf_counter() - t_train
+            if report is None or report["version"] != 1:
+                raise AssertionError(f"{label}: train report {report}")
+            # tenant-0 serving starts and backfills the windows closed
+            # before this tick's open one
+            first_tick = [time.time()]
+            await planner.tick()
+            first_tick.append(time.time())
+            t_serve = time.perf_counter()
+            deadline = time.monotonic() + 60.0
+            decision = None
+            while decision is None:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{label}: no decision in 60 s: "
+                                         f"{planner.snapshot()}")
+                # the ramp goes on: newly closed windows keep arriving
+                wall = time.time()
+                for tid in tenants:
+                    append(tid, 40.0 * (wall - base) / ws, wall)
+                last_tick = [time.time()]
+                await planner.tick()
+                last_tick.append(time.time())
+                await asyncio.sleep(0.1)
+                if set(planner.forecasts) == set(tenants):
+                    decision = controller.autoscale()
+            decide_s = time.perf_counter() - t_serve
+            if not decision["reason"].startswith("forecast:") \
+                    or "forecast" not in decision:
+                raise AssertionError(f"{label}: decision {decision}, "
+                                     f"{planner.snapshot()}")
+            await planner.slot.drain(timeout=10.0)
+            if controller.decisions[-1] is not decision:
+                raise AssertionError(f"{label}: the decision is not in the "
+                                     "controller's audit trail")
+            weights, meta = planner._checkpoint_store().load(
+                RESERVED_TENANT, planner.model.name)
+            cpu_model = build_model(
+                "seasonal", device="cpu", window=planner.window,
+                horizon=planner.horizon_steps)
+            devices = np.array([planner._devmap[t] for t in tenants])
+            w = planner.window
+            x, valid = planner.store.window(devices, w)
+            ts = planner.store.channel(0).window_ts(devices, w)
+            # the backfill read the `w` windows before the first tick's
+            # open one, each later tick the windows closed since: either
+            # bound may sit one window later where a tick crossed a
+            # window's edge
+            los = {math.floor(t / ws) * ws - w * ws for t in first_tick}
+            his = {math.floor(t / ws) * ws - ws for t in last_tick}
+            x_ref = np.zeros_like(x)
+            valid_ref = np.zeros_like(valid)
+            for i, tid in enumerate(tenants):
+                for lo, hi in ((lo, hi) for lo in los for hi in his):
+                    xr, vr, tr = lag_windows(points[tid], ws, lo, hi, w)
+                    if np.array_equal(vr, valid[i]) \
+                            and np.array_equal(tr[vr], ts[i][valid[i]]) \
+                            and np.allclose(xr[vr], x[i][valid[i]],
+                                            rtol=1e-6, atol=0.0):
+                        x_ref[i], valid_ref[i] = xr, vr
+                        break
+                else:
+                    raise AssertionError(
+                        f"{label} {tid}: the store's window (starts "
+                        f"{ts[i][valid[i]].tolist()}, values "
+                        f"{x[i][valid[i]].tolist()}) is not the lag "
+                        f"appended here")
+            ref = cpu_model.score(params_from_numpy(weights, "cpu"),
+                                  torch.from_numpy(x_ref),
+                                  torch.from_numpy(valid_ref)).numpy()
+            got = np.array([planner.forecasts[t]["load"] for t in tenants],
+                           np.float32)
+            err = check_close(label, got, ref)
+            snap = planner.snapshot()
+            device = str(planner.pool.device)
+        finally:
+            if controller.planner is not None:
+                controller.planner.close()
+            await rt.stop()
+    stats = {"train": {k: report[k] for k in ("version", "windows",
+                                              "final_loss", "steps")},
+             "train_s": train_s, "decision_after_serving_s": decide_s,
+             "decision": decision, "device": device,
+             "forecasts": snap["forecasts"], "gate": snap["gate"],
+             "checkpoint_version": meta["version"], "max_err": err,
+             "seconds": time.perf_counter() - t0}
+    log(f"{label}: {json.dumps(stats)}")
+    if not device.startswith("cuda"):
+        raise AssertionError(f"{label}: tenant-0 served on {device}")
+    return stats
+
+
+async def phase_cli_fleet() -> dict:
+    """The fleet through the CLI: `run --fleet-controller --serve-bus-port
+    0` hosting instance-management and event-sources (the default tenant,
+    a TCP gateway, REST); SIMULATE_DEVICES devices registered onto the
+    broker's bus by a seeding runtime here (registry replication: the
+    workers adopt by bus replay); two `fleet-worker` processes on the
+    card; `fleet status` until both heartbeat and the tenant is adopted;
+    `cli simulate` for 2 s; SIGKILL of the tenant's owner; `fleet status`
+    until the survivor owns it; `cli simulate` for 2 s again. Every event
+    sent is persisted: the event-management group commits through the
+    end of the tenant's inbound topic, and the persisted topic it
+    republishes to holds every (device, time) sent. SIGTERM stops the
+    survivor and the controller with exit 0."""
+    import socket
+
+    from sitewhere_tpu_torch.config import InstanceSettings, TenantConfig
+    from sitewhere_tpu_torch.domain.model import DeviceType
+    from sitewhere_tpu_torch.kernel.bus import TopicNaming
+    from sitewhere_tpu_torch.kernel.service import ServiceRuntime
+    from sitewhere_tpu_torch.kernel.wire import RemoteEventBus
+    from sitewhere_tpu_torch.services import DeviceManagementService
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        gateway = sock.getsockname()[1]
+    t0 = time.monotonic()
+    steps = {}
+    mark = lambda step: steps.__setitem__(  # noqa: E731
+        step, time.monotonic() - t0)
+
+    async def status(port: str) -> dict:
+        proc = await cli_exec("fleet", "status", "--json", "--port", port)
+        out, err = await asyncio.wait_for(proc.communicate(), 60.0)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli fleet status: exit {proc.returncode}"
+                                 f" {err.decode()[-2000:]}")
+        return json.loads(out)
+
+    async def settled(port: str, workers: set, timeout: float) -> dict:
+        deadline = time.monotonic() + timeout
+        while True:
+            report = await status(port)
+            rows = report["workers"]
+            if report["converged"] and set(rows) == workers \
+                    and report["owners"].get("default") and all(
+                        sorted(r["owned"]) == sorted(
+                            t for t, w in report["assignment"].items()
+                            if w == wid) for wid, r in rows.items()):
+                return report
+            for p in procs[1:]:
+                if p.proc.returncode is not None and p not in killed:
+                    raise AssertionError(f"cli fleet: {p.args[:3]} exited "
+                                         f"{p.proc.returncode}: {p.tail()}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cli fleet: not settled on {workers} "
+                                     f"in {timeout} s: {report}")
+            await asyncio.sleep(0.25)
+
+    ctl = await CliProcess(
+        "run", "--fleet-controller", "--serve-bus-port", "0", "--services",
+        "instance-management,event-sources", "--port", "0",
+        "--gateway-port", str(gateway)).start()
+    procs, killed, remote, reader = [ctl], [], None, None
+    sent = []
+    try:
+        m = await ctl.expect(r"bus served to wire peers on ([\d.]+):(\d+)",
+                             120.0)
+        host, bus_port = m.group(1), int(m.group(2))
+        rest = (await ctl.expect(r"up; REST on [\d.]+:(\d+)", 120.0)).group(1)
+        mark("controller")
+        # the registry onto the broker's bus before any worker adopts
+        # (fleet-managed: the instance's tenant broadcasts spin nothing
+        # here, only the explicit adopt does)
+        seed = ServiceRuntime(InstanceSettings(registry_replication=True,
+                                               fleet_managed=True),
+                              bus=RemoteEventBus(host, bus_port))
+        seed.add_service(DeviceManagementService(seed))
+        await seed.start()
+        await seed.adopt_tenant(TenantConfig(tenant_id="default"))
+        seed.api("device-management").management("default").bootstrap_fleet(
+            DeviceType(token="thermo", name="Thermometer"), SIMULATE_DEVICES)
+        await seed.stop()
+        mark("registry")
+        remote = RemoteEventBus(host, bus_port)
+        await remote.initialize()
+        naming = TopicNaming(InstanceSettings().instance_id)
+        persisted_topic = naming.tenant_topic(
+            "default", TopicNaming.OUTBOUND_ENRICHED)
+        reader = remote.subscribe(persisted_topic, group="smoke-persisted")
+        await reader.poll(max_records=1, timeout=0.05)  # joins the group
+        for wid in ("w0", "w1"):
+            procs.append(await CliProcess(
+                "fleet-worker", "--bus", f"{host}:{bus_port}",
+                "--worker-id", wid).start())
+        first = await settled(rest, {"w0", "w1"}, 300.0)
+        mark("workers")
+        sent.append((await run_simulate("tcp", gateway))[0])
+        mark("simulate")
+        owner = first["owners"]["default"]
+        victim = procs[1 + ["w0", "w1"].index(owner)]
+        victim.proc.kill()
+        await victim.proc.wait()
+        killed.append(victim)
+        survivor = ({"w0", "w1"} - {owner}).pop()
+        moved = await settled(rest, {survivor}, 120.0)
+        mark("moved")
+        sent.append((await run_simulate("tcp", gateway))[0])
+        mark("simulate-after")
+        keys = set()
+        deadline = time.monotonic() + 120.0
+        while True:
+            for rec in await reader.poll(max_records=256, timeout=0.2):
+                batch = rec.value  # persisted batches; alerts ride as lists
+                if hasattr(batch, "device_index"):
+                    keys.update(zip(batch.device_index.tolist(),
+                                    batch.ts.tolist()))
+            all_lags = await remote.group_lags()
+            lags = all_lags.get("default.event-management", {})
+            # group_lags lists a topic only while the group lags on it
+            if len(keys) >= sum(sent) and "default.event-management" \
+                    in all_lags and not any(lags.values()):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cli fleet: {len(keys)} of {sum(sent)}"
+                                     f" events persisted, event-management "
+                                     f"lags {all_lags}")
+        mark("persisted")
+    finally:
+        if reader is not None:
+            reader.close()
+        if remote is not None:
+            await remote.stop()
+        live = [p for p in procs[1:] if p not in killed]
+        rcs = dict(zip([p.args[4] for p in live],
+                       await asyncio.gather(*(p.stop() for p in live))))
+        rcs["run"] = await ctl.stop()
+    mark("stopped")
+    stats = {"sent": sent, "persisted": len(keys), "killed": owner,
+             "epochs": [first["epoch"], moved["epoch"]], "exit": rcs,
+             "steps_s": steps, "seconds": time.monotonic() - t0}
+    log(f"cli-fleet: {json.dumps(stats)}")
+    if not all(sent) or len(keys) != sum(sent):
+        raise AssertionError(f"cli fleet: {stats}")
+    return stats
+
 def main() -> int:
     import torch
 
@@ -3038,6 +3482,9 @@ def main() -> int:
                          ("split-stream", "lstm-stream")):
         asyncio.run(phase_split(torch, label, model))
     asyncio.run(phase_cli_split())
+    asyncio.run(phase_fleet_window(torch))
+    asyncio.run(phase_fleet_forecast(torch))
+    asyncio.run(phase_cli_fleet())
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

@@ -60,7 +60,10 @@ this process's services to such peers, `--serve-bus-port` serves the
 in-proc bus to wire peers and `--kafka-port` over the Kafka protocol.
 Rule-processing (and batch-operations) run on the CUDA card; `--cpu`
 names the CPU, and without it a process hosting them on a machine with
-no card fails at start. `--fleet-controller` is ROADMAP A.5.
+no card fails at start. `--fleet-controller` hosts the fleet control
+plane (placement, liveness, the autoscaler, the fleet observer) in this
+process, the broker process of `fleet-worker` peers; pair it with
+`--serve-bus-port`.
 
 `serve-bus` (`swx serve-bus`): the broker process, an in-proc bus served
 over the wire protocol (`kernel/wire.py`) and, with `--kafka-port`, over
@@ -71,8 +74,13 @@ the Kafka protocol. It touches no device.
 dead-letter quarantine, a tenant's flow-control quota, the flight
 recorder's view and the fleet's placement (`GET /api/fleet`).
 
-`fleet-worker` (ROADMAP A.5), `lint` (A.6) and `bench` (A.1.5) are not
-ported: each raises `NotImplementedError` naming its item.
+`fleet-worker` (`swx fleet-worker`): one fleet worker process attached
+to a broker (`--bus`), hosting the scoring services for the tenants
+that placement gives it; on the card, or the CPU with `--cpu` (without a
+card and without `--cpu` it fails at start).
+
+`lint` (ROADMAP A.6) and `bench` (A.1.5) are not ported: each raises
+`NotImplementedError` naming its item.
 """
 
 from __future__ import annotations
@@ -269,9 +277,6 @@ async def cmd_run(args) -> int:
 
     from sitewhere_tpu_torch.config import TenantConfig, load_yaml_config
 
-    if args.fleet_controller:
-        raise not_ported("run --fleet-controller (the fleet control "
-                         "plane)", "A.5")
     if args.config:
         settings, tenants = load_yaml_config(args.config)
     else:
@@ -312,8 +317,27 @@ async def cmd_run(args) -> int:
                 f"swx: --remote wants SVC=HOST:PORT, got {spec!r}")
         remotes[identifier] = _parse_addr(addr)
 
+    if args.fleet_controller and settings.registry_replication is None:
+        # controller host = the tenant-seeding host: its registry
+        # mutations must reach the per-tenant registry-state topic so
+        # workers adopt hermetically (docs/FLEET.md fencing protocol)
+        settings = dataclasses.replace(settings, registry_replication=True)
     rt = build_runtime(settings, services=services, bus=bus,
-                       remotes=remotes, wire_secret=wire_secret)
+                       remotes=remotes, wire_secret=wire_secret,
+                       fleet_controller=args.fleet_controller)
+    if args.fleet_controller:
+        # this process is the fleet's control plane (docs/FLEET.md):
+        # requires owning the broker bus (placement needs the central
+        # committed/head view, and the controller peeks the control
+        # topic for epoch recovery)
+        if args.bus:
+            raise SystemExit(
+                "swx run: --fleet-controller must run in the broker "
+                "process (in-proc bus); pair it with --kafka-port/"
+                "peers attaching via `swx fleet-worker`, not --bus")
+        from sitewhere_tpu_torch.fleet import FleetController
+
+        rt.add_child(FleetController(rt))
     await rt.start()
     bus_server = None
     if args.serve_bus_port is not None:
@@ -855,6 +879,28 @@ async def cmd_fleet(args) -> int:
         return 1
 
 
+async def cmd_fleet_worker(args) -> int:
+    """`swx fleet-worker` — run one fleet worker attached to a broker
+    (`serve-bus`); tenant ownership arrives via placement records."""
+    from sitewhere_tpu_torch.fleet.worker_main import amain
+
+    cfg = {
+        "worker_id": args.worker_id,
+        "host": _parse_addr(args.bus)[0],
+        "port": _parse_addr(args.bus)[1],
+        "instance_id": args.instance,
+        "secret": args.secret or os.environ.get("SWX_WIRE_SECRET"),
+        "force_cpu": args.cpu,
+        # worker-LOCAL durability only: registry state replicates over
+        # the bus (docs/FLEET.md fencing protocol), so adoption needs no
+        # shared filesystem — --data-dir just tightens the single-node
+        # crash bound (registry WAL) and spills event history
+        "settings": ({"data_dir": args.data_dir} if args.data_dir
+                     else {}),
+    }
+    return await amain(cfg)
+
+
 async def cmd_simulate(args) -> int:
     from sitewhere_tpu_torch.sim.clients import make_sender
     from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
@@ -1205,10 +1251,16 @@ def main(argv=None) -> int:
                        help="shared secret for wire bus/API connections "
                             "(default: SWX_WIRE_SECRET env)")
     p_run.add_argument("--fleet-controller", action="store_true",
-                       help="host the fleet control plane (not ported)")
+                       help="host the fleet control plane in this "
+                            "process: placement/liveness/autoscaling "
+                            "for `fleet-worker` peers (tenants created "
+                            "here are registered for fleet placement; "
+                            "serve the bus to workers with "
+                            "--serve-bus-port)")
     p_run.add_argument("--serve-bus-port", type=int, default=None,
                        help="also serve this process's in-proc bus to "
-                            "wire peers on this port (0 = ephemeral)")
+                            "wire peers on this port (the fleet "
+                            "workers' --bus target; 0 = ephemeral)")
     p_run.add_argument("--cpu", action="store_true",
                        help="score on the CPU instead of the CUDA card")
 
@@ -1286,13 +1338,28 @@ def main(argv=None) -> int:
     p_fleet.add_argument("--password", default="password")
 
     p_fworker = sub.add_parser("fleet-worker", help="run one fleet worker "
-                               "against a wire bus broker (not ported)")
-    p_fworker.add_argument("--bus", required=True, metavar="HOST:PORT")
-    p_fworker.add_argument("--worker-id", required=True)
-    p_fworker.add_argument("--instance", default="swx1")
-    p_fworker.add_argument("--secret")
-    p_fworker.add_argument("--data-dir")
-    p_fworker.add_argument("--cpu", action="store_true")
+                               "against a wire bus broker; tenant "
+                               "ownership arrives via fleet placement "
+                               "records")
+    p_fworker.add_argument("--bus", required=True, metavar="HOST:PORT",
+                           help="the broker (`serve-bus`, or `run "
+                                "--fleet-controller --serve-bus-port`)")
+    p_fworker.add_argument("--worker-id", required=True,
+                           help="stable worker identity (placement key)")
+    p_fworker.add_argument("--instance", default="swx1",
+                           help="instance id (must match the broker's "
+                                "topic naming)")
+    p_fworker.add_argument("--secret",
+                           help="wire shared secret (default: "
+                                "SWX_WIRE_SECRET env)")
+    p_fworker.add_argument("--data-dir",
+                           help="OPTIONAL worker-local durability root "
+                                "(registry WAL + snapshots, event "
+                                "spill). NOT shared: tenant registry "
+                                "state replicates over the bus, so a "
+                                "worker adopts from bus replay alone")
+    p_fworker.add_argument("--cpu", action="store_true",
+                           help="score on the CPU instead of the CUDA card")
 
     p_lint = sub.add_parser("lint", help="run swxlint over the package "
                             "(not ported)")
@@ -1310,8 +1377,6 @@ def main(argv=None) -> int:
     args, extra = parser.parse_known_args(argv)
     if extra and args.cmd != "bench":
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    if args.cmd == "fleet-worker":
-        raise not_ported("fleet-worker (a fleet worker process)", "A.5")
     if args.cmd == "lint":
         raise not_ported("lint (swxlint over the port)", "A.6")
     if args.cmd == "bench":
@@ -1320,7 +1385,8 @@ def main(argv=None) -> int:
                         "train": cmd_train, "simulate": cmd_simulate,
                         "run": cmd_run, "serve-bus": cmd_serve_bus,
                         "dlq": cmd_dlq, "quota": cmd_quota,
-                        "top": cmd_top, "fleet": cmd_fleet}[args.cmd](args))
+                        "top": cmd_top, "fleet": cmd_fleet,
+                        "fleet-worker": cmd_fleet_worker}[args.cmd](args))
 
 
 if __name__ == "__main__":

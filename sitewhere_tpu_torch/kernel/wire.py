@@ -561,33 +561,9 @@ class WireClient:
         fire-and-forget batch) WITHDRAWS it — the op then observably
         never happened. Cancellation is thereby unambiguous: probe set
         → the broker will see the op; probe unset → it never will."""
-        if self._dead:
-            raise ConnectionError("wire client killed")
-        if self._writer is None:
-            async with self._lock:
-                if self._writer is None:
-                    await self.connect()
-        req_id = next(self._req_ids)
-        fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._pending[req_id] = fut
-        frame = _frame(req_id, {"op": op, **kwargs})
-        if self.pipeline and not _immediate:
-            # awaited calls flush NOW (an RPC must never wait out a
-            # long event-loop tick — measured: deferring these to the
-            # tick-end callback serialized the egress shard's awaited
-            # produces at one per tick and cost 17% fleet saturation),
-            # carrying any queued fire-and-forget batch ahead of them
-            # in enqueue order — a commit queued before a release
-            # publish still reaches the broker first
-            self._wq.append(frame)
-            self._do_flush()
-            if _sent is not None \
-                    and not any(f is frame for f in self._wq):
-                _sent.append(True)
-        else:
-            self._writer.writelines(frame)
-            if _sent is not None:
-                _sent.append(True)
+        await self._connected()
+        req_id, frame, fut = self._write_call(op, kwargs, _immediate, _sent)
+        if not self.pipeline or _immediate:
             await self._writer.drain()
         try:
             body = await fut
@@ -604,6 +580,69 @@ class WireClient:
                 else:
                     _sent.append(True)  # flushed since: it WILL land
             raise
+        return self._answer(op, kwargs, body)
+
+    async def call_started(self, op: str, **kwargs: Any) -> asyncio.Future:
+        """Write one RPC's frame now, as `call` does at its first step,
+        and return the future of its answer (what `call` returns or
+        raises). The future outlives a cancelled awaiter (await it under
+        `asyncio.shield`), so the caller can still act on what the
+        broker did."""
+        await self._connected()
+        _, _, fut = self._write_call(op, kwargs, False, None)
+        answer = asyncio.get_running_loop().create_future()
+
+        def settle(f: asyncio.Future) -> None:
+            if answer.done():
+                return
+            if f.cancelled():
+                answer.cancel()
+            elif f.exception() is not None:
+                answer.set_exception(f.exception())
+            else:
+                try:
+                    answer.set_result(self._answer(op, kwargs, f.result()))
+                except Exception as exc:  # noqa: BLE001 - the call's own
+                    answer.set_exception(exc)
+
+        fut.add_done_callback(settle)
+        return answer
+
+    async def _connected(self) -> None:
+        if self._dead:
+            raise ConnectionError("wire client killed")
+        if self._writer is None:
+            async with self._lock:
+                if self._writer is None:
+                    await self.connect()
+
+    def _write_call(self, op: str, kwargs: dict, immediate: bool,
+                    sent: Optional[list]) -> tuple:
+        req_id = next(self._req_ids)
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._pending[req_id] = fut
+        frame = _frame(req_id, {"op": op, **kwargs})
+        if self.pipeline and not immediate:
+            # awaited calls flush NOW (an RPC must never wait out a
+            # long event-loop tick — measured: deferring these to the
+            # tick-end callback serialized the egress shard's awaited
+            # produces at one per tick and cost 17% fleet saturation),
+            # carrying any queued fire-and-forget batch ahead of them
+            # in enqueue order — a commit queued before a release
+            # publish still reaches the broker first
+            self._wq.append(frame)
+            self._do_flush()
+            if sent is not None \
+                    and not any(f is frame for f in self._wq):
+                sent.append(True)
+        else:
+            self._writer.writelines(frame)
+            if sent is not None:
+                sent.append(True)
+        return req_id, frame, fut
+
+    @staticmethod
+    def _answer(op: str, kwargs: dict, body) -> Any:
         msg = codec.decode(body, copy_arrays=False)
         if "err" in msg:
             if str(msg["err"]).startswith("FencedError:"):
@@ -1361,7 +1400,7 @@ class _LazyRemoteConsumer(RemoteBusConsumer):
         if self.cid < 0:
             seek = self._seek_pending
             self._seek_pending = False
-            self.cid = await self._client.call(
+            call = await self._client.call_started(
                 "subscribe", topics=self._topics, group=self.group,
                 name=self.name, owner=self.owner,
                 # seek rides the subscribe op itself: the broker seeks
@@ -1369,6 +1408,17 @@ class _LazyRemoteConsumer(RemoteBusConsumer):
                 # replay consumer never sees committed-position rows
                 seek=seek,
                 prefetch=self._credit if self._prefetch else 0)
+            try:
+                cid = await asyncio.shield(call)
+            except asyncio.CancelledError:
+                # the caller was cancelled (an engine stopped on its
+                # first poll) with the subscribe on the broker's path:
+                # the member it creates would hold its share of the
+                # group's partitions with nobody polling them. Close it
+                # when the answer lands.
+                call.add_done_callback(self._close_unwanted)
+                raise
+            self.cid = cid
             if self._closed:
                 # closed while the subscribe was in flight: reap the
                 # broker-side consumer we just created, and mark the
@@ -1383,6 +1433,15 @@ class _LazyRemoteConsumer(RemoteBusConsumer):
                 return
             if self._prefetch:
                 self._client.register_push(self.cid, self._on_push)
+
+    def _close_unwanted(self, call: asyncio.Future) -> None:
+        if call.cancelled() or call.exception() is not None:
+            return
+        self._client.unregister_push(call.result())
+        try:
+            self._client.call_nowait("close_consumer", cid=call.result())
+        except RuntimeError:
+            pass
 
     async def poll(self, *, max_records: int = 512,
                    timeout: float = 1.0) -> list[TopicRecord]:

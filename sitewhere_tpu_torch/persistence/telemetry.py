@@ -276,6 +276,19 @@ class TelemetryStore:
                                  batch.ts[mask])
         return len(batch)
 
+    def append_values(self, dev: np.ndarray, values: np.ndarray,
+                      ts: np.ndarray, mtype: int = 0) -> int:
+        """Bulk scalar append into one channel without a
+        MeasurementBatch envelope — internal series writers (the fleet
+        forecaster's tenant-0 store, backfills from durable history)
+        that have columns in hand, not wire batches."""
+        dev = np.asarray(dev, np.int64)
+        table = self.channel(mtype)
+        with self._lock:
+            table.append(dev, np.asarray(values, np.float32),
+                         np.asarray(ts, np.float64))
+        return int(dev.shape[0])
+
     def append_locations(self, batch: LocationBatch) -> int:
         with self._lock:
             self.locations.append(batch)

@@ -33,7 +33,9 @@ appended record instead of the snapshot interval.
 
 from __future__ import annotations
 
+import inspect
 import logging
+import time
 from collections import deque
 
 import asyncio
@@ -45,6 +47,11 @@ from sitewhere_tpu_torch.kernel.lifecycle import (
 )
 
 logger = logging.getLogger(__name__)
+
+# a wire replay that has not reached the registry topic's end offsets in
+# this long fails the adopting engine's start instead of restoring a
+# partial registry
+REPLAY_DEADLINE_S = 300.0
 
 
 class RegistryReplicator(BackgroundTaskComponent):
@@ -152,10 +159,11 @@ async def read_state_topic(runtime, tenant_id: str, *,
     `(latest snapshot record or None, mutation records after it)`.
 
     In-proc buses are peeked (no consumer group); wire buses use a
-    worker-tagged reader group seeked to the beginning — the group name
-    deliberately does NOT start with the tenant id, so the controller's
-    per-tenant lag aggregation (`{tenant}.{service}` groups) never
-    counts replay backlog as scoring lag."""
+    worker-tagged reader group seeked to the beginning and read at least
+    through the offsets the topic ended at when the read began — the
+    group name deliberately does NOT start with the tenant id, so the
+    controller's per-tenant lag aggregation (`{tenant}.{service}`
+    groups) never counts replay backlog as scoring lag."""
     topic = runtime.naming.tenant_topic(tenant_id,
                                         TopicNaming.REGISTRY_STATE)
     bus = runtime.bus
@@ -164,15 +172,37 @@ async def read_state_topic(runtime, tenant_id: str, *,
     if peek is not None:
         values = [r.value for r in peek(topic, limit=-1)]
     else:
+        # the topic's last offsets as the read starts: an empty poll ends
+        # the read only once every one was delivered. A broker whose
+        # loop is busy (tenants placed while workers start) may push
+        # nothing within one poll's timeout, and stopping there would
+        # adopt an empty registry, every event then routed as
+        # unregistered and never scored
+        last = {}
+        end_offsets = getattr(bus, "end_offsets", None)
+        if end_offsets is not None:
+            ends = end_offsets(topic)
+            if inspect.isawaitable(ends):
+                ends = await ends
+            last = {p: end - 1 for p, end in enumerate(ends) if end > 0}
+        deadline = time.monotonic() + REPLAY_DEADLINE_S
         group = f"registry-replay.{tenant_id}.{reader_tag}"
         consumer = bus.subscribe(topic, group=group, name=group)
         try:
             consumer.seek_to_beginning()
             while True:
                 records = await consumer.poll(max_records=512, timeout=0.3)
-                if not records:
+                for r in records:
+                    values.append(r.value)
+                    if r.offset >= last.get(r.partition, r.offset + 1):
+                        del last[r.partition]
+                if not records and not last:
                     break
-                values.extend(r.value for r in records)
+                if not records and time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"registry replay of {topic}: partitions "
+                        f"{sorted(last)} not read to their end in "
+                        f"{REPLAY_DEADLINE_S} s")
         finally:
             consumer.close()
     snap: dict | None = None

@@ -7,7 +7,6 @@ from __future__ import annotations
 ITEMS = {
     "A.1.5": "a bench entry for the port",
     "A.2": "mesh sharding, multi-GPU",
-    "A.5": "the fleet control plane",
     "A.6": "swxlint over the port",
 }
 

@@ -64,6 +64,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.kernel.security, sitewhere_tpu_torch.utils.http\n"
         "import sitewhere_tpu_torch.kernel.templates\n"
         "import sitewhere_tpu_torch.services.geofence, sitewhere_tpu_torch.services.qrcode\n"
+        "import sitewhere_tpu_torch.fleet, sitewhere_tpu_torch.fleet.worker_main\n"
+        "import sitewhere_tpu_torch.parallel.placement, sitewhere_tpu_torch.tools.fleet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'sitewhere_tpu')]\n"
         "print(bad)\n"

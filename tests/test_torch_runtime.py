@@ -293,11 +293,6 @@ def _runtime(**settings):
 
 
 CUTS = {
-    "run-fleet-controller": (lambda: tcli.main(
-        ["run", "--cpu", "--fleet-controller"]), "A.5"),
-    "fleet-worker": (lambda: tcli.main(
-        ["fleet-worker", "--bus", "127.0.0.1:1", "--worker-id", "w0"]),
-        "A.5"),
     "lint": (lambda: tcli.main(["lint"]), "A.6"),
     "bench": (lambda: tcli.main(["bench", "--split"]), "A.1.5"),
     "train-distributed": (lambda: tcli.main(

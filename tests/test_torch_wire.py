@@ -12,8 +12,10 @@ serving a port client and a port broker serving a JAX client run one
 scripted conversation and must give the same records, offsets and
 commit positions as the JAX pair, with every client writing the same
 bytes; a port `ApiChannel` calls a JAX `ApiServer` and the reverse. The
-fleet re-runs of `tests/test_wire_prefetch.py` wait for the fleet
-(ROADMAP A.5). Every wait has its own deadline.
+fleet re-runs of `tests/test_wire_prefetch.py` run on the port's fleet
+harness (`tests/test_torch_fleet.py`): the kill drill with a credit
+window mid-flight, a straddling handoff landing exactly once, and equal
+scored output with prefetch on and off. Every wait has its own deadline.
 """
 
 import asyncio
@@ -44,6 +46,8 @@ from sitewhere_tpu_torch.kernel.wire import (
     RemoteEventBus,
     WireClient,
 )
+from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
+from tests.test_torch_fleet import DEVICES, _crash, _Meter, fleet
 
 # the tier-1 run shares the host's cores between test workers
 torch.set_num_threads(2)
@@ -510,8 +514,10 @@ def test_ff_inflight_cap_backpressure_gated_broker(run):
         for i in range(100):
             remote.produce_nowait("t", {"i": i})
             await asyncio.sleep(0)
-        await asyncio.sleep(0.1)
         client = remote._client
+        # the window fills to the cap and no further (a condition, not a
+        # fixed sleep: a loaded host may take longer to write the frames)
+        await wait_until(lambda: client._ff_inflight == 16, timeout=5.0)
         assert remote.backlogged is True
         assert client._ff_inflight <= 16
         assert len(client._bg) <= 16
@@ -519,6 +525,10 @@ def test_ff_inflight_cap_backpressure_gated_broker(run):
         gate.set()
         await wait_until(lambda: bus.end_offsets("t") == [100], timeout=10.0)
         await wait_until(lambda: not remote.backlogged, timeout=5.0)
+        # the broker appends before it acks: the last frames' acks may
+        # still be on their way when the offsets reach the end, so every
+        # op being acked (nothing dropped) is waited for, not sampled
+        await wait_until(lambda: client.ff_pending == 0, timeout=5.0)
         assert client.ff_pending == 0
         await remote.stop()
         await server.stop()
@@ -562,6 +572,188 @@ def test_egress_barrier_surfaces_wire_backpressure():
     assert stage.backlogged is True
     _Bus.backlogged = False
     assert stage.backlogged is False
+
+
+# ---------------------------------------------------------------------------
+# fleet equivalence re-runs over the wire (prefetch on): the cases of
+# `tests/test_wire_prefetch.py:395-527` on the port's fleet harness
+# ---------------------------------------------------------------------------
+
+
+def test_fleet_kill_drill_wire_prefetch_zero_loss(run, tmp_path):
+    """`tests/test_torch_fleet.py`'s kill drill over a REAL wire broker with
+    prefetch on: the victim dies with a credit window mid-flight
+    (socket dropped, no final commits) — reassignment converges and
+    every accepted event is scored by somebody (zero loss)."""
+
+    async def main():
+        async with fleet(tmp_path, n_workers=2, n_tenants=2,
+                         wire=True) as (
+                driver, controller, runtimes, workers, cfgs):
+            meter = _Meter(driver, cfgs)
+            for _ in range(3):
+                await meter.submit_round()
+            await meter.drain_until_caught_up()
+
+            victim = controller.snapshot()["assignment"]["t0"]
+            survivor = next(w for w in workers if w != victim)
+            # keep accepting through the crash + reassignment window so
+            # the killed credit window has live records in it
+            await meter.submit_round()
+            await _crash(runtimes, workers, victim)
+            for _ in range(4):
+                await meter.submit_round()
+                await asyncio.sleep(0.05)
+            await wait_until(
+                lambda: victim not in controller.snapshot()["workers"],
+                timeout=30.0)
+            await wait_until(
+                lambda: controller.snapshot()["converged"], timeout=120.0)
+            snap = controller.snapshot()
+            assert all(w == survivor for w in snap["assignment"].values())
+            for _ in range(2):
+                await meter.submit_round()
+            await meter.drain_until_caught_up(timeout=120.0)
+            # zero lost accepted events (at-least-once: >= is the bound
+            # a crash permits; the straddle test pins == for the clean
+            # handoff)
+            for tid in meter.sent:
+                assert meter.scored[tid] >= meter.sent[tid], (
+                    tid, meter.sent[tid], meter.scored[tid])
+            meter.close()
+
+    run(main())
+
+
+def test_fleet_straddle_exactly_once_wire_prefetch(run, tmp_path):
+    """`tests/test_torch_fleet.py`'s straddle invariant over the wire with
+    prefetch on: a clean drain-then-handoff migration under continuous
+    flood lands every batch EXACTLY once — the loser's delivered-pin
+    commit covers only drained records, its undrained prefetch buffer
+    is discarded at close, and the adopter resumes from committed."""
+
+    async def main():
+        async with fleet(tmp_path, n_workers=2, n_tenants=2,
+                         wire=True) as (
+                driver, controller, runtimes, workers, cfgs):
+            meter = _Meter(driver, cfgs)
+            await meter.submit_round()
+            await meter.drain_until_caught_up()
+
+            source = controller.snapshot()["assignment"]["t0"]
+            target = next(w for w in workers if w != source)
+            controller.migrate("t0", target)
+            for _ in range(12):
+                await meter.submit_round()
+                await asyncio.sleep(0.02)
+            await wait_until(
+                lambda: controller.snapshot()["owners"].get("t0")
+                == target and controller.snapshot()["converged"],
+                timeout=60.0)
+            for _ in range(2):
+                await meter.submit_round()
+            await meter.drain_until_caught_up(timeout=120.0)
+            # exactly once: scored == sent (< is loss, > is duplicate)
+            for tid in meter.sent:
+                assert meter.scored[tid] == meter.sent[tid], (
+                    tid, meter.sent[tid], meter.scored[tid])
+            meter.close()
+
+    run(main())
+
+
+def test_prefetch_on_off_scored_output_equivalence(run, tmp_path):
+    """The fast path must not bend a single score: the same simulator
+    traffic through a 1-worker wire fleet produces IDENTICAL scored
+    tuples with prefetch/pipelining on and off."""
+
+    async def one_leg(leg_dir, fast):
+        outputs = []
+        async with fleet(leg_dir, n_workers=1, n_tenants=1,
+                         wire=True, wire_prefetch=fast,
+                         wire_pipeline=fast) as (
+                driver, controller, runtimes, workers, cfgs):
+            tid = cfgs[0].tenant_id
+            consumer = driver.bus.subscribe(
+                driver.naming.tenant_topic(tid, "scored-events"),
+                group="equiv-meter")
+            receiver = driver.api("event-sources").engine(tid) \
+                .receiver("default")
+            sim = DeviceSimulator(SimConfig(num_devices=DEVICES, seed=11),
+                                  tenant_id=tid)
+            sent = 0
+            for k in range(6):
+                if await receiver.submit(sim.payload(t=3000.0 + k)[0]):
+                    sent += DEVICES
+
+            def caught_up():
+                for record in consumer.poll_nowait(max_records=256):
+                    scored = record.value
+                    for i in range(len(scored)):
+                        outputs.append((
+                            int(scored.device_index[i]),
+                            round(float(scored.score[i]), 5),
+                            bool(scored.is_anomaly[i])))
+                return len(outputs) >= sent
+
+            await wait_until(caught_up, timeout=90.0)
+            consumer.close()
+        return sorted(outputs)
+
+    async def main():
+        on = await one_leg(tmp_path / "on", True)
+        off = await one_leg(tmp_path / "off", False)
+        assert len(on) == len(off) > 0
+        assert on == off, "prefetch changed scored output"
+
+    run(main())
+
+
+
+async def _cancelled_first_poll(pkg) -> int:
+    """A consumer's task is cancelled during its first poll, while the
+    broker still holds the subscribe; the consumer is closed, then the
+    broker answers. Returns the group's members left on the broker."""
+    bus = pkg.bus.EventBus(default_partitions=4)
+    server = pkg.wire.BusServer(bus)
+    gate = asyncio.Event()
+    orig = server.handlers["subscribe"]
+
+    async def gated(msg, writer=None):
+        await gate.wait()
+        return await orig(msg, writer)
+
+    server.handlers["subscribe"] = gated
+    await server.start()
+    remote = pkg.wire.RemoteEventBus("127.0.0.1", server.port)
+    await remote.initialize()
+    consumer = remote.subscribe("t", group="g")
+    task = asyncio.get_running_loop().create_task(
+        consumer.poll(max_records=8, timeout=1.0))
+    await wait_until(lambda: server._conns, timeout=5.0)
+    await asyncio.sleep(0.05)  # the subscribe frame is at the broker
+    task.cancel()
+    with pytest.raises(asyncio.CancelledError):
+        await task
+    consumer.close()  # an engine's stop: the loop's `finally`
+    gate.set()
+    await asyncio.sleep(0.3)
+    left = len(bus._groups["g"].members) if "g" in bus._groups else 0
+    await remote.stop()
+    await server.stop()
+    return left
+
+
+def test_subscribe_answered_after_cancellation_leaves_no_member(run):
+    """An engine stopped during its consumer's first poll (a tenant
+    released while its adopt was still starting) must not leave the
+    broker-side member its subscribe creates: that member would hold its
+    share of the group's partitions with nobody polling them. The port's
+    lazy consumer closes it when the answer lands; the JAX one
+    (`sitewhere_tpu/kernel/wire.py` `_LazyRemoteConsumer._ensure`) leaves
+    it, which stalled a tenant's group in the fleet (ROADMAP C)."""
+    assert run(_cancelled_first_poll(PORT)) == 0
+    assert run(_cancelled_first_poll(JAX)) == 1
 
 
 # -- the API plane ------------------------------------------------------------
