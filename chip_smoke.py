@@ -249,6 +249,21 @@ prints no result):
                 again: every event sent persisted (the event-management
                 group committed through the end, every (device, time) on
                 the persisted topic), SIGTERM stops the rest with exit 0.
+ 32. bench    — `cli bench` (`tools/bench.py`, every mode of `bench.py`)
+                in fresh interpreters at full width with short windows:
+                the default run (`lstm-stream` in the pool), `--model lstm
+                --no-megabatch` (K1 on dedicated sessions: `pallas` cuda,
+                K1 launches == dispatches over the measured phases),
+                `--replay` (500,000 events, all scored each pass),
+                `--workers 2 --zombie-drill --no-fleet-kill` (0 lost, 0
+                committed twice, the zombie fenced; the kill drill is phase
+                29's and the ramp's), `--overload` (the hog shed, the others
+                keeping their goodput), `--chaos` (faults injected, every
+                drain complete), `--ramp` (reduced seed and ramp seconds;
+                drained, its kill drill losing 0); each report on `gpu`
+                with the card's name, events/s > 0 and 0 < mfu <= 1 where
+                the model counts its FLOPs; then a `tools/ab_compare.py
+                fastlane` pair; one stats line a run.
 Phases 5–8 and 12–15 check that every event is scored, every score
 finite, the dispatches are the occurrence rounds, injected anomalies
 stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
@@ -362,6 +377,36 @@ PROBE_S = 0.005
 # the fleet-window phase: the slack allowed past `fleet_dead_after_s`
 # for the controller's tick and this process's polling
 FLEET_POLL_SLACK_S = 0.5
+# the bench phase: `cli bench` runs at the bench's full width (32,768
+# devices, W=64, h=64, bf16) with short windows, each with its name, its
+# flags and its time limit in seconds. The runs of a lane go one after
+# another and the lanes side by side, to keep the script inside its time
+# budget (the fleet runs spend most of their time waiting out death bounds
+# and worker start-ups), so each run's numbers are taken beside the other
+# lanes' load; the A/B pair runs last, alone
+BENCH_SHORT = ("--seconds", "3", "--sat-trials", "2", "--latency-seconds",
+               "3")
+BENCH_RUNS = {
+    "default": (BENCH_SHORT, 240),
+    "window": (BENCH_SHORT + ("--model", "lstm", "--no-megabatch"), 240),
+    "replay": (("--replay", "--sat-trials", "2"), 240),
+    # the kill drill is phase 29's and the ramp's: here the zombie drill
+    "workers": (("--workers", "2", "--zombie-drill", "--no-fleet-kill",
+                 "--seconds", "3", "--sat-trials", "1"), 420),
+    "overload": (("--overload", "--seconds", "3"), 240),
+    "chaos": (("--chaos", "--seconds", "3", "--sat-trials", "1",
+               "--latency-seconds", "2"), 240),
+    "ramp": (("--ramp", "--ramp-seed-seconds", "8", "--ramp-seconds",
+              "12"), 420),
+}
+BENCH_LANES = (("workers", "overload"), ("ramp",),
+               ("default", "window", "replay", "chaos"))
+# the pair: one saturation trial a leg
+BENCH_AB = ("fastlane", "--seconds", "2", "--sat-trials", "1",
+            "--latency-seconds", "2")
+# the overload run's bar: each well-behaved tenant keeps this share of its
+# baseline goodput beside the hog (`bench.py --overload`'s acceptance)
+OVERLOAD_RETENTION = 0.9
 
 
 def log(msg: str) -> None:
@@ -1713,43 +1758,14 @@ async def phase_forecast(torch) -> dict:
 
 
 def maintenance_graph(n: int):
-    """The bench's maintenance fleet (`bench.py:1774-1802`): n devices,
-    n/50 assets, n/200 areas under one site, W+4 ticks of telemetry;
-    every 97th device carries an incident (the bench has none, so its
-    loss has no positive class)."""
-    from sitewhere_tpu_torch.domain.model import (
-        Area,
-        Asset,
-        Device,
-        DeviceAssignment,
-        DeviceType,
-    )
+    """The bench's maintenance fleet (`tools.bench.maintenance_fleet`,
+    `bench.py:1774-1802`): n devices, n/50 assets, n/200 areas under one
+    site, W+4 ticks of telemetry; every 97th device carries an incident
+    (the bench has none, so its loss has no positive class)."""
     from sitewhere_tpu_torch.models.graph import build_fleet_graph
-    from sitewhere_tpu_torch.persistence.memory import InMemoryDeviceManagement
-    from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
-    from sitewhere_tpu_torch.sim.simulator import DeviceSimulator
+    from sitewhere_tpu_torch.tools.bench import maintenance_fleet
 
-    dm = InMemoryDeviceManagement()
-    dt = DeviceType(token="pump", name="Pump")
-    dm.create_device_type(dt)
-    assets = [Asset(token=f"asset-{i}", name=f"A{i}")
-              for i in range(max(n // 50, 1))]
-    parent = Area(token="site", name="Site")
-    areas = [parent] + [Area(token=f"area-{i}", name=f"Z{i}",
-                             parent_area_id=parent.id)
-                        for i in range(max(n // 200, 1))]
-    for ar in areas:
-        dm.create_area(ar)
-    for i in range(n):
-        d = dm.create_device(Device(token=f"p-{i}", device_type_id=dt.id))
-        dm.create_device_assignment(DeviceAssignment(
-            device_id=d.id, token=f"p-{i}-a",
-            asset_id=assets[i % len(assets)].id,
-            area_id=areas[1 + i % (len(areas) - 1)].id))
-    store = TelemetryStore(history=WINDOW * 2, initial_devices=n)
-    sim = DeviceSimulator(SimConfig(num_devices=n, seed=SEED), tenant_id="m")
-    for k in range(WINDOW + 4):
-        store.append_measurements(sim.tick(t=TICK_S * k)[0])
+    dm, store = maintenance_fleet(n, WINDOW, seed=SEED)
     return build_fleet_graph(dm, store, window=WINDOW,
                              failed_device_indices=np.arange(0, n, 97))
 
@@ -3431,12 +3447,191 @@ async def phase_cli_fleet() -> dict:
         raise AssertionError(f"cli fleet: {stats}")
     return stats
 
+# -- the bench entry: every mode on the card --------------------------------
+
+def bench_run(name: str, argv, timeout: float) -> dict:
+    """One `python -m <argv>` in a fresh interpreter: its stdout, stderr
+    and seconds; a non-zero exit raises with the output's tail."""
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-m", *argv], cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=timeout)
+    except subprocess.TimeoutExpired as exc:
+        raise AssertionError(f"bench-{name}: not done in {timeout} s; its "
+                             f"stderr ends: {(exc.stderr or b'')[-3000:]!r}")
+    if out.returncode != 0:
+        raise AssertionError(f"bench-{name}: exit {out.returncode}; stdout "
+                             f"ends {out.stdout[-1500:]!r}; stderr ends "
+                             f"{out.stderr[-3000:]}")
+    return {"stdout": out.stdout, "stderr": out.stderr,
+            "seconds": time.perf_counter() - t0}
+
+
+def bench_report(name: str, run: dict) -> dict:
+    """A `cli bench` run's report (its last stdout line, which must hold
+    no `error`) and its K1 record (the stderr's `[bench] kernels` line)."""
+    report = json.loads(run["stdout"].strip().splitlines()[-1])
+    if "error" in report:
+        raise AssertionError(f"bench-{name}: {report['error']}; stderr ends "
+                             f"{run['stderr'][-3000:]}")
+    k1 = [json.loads(ln[len("[bench] kernels "):])["lstm_window_final"]
+          for ln in run["stderr"].splitlines()
+          if ln.startswith("[bench] kernels ")]
+    return {**run, "report": report, "k1": k1[-1] if k1 else None}
+
+
+def check_bench(name: str, run: dict, kind: str) -> dict:
+    """The checks of one bench run (see `phase_bench`); returns its stats
+    line."""
+    r, k1 = run["report"], run["k1"]
+
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"bench-{name}: {what}: "
+                                 f"{json.dumps(r)[:4000]}")
+
+    need(r.get("platform") == "gpu" and r.get("device_kind") == kind,
+         f"platform / device_kind not gpu / {kind}")
+    stats = {"seconds": run["seconds"], "metric": r["metric"],
+             "value": r["value"]}
+    if name in ("default", "window", "chaos"):
+        need(r["value"] > 0 and all(v for k, v in r["drain"].items()
+                                    if k.endswith("complete")),
+             "no events/s or a drain incomplete")
+        need(r["model_flops_per_event"] > 0 and r["mfu"] is not None
+             and 0 < r["mfu"] <= 1, "mfu outside (0, 1]")
+        stats.update({k: r[k] for k in ("value_median", "p50_ms", "p99_ms",
+                                        "p99_breakdown", "mfu", "pallas")})
+        stats["dispatches"] = r["scoring"]["dispatches"]
+        stats["k1"] = k1
+    if name == "window":
+        need(r["pallas"] == "cuda", "pallas is not cuda")
+        need(k1 is not None and k1["launches"] == k1["dispatches"] > 0,
+             f"K1 launches {k1} != dispatches")
+    if name == "replay":
+        need(r["value"] > 0 and r["events"] == 500_000 and all(
+            t["events"] == r["events"] for t in r["trials"]),
+             "a pass did not score the whole corpus")
+        stats.update({k: r[k] for k in ("value_median", "events", "trials",
+                                        "warmup_s", "corpus_build_s")})
+    if name == "workers":
+        f = r["fleet"]
+        z = f["zombie"]
+        need(r["value"] > 0 and all(t["drain_complete"]
+                                    for t in r["saturation_trials"]),
+             "no events/s or a drain incomplete")
+        need(z["lost_accepted_events"] == 0
+             and z["duplicate_committed_events"] == 0
+             and z["fenced_rejections"] >= 1 and z["sigcont_mid_reassignment"]
+             and z["drain_complete"] and z["post_reconverge_drain_complete"],
+             "the zombie drill")
+        stats.update({"value_median": r["value_median"], "zombie": z,
+                      "converge_s": f["converge_s"],
+                      "epoch": f["epoch"]})
+    if name == "overload":
+        good = list(r["goodput_ratios"])
+        need(r["shed_events"]["hog"] > 0
+             and r["accepted"]["hog"] < r["offered"]["hog"],
+             "the hog was not shed")
+        need(all(r["shed_events"][t] == 0
+                 and r["accepted"][t] == r["offered"][t] for t in good)
+             and r["value"] >= OVERLOAD_RETENTION,
+             f"a well-behaved tenant lost goodput (< {OVERLOAD_RETENTION})")
+        stats.update({k: r[k] for k in (
+            "hog_vs_quota", "goodput_ratios", "shed_events",
+            "baseline_latency", "contended_latency")})
+    if name == "chaos":
+        c = r["chaos"]
+        need(sum(site.get("injected", 0) for site in c["sites"].values()) > 0,
+             "no fault injected")
+        stats["chaos"] = c
+    if name == "ramp":
+        ramp = r["ramp"]
+        need(ramp["ramp_drain_complete"], "the ramp's drain incomplete")
+        need(ramp["kill"] is not None
+             and ramp["kill"]["lost_accepted_events"] == 0
+             and ramp["kill"]["drain_complete"], "the ramp's kill drill")
+        stats.update({k: ramp[k] for k in (
+            "saturation_rate", "scale_up_lag_armed", "backlog_peak_events",
+            "ramp_drain_s", "good_paced_p50_ms", "good_paced_p99_ms",
+            "workers_final", "converge_s", "train",
+            "forecast_attributed_decisions", "kill")})
+    log(f"bench-{name}: {json.dumps(stats)}")
+    return stats
+
+
+def phase_bench(kind: str) -> dict:
+    """`cli bench` (`tools/bench.py`) in fresh interpreters on the card, at
+    the bench's full width with short windows (BENCH_RUNS, lanes side by
+    side). Each run: the last line parses with no `error`, `platform` gpu
+    and `device_kind` the card's name, and its own checks: the default
+    (`lstm-stream` in the pool), `window` (`--model lstm --no-megabatch`:
+    `pallas` cuda and K1's launches == dispatches over the measured phases)
+    and `chaos` (faults injected) with events/s > 0, every drain complete
+    and 0 < mfu ≤ 1; `replay` scoring the whole 500,000-event corpus each
+    pass; `workers` (`--workers 2 --zombie-drill --no-fleet-kill`) losing
+    no accepted event in the zombie drill, the zombie's writes fenced and
+    nothing committed twice after; `overload` shedding the hog while
+    the well-behaved tenants keep their goodput; `ramp` drained, with its
+    kill drill losing nothing. Then `tools/ab_compare.py fastlane`: both
+    legs' reports under build/bench and the table."""
+    import concurrent.futures
+
+    def lane(names):
+        out = {}
+        for name in names:
+            flags, timeout = BENCH_RUNS[name]
+            out[name] = bench_report(name, bench_run(
+                name, ("sitewhere_tpu_torch.cli", "bench", *flags), timeout))
+        return out
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(BENCH_LANES)) as pool:
+        runs = {}
+        for part in pool.map(lane, BENCH_LANES):
+            runs.update(part)
+    stats = {name: check_bench(name, runs[name], kind)
+             for lanes in BENCH_LANES for name in lanes}
+    prefix = os.path.join(scratch_dir(), "bench", "fastlane")
+    ab = bench_run("ab-fastlane", ("sitewhere_tpu_torch.tools.ab_compare",
+                                   BENCH_AB[0], "--prefix", prefix, "--",
+                                   *BENCH_AB[1:]), 480)
+    legs = {}
+    for tag in ("off", "on"):
+        with open(f"{prefix}_{tag}.json") as f:
+            leg = json.load(f)
+        if leg.get("fastlane") != tag or not all(
+                v for k, v in leg["drain"].items() if k.endswith("complete")):
+            raise AssertionError(f"bench-ab-fastlane: the {tag} leg "
+                                 f"{json.dumps(leg)[:3000]}")
+        legs[tag] = {k: leg[k] for k in ("value", "value_median", "p50_ms",
+                                          "p99_ms", "pipeline_owned_p99_ms")}
+    log(f"bench-ab-fastlane: {json.dumps({'seconds': ab['seconds'], **legs})}")
+    log(ab["stdout"].strip())
+    stats["ab-fastlane"] = legs
+    log(f"bench: {time.perf_counter() - t0:.1f} s")
+    return stats
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
+    last = [t_start]
+
+    def mark(label: str) -> None:
+        """One line of the script's time budget: the phases since the last
+        mark, and the total so far."""
+        now = time.perf_counter()
+        log(f"time: {label} {now - last[0]:.1f} s (total "
+            f"{now - t_start:.1f} s)")
+        last[0] = now
 
     kind = phase_device(torch)
     phase_build()
     rows, widths = phase_kernels(torch)
+    mark("device, build, kernels")
     stats = asyncio.run(phase_main(torch))
     asyncio.run(phase_stream(torch))
     for tenants, devices, buckets in POOLS:
@@ -3446,12 +3641,14 @@ def main() -> int:
     tenants, devices, buckets = WINDOW_POOL
     asyncio.run(drive_pool(torch, f"pool-window-{tenants}x{devices}", "lstm",
                            tenants, devices, buckets, fleet_ticks=1))
+    mark("main, stream, pools")
     asyncio.run(phase_pipeline(torch, "pipeline-stream", "lstm-stream",
                                megabatch=True))
     asyncio.run(phase_pipeline(torch, "pipeline-window", "lstm",
                                megabatch=False))
     phase_demo()
     phase_native()
+    mark("pipelines, demo, native")
     asyncio.run(drive_pool(torch, f"pool-tft-1x{FLEET}", "tft", 1, FLEET,
                            (FLEET,), fleet_ticks=1))
     # untrained longwin scores ordinary points at the clip: no anomaly
@@ -3467,6 +3664,7 @@ def main() -> int:
                            anomalies=False))
     asyncio.run(phase_forecast(torch))
     phase_maintenance(torch)
+    mark("other models, forecast, maintenance")
     with tempfile.TemporaryDirectory(prefix="smoke-durable-",
                                      dir=scratch_dir()) as data_dir:
         logged = asyncio.run(phase_durable(torch, data_dir))
@@ -3475,16 +3673,22 @@ def main() -> int:
         ckpt = os.path.join(data_dir, "checkpoints")
         phase_train(ckpt)
         phase_replay_candidate(data_dir, ckpt)
+    mark("durable, replay, train")
     asyncio.run(phase_ingress(torch))
     asyncio.run(phase_ingress_window(torch))
     asyncio.run(phase_platform(torch))
+    mark("ingress, platform")
     for label, model in (("split-window", "lstm"),
                          ("split-stream", "lstm-stream")):
         asyncio.run(phase_split(torch, label, model))
     asyncio.run(phase_cli_split())
+    mark("split, cli-split")
     asyncio.run(phase_fleet_window(torch))
     asyncio.run(phase_fleet_forecast(torch))
     asyncio.run(phase_cli_fleet())
+    mark("fleet, fleet-forecast, cli-fleet")
+    phase_bench(kind)
+    mark("bench")
     top = rows[-1]  # the main path's full flushes run at the largest bucket
     kernels = [{
         "name": "lstm_window_final",

@@ -79,8 +79,12 @@ to a broker (`--bus`), hosting the scoring services for the tenants
 that placement gives it; on the card, or the CPU with `--cpu` (without a
 card and without `--cpu` it fails at start).
 
-`lint` (ROADMAP A.6) and `bench` (A.1.5) are not ported: each raises
-`NotImplementedError` naming its item.
+`bench` (`swx bench`): `tools/bench.py`, every mode of `bench.py` with
+its flags (`--cpu` for `--force-cpu`); on the card unless `--cpu`, and
+without a card and without `--cpu` it exits 1 with the error artifact.
+
+`lint` (ROADMAP A.6) is not ported: it raises `NotImplementedError`
+naming its item.
 """
 
 from __future__ import annotations
@@ -338,7 +342,11 @@ async def cmd_run(args) -> int:
         from sitewhere_tpu_torch.fleet import FleetController
 
         rt.add_child(FleetController(rt))
-    await rt.start()
+    try:
+        await rt.start()
+    except BaseException:
+        await rt.stop()  # what did start (REST, loops) stops again
+        raise
     bus_server = None
     if args.serve_bus_port is not None:
         from sitewhere_tpu_torch.kernel.bus import EventBus
@@ -1370,7 +1378,8 @@ def main(argv=None) -> int:
     p_lint.add_argument("--write-baseline", action="store_true")
     p_lint.add_argument("--dump-registry", action="store_true")
 
-    sub.add_parser("bench", help="run the benchmark (not ported)")
+    sub.add_parser("bench", help="run the benchmark (bench.py's flags, "
+                   "--cpu for --force-cpu; tools/bench.py)")
 
     # `bench` takes the benchmark's flags, as the JAX package forwards
     # them; every other command only its own
@@ -1380,7 +1389,9 @@ def main(argv=None) -> int:
     if args.cmd == "lint":
         raise not_ported("lint (swxlint over the port)", "A.6")
     if args.cmd == "bench":
-        raise not_ported("the port's bench entry", "A.1.5")
+        from sitewhere_tpu_torch.tools import bench
+
+        return bench.main(extra)
     return asyncio.run({"demo": cmd_demo, "replay": cmd_replay,
                         "train": cmd_train, "simulate": cmd_simulate,
                         "run": cmd_run, "serve-bus": cmd_serve_bus,

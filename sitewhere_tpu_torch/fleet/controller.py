@@ -464,16 +464,28 @@ class FleetController(LifecycleComponent):
                                       f"{coolest}'s {loads[coolest]:.0f}"}
         return None
 
+    def _planner_wanted(self) -> bool:
+        """The forecast lever is on AND the runtime keeps a durable
+        telemetry history — without the history there is nothing to
+        train or serve from, and the reactive path alone runs."""
+        return (bool(getattr(self.runtime.settings, "fleet_forecast", True))
+                and getattr(self.runtime, "history", None) is not None)
+
+    async def _do_start(self, monitor) -> None:
+        # the planner serves on `InstanceSettings.device`: resolve it now,
+        # so a host without the card fails the controller's start instead
+        # of crashing the supervised loop on every tick until its restart
+        # budget is spent
+        if self._planner_wanted():
+            from sitewhere_tpu_torch.utils.device import resolve_device
+
+            resolve_device(self.runtime.settings.device)
+
     def _ensure_planner(self) -> None:
-        """Create the predictive planner on first use (fleet/forecast.py):
-        gated on the forecast lever AND the durable telemetry history —
-        without the history there is nothing to train or serve from,
-        and the reactive path alone runs (the fallback floor)."""
-        if self.planner is not None:
-            return
-        if not getattr(self.runtime.settings, "fleet_forecast", True):
-            return
-        if getattr(self.runtime, "history", None) is None:
+        """Create the predictive planner on first use (fleet/forecast.py)
+        when `_planner_wanted`; otherwise the reactive path alone runs
+        (the fallback floor)."""
+        if self.planner is not None or not self._planner_wanted():
             return
         from sitewhere_tpu_torch.fleet.forecast import PredictivePlanner
 

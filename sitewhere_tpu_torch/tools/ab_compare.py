@@ -1,0 +1,497 @@
+"""Paired A/B runs of the port's bench entry (`tools/bench.py`): two
+configurations back to back on one card in one invocation, both reports
+written, and the markdown delta table on stdout. A port of the presets
+of `scripts/ab_compare.py` (`:399-479`), which drives the JAX package's
+`bench.py`; the `mesh` preset is not ported (ROADMAP A.2).
+
+Presets (the levers the entry exposes):
+
+    egress    on = fused egress stage (`--egress-lanes N`),
+              off = `--no-egress-fusion` (inline scored publish)
+    fastlane  on = fused ingress lane (auto), off = `--no-fastlane`
+    lanes     a = `--egress-lanes N`, b = `--egress-lanes 1`
+    megabatch on = cross-tenant stacked dispatch (`--tenants N`), off =
+              `--no-megabatch --tenants N` (one dispatch a tenant a
+              round)
+    observe   on = the pipeline flight recorder (default), off =
+              `--no-observe`
+    fleet     a = `--workers N`, b = `--workers 1` (the scale-out pair,
+              with the kill drill)
+    fleetobs  on = `--workers N`, off = `--workers N --no-fleet-observe`
+    wire      on = `--workers N`, off = `--workers N --no-wire-fastpath`
+    predictive on = `--ramp`, off = `--ramp --no-forecast`; leg B runs
+              leg A's measured saturation and armed scale-up bar
+    replay    three legs: live saturation, then `--replay` cold and
+              warm with the live leg's median threaded in
+
+Usage:
+
+    python -m sitewhere_tpu_torch.tools.ab_compare fastlane \
+        -- --seconds 3 --sat-trials 2 --latency-seconds 3
+
+Everything after `--` goes to every leg verbatim (`--cpu` runs both on
+the CPU). Reports land at `build/bench/<preset>_<tag>.json` (or
+`--prefix`); the table goes to stdout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+OUT_DIR = os.path.join(REPO, "build", "bench")
+
+
+def run_bench(extra: list[str], bench_args: list[str], label: str) -> dict:
+    cmd = [sys.executable, "-m", "sitewhere_tpu_torch.tools.bench",
+           *bench_args, *extra]
+    print(f"[ab_compare] {label}: {' '.join(cmd)}", file=sys.stderr)
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, cwd=REPO)
+    # the report is the last stdout line (the runs' logs are stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    if not lines:
+        raise RuntimeError(f"{label}: bench produced no artifact "
+                           f"(exit {proc.returncode})")
+    artifact = json.loads(lines[-1])
+    if proc.returncode != 0 or "error" in artifact:
+        raise RuntimeError(f"{label}: bench failed: "
+                           f"{artifact.get('error', proc.returncode)}")
+    return artifact
+
+
+def stage(artifact: dict, name: str) -> dict:
+    return artifact.get("p99_breakdown", {}).get(name, {})
+
+
+def fmt_stage(artifact: dict, name: str) -> str:
+    s = stage(artifact, name)
+    if not s:
+        return "—"
+    return (f"{s.get('p50_ms', 0):.2f} / {s.get('p95_ms', 0):.2f} / "
+            f"{s.get('p99_ms', 0):.2f}")
+
+
+def ratio(a: float, b: float) -> str:
+    if not b:
+        return "—"
+    r = a / b
+    return f"{r - 1:+.0%}" if 0.1 < r < 10 else f"{r:.2f}×"
+
+
+def fleet_delta_table(name_a: str, a: dict, name_b: str, b: dict) -> str:
+    """Fleet-preset table: scale-out throughput + kill-drill columns
+    (the fleet artifact has no cross-process e2e latency — monotonic
+    stamps don't compose over the process boundary)."""
+    fa, fb = a.get("fleet") or {}, b.get("fleet") or {}
+    rows = [
+        ("workers", str(fb.get("workers")), str(fa.get("workers")), ""),
+        ("aggregate sat median (ev/s)",
+         f"{b['value_median']:,.0f}", f"{a['value_median']:,.0f}",
+         ratio(a["value_median"], b["value_median"])),
+        ("aggregate sat best (ev/s)",
+         f"{b['value']:,.0f}", f"{a['value']:,.0f}",
+         ratio(a["value"], b["value"])),
+        ("tenants", str(fb.get("tenants")), str(fa.get("tenants")), ""),
+        ("rebalances / final epoch",
+         f"{fb.get('rebalances')} / {fb.get('epoch')}",
+         f"{fa.get('rebalances')} / {fa.get('epoch')}", ""),
+    ]
+    for name, art in ((name_b, fb), (name_a, fa)):
+        kill = art.get("kill")
+        if kill:
+            rows.append((
+                f"kill drill ({name})",
+                "", f"killed {kill.get('killed_worker')}, "
+                    f"lost {kill.get('lost_accepted_events')} of "
+                    f"{kill.get('accepted_events')} accepted, "
+                    f"reconverged {kill.get('converged_after_kill_s')}s, "
+                    f"replacement={kill.get('replacement_spawned')}", ""))
+    out = [f"| metric | {name_b} | {name_a} | Δ (A vs B) |",
+           "|---|---|---|---|"]
+    out += [f"| {m} | {vb} | {va} | {d} |" for m, vb, va, d in rows]
+    return "\n".join(out)
+
+
+def wire_delta_table(name_a: str, a: dict, name_b: str, b: dict) -> str:
+    """Wire-preset extra table: the broker-hop stages of each leg's
+    fleet-merged critical path (the fleet observer), plus the fleet
+    queue/service split — the acceptance read is `wire.poll` p99 off ÷
+    on ≥ 5 with saturation median no worse and 0 lost on both legs.
+    Reads the STEADY-STATE snapshot (pre-kill-drill) when present: the
+    drill's reconvergence backlog floods every p99 with multi-second
+    catch-up spans in both legs and would drown the hop signal."""
+    def obs(art):
+        fleet = art.get("fleet") or {}
+        return fleet.get("observe_steady") or fleet.get("observe") or {}
+
+    def hop(art, stage, q):
+        return ((obs(art).get("critical_path") or {}).get(stage) or {}) \
+            .get(q, 0.0)
+
+    rows = []
+    for stage in ("wire.poll", "wire.produce"):
+        pb, pa = hop(b, stage, "p99_ms"), hop(a, stage, "p99_ms")
+        rows.append((f"fleet `{stage}` p50 / p99 ms",
+                     f"{hop(b, stage, 'p50_ms')} / {pb}",
+                     f"{hop(a, stage, 'p50_ms')} / {pa}",
+                     f"{pb / pa:.1f}× lower" if pa else "—"))
+    rows.append(("fleet queue-wait p99 (ms)",
+                 f"{obs(b).get('queue_wait_p99_ms')}",
+                 f"{obs(a).get('queue_wait_p99_ms')}", ""))
+    rows.append(("fleet service p99 (ms)",
+                 f"{obs(b).get('service_p99_ms')}",
+                 f"{obs(a).get('service_p99_ms')}", ""))
+    for name, art in ((name_b, b), (name_a, a)):
+        kill = (art.get("fleet") or {}).get("kill") or {}
+        if kill:
+            rows.append((
+                f"kill drill lost ({name})",
+                "", f"{kill.get('lost_accepted_events')} of "
+                    f"{kill.get('accepted_events')} accepted", ""))
+    out = [f"| wire fast path | {name_b} | {name_a} | Δ |",
+           "|---|---|---|---|"]
+    out += [f"| {m} | {vb} | {va} | {d} |" for m, vb, va, d in rows]
+    return "\n".join(out)
+
+
+def replay_delta_table(live: dict, cold: dict, warm: dict) -> str:
+    """Replay-preset table: the cold-tier replay plane's events/s
+    against the same-day live saturation median. Every leg's artifact
+    records its own model and fleet shape — the live leg is the
+    repo-standard saturation bench, the replay legs run the replay
+    plane's natural dispatch-bound configuration (the same-model
+    comparison is in docs/PERFORMANCE.md)."""
+    lm = float(live.get("value_median") or 0.0)
+    rows = [("| leg | events/s (median) | best | vs live median |"),
+            ("|---|---|---|---|"),
+            (f"| live saturation ({live.get('model')}) | {lm:,.0f} | "
+             f"{float(live.get('value') or 0):,.0f} | 1.00x |")]
+    for tag, art in (("replay cold", cold), ("replay warm", warm)):
+        m = float(art.get("value_median") or 0.0)
+        note = ""
+        if art.get("io") == "cold" and art.get("cache_dropped") is False:
+            note = " — CACHE DROP FAILED (really warm)"
+        rows.append(
+            f"| {tag} ({art.get('model')}){note} | {m:,.0f} | "
+            f"{float(art.get('value') or 0):,.0f} | "
+            f"{(m / lm if lm else 0.0):.2f}x |")
+    return "\n".join(rows)
+
+
+def ramp_delta_table(name_a: str, a: dict, name_b: str, b: dict) -> str:
+    """Predictive-preset table: backlog event-seconds + good-tenant
+    collateral latency (lower is better on both), scale timing, and
+    the forecast-attribution audit."""
+    ra, rb = a.get("ramp") or {}, b.get("ramp") or {}
+    rows = [
+        ("backlog event-seconds (ramp+drain)",
+         f"{rb.get('backlog_event_seconds', 0):,.0f}",
+         f"{ra.get('backlog_event_seconds', 0):,.0f}",
+         ratio(ra.get("backlog_event_seconds", 0.0),
+               rb.get("backlog_event_seconds", 0.0))),
+        ("backlog peak (events)",
+         f"{rb.get('backlog_peak_events', 0):,}",
+         f"{ra.get('backlog_peak_events', 0):,}",
+         ratio(float(ra.get("backlog_peak_events", 0)),
+               float(rb.get("backlog_peak_events", 0)))),
+        ("good-tenant paced p50 / p99 ms",
+         f"{rb.get('good_paced_p50_ms', 0):.1f} / "
+         f"{rb.get('good_paced_p99_ms', 0):.1f}",
+         f"{ra.get('good_paced_p50_ms', 0):.1f} / "
+         f"{ra.get('good_paced_p99_ms', 0):.1f}",
+         ratio(ra.get("good_paced_p99_ms", 0.0),
+               rb.get("good_paced_p99_ms", 0.0))),
+        ("post-ramp drain (s)",
+         f"{rb.get('ramp_drain_s', 0)}", f"{ra.get('ramp_drain_s', 0)}",
+         ""),
+        ("single-worker saturation (ev/s)",
+         f"{rb.get('saturation_rate', 0):,.0f}",
+         f"{ra.get('saturation_rate', 0):,.0f}", ""),
+        ("workers at ramp end",
+         str(rb.get("workers_final")), str(ra.get("workers_final")), ""),
+        ("autoscale decisions (forecast-attributed)",
+         f"{len(rb.get('decisions') or [])} "
+         f"({rb.get('forecast_attributed_decisions', 0)})",
+         f"{len(ra.get('decisions') or [])} "
+         f"({ra.get('forecast_attributed_decisions', 0)})", ""),
+    ]
+    for name, art in ((name_b, rb), (name_a, ra)):
+        kill = art.get("kill")
+        if kill:
+            rows.append((
+                f"kill drill ({name})",
+                "", f"killed {kill.get('killed_worker')}, lost "
+                    f"{kill.get('lost_accepted_events')}, reconverged "
+                    f"{kill.get('converged_after_kill_s')}s", ""))
+    out = [f"| metric | {name_b} | {name_a} | Δ (A vs B) |",
+           "|---|---|---|---|"]
+    out += [f"| {m} | {vb} | {va} | {d} |" for m, vb, va, d in rows]
+    return "\n".join(out)
+
+
+def delta_table(name_a: str, a: dict, name_b: str, b: dict) -> str:
+    """Markdown table, columns = [metric, B, A, delta] — B is the
+    baseline (off/lanes=1), A the candidate, matching PERFORMANCE.md's
+    off-then-on column order."""
+    rows = [
+        ("saturation `value_median` (ev/s)",
+         f"{b['value_median']:,.0f}", f"{a['value_median']:,.0f}",
+         ratio(a["value_median"], b["value_median"])),
+        ("saturation best (ev/s)",
+         f"{b['value']:,.0f}", f"{a['value']:,.0f}",
+         ratio(a["value"], b["value"])),
+        ("e2e paced p50 / p99 ms",
+         f"{b['p50_ms']:.2f} / {b['p99_ms']:.2f}",
+         f"{a['p50_ms']:.2f} / {a['p99_ms']:.2f}",
+         ratio(a["p99_ms"], b["p99_ms"])),
+        ("`pipeline_owned_p99_ms`",
+         f"{b['pipeline_owned_p99_ms']:.2f}",
+         f"{a['pipeline_owned_p99_ms']:.2f}",
+         ratio(a["pipeline_owned_p99_ms"], b["pipeline_owned_p99_ms"])),
+    ]
+    for st in ("admit", "batch", "sink"):
+        pa, pb = stage(a, st), stage(b, st)
+        rows.append((f"{st} p50 / p95 / p99 ms",
+                     fmt_stage(b, st), fmt_stage(a, st),
+                     ratio(pa.get("p99_ms", 0.0), pb.get("p99_ms", 0.0))
+                     if pa and pb else "—"))
+    rows.append(("scored-path bus hops",
+                 str(b.get("hops", "—")), str(a.get("hops", "—")), ""))
+    eg_a, eg_b = a.get("egress", {}), b.get("egress", {})
+    rows.append(("egress fused / lanes",
+                 f"{eg_b.get('fused')} / {eg_b.get('lanes')}",
+                 f"{eg_a.get('fused')} / {eg_a.get('lanes')}", ""))
+    sc_a, sc_b = a.get("scoring", {}), b.get("scoring", {})
+    if sc_a and sc_b:
+        rows.append(("jit dispatch rate (dispatch/s)",
+                     f"{sc_b.get('dispatch_rate', 0):,.1f}",
+                     f"{sc_a.get('dispatch_rate', 0):,.1f}",
+                     ratio(sc_a.get("dispatch_rate", 0.0),
+                           sc_b.get("dispatch_rate", 0.0))))
+        rows.append(("events per jit dispatch",
+                     f"{sc_b.get('events_per_dispatch', 0):,.1f}",
+                     f"{sc_a.get('events_per_dispatch', 0):,.1f}",
+                     ratio(sc_a.get("events_per_dispatch", 0.0),
+                           sc_b.get("events_per_dispatch", 0.0))))
+        rows.append(("megabatch / tenants-per-dispatch p50",
+                     f"{sc_b.get('megabatch')} / "
+                     f"{sc_b.get('tenants_per_dispatch_p50')}",
+                     f"{sc_a.get('megabatch')} / "
+                     f"{sc_a.get('tenants_per_dispatch_p50')}", ""))
+        mesh_a = sc_a.get("mesh") or {}
+        mesh_b = sc_b.get("mesh") or {}
+        if mesh_a.get("devices") or mesh_b.get("devices"):
+            rows.append(("mesh devices / window live ms / adjusts",
+                         f"{mesh_b.get('devices', 0)} / "
+                         f"{sc_b.get('window_ms_live', '—')} / "
+                         f"{sc_b.get('window_adjusts', 0)}",
+                         f"{mesh_a.get('devices', 0)} / "
+                         f"{sc_a.get('window_ms_live', '—')} / "
+                         f"{sc_a.get('window_adjusts', 0)}", ""))
+            rows.append(("tflops per device (median)",
+                         f"{b.get('model_tflops_per_device', 0)}",
+                         f"{a.get('model_tflops_per_device', 0)}",
+                         ratio(a.get("model_tflops_per_device", 0.0) or 0.0,
+                               b.get("model_tflops_per_device", 0.0)
+                               or 0.0)))
+        eg2_a, eg2_b = a.get("egress", {}), b.get("egress", {})
+        if eg2_a.get("autotune") or eg2_b.get("autotune"):
+            rows.append(("egress autotune: active lanes / adjusts",
+                         f"{eg2_b.get('active_lanes', '—')} / "
+                         f"{eg2_b.get('autotune_adjusts', 0)}",
+                         f"{eg2_a.get('active_lanes', '—')} / "
+                         f"{eg2_a.get('autotune_adjusts', 0)}", ""))
+    rows.append(("model_tflops (best / median)",
+                 f"{b.get('model_tflops', 0)} / "
+                 f"{b.get('model_tflops_median', 0)}",
+                 f"{a.get('model_tflops', 0)} / "
+                 f"{a.get('model_tflops_median', 0)}",
+                 ratio(a.get("model_tflops_median", 0.0) or 0.0,
+                       b.get("model_tflops_median", 0.0) or 0.0)))
+    out = [f"| metric | {name_b} | {name_a} | Δ (A vs B) |",
+           "|---|---|---|---|"]
+    out += [f"| {m} | {vb} | {va} | {d} |" for m, vb, va, d in rows]
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m sitewhere_tpu_torch.tools.ab_compare",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("preset", choices=["egress", "fastlane", "lanes",
+                                           "megabatch", "observe",
+                                           "fleet", "fleetobs", "wire",
+                                           "predictive", "replay"])
+    parser.add_argument("--workers", type=int, default=2,
+                        help="worker-process count for the fleet presets' "
+                             "scale-out leg (fleet's other leg runs "
+                             "--workers 1)")
+    parser.add_argument("--lanes", type=int, default=2,
+                        help="egress/consumer lane count for the sharded "
+                             "run (egress + lanes presets)")
+    parser.add_argument("--tenants", type=int, default=8,
+                        help="active tenant count for the megabatch "
+                             "preset (both legs)")
+    parser.add_argument("--prefix", default=None,
+                        help="report path prefix (default "
+                             "build/bench/<preset>)")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    bench_args: list[str] = []
+    if "--" in argv:
+        split = argv.index("--")
+        argv, bench_args = argv[:split], argv[split + 1:]
+    args = parser.parse_args(argv)
+    args.bench_args = bench_args
+    prefix = args.prefix or os.path.join(
+        OUT_DIR, "predict" if args.preset == "predictive" else args.preset)
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+
+    if args.preset == "egress":
+        pairs = [("off", ["--no-egress-fusion"]),
+                 ("on", ["--egress-lanes", str(args.lanes)])]
+        names = ("egress off", f"egress on (lanes={args.lanes})")
+    elif args.preset == "fastlane":
+        pairs = [("off", ["--no-fastlane"]), ("on", [])]
+        names = ("fastlane off", "fastlane on")
+    elif args.preset == "megabatch":
+        t = str(args.tenants)
+        pairs = [("off", ["--no-megabatch", "--tenants", t]),
+                 ("on", ["--tenants", t])]
+        names = (f"megabatch off ({t} tenants)",
+                 f"megabatch on ({t} tenants)")
+    elif args.preset == "observe":
+        pairs = [("off", ["--no-observe"]), ("on", [])]
+        names = ("observe off", "observe on")
+    elif args.preset == "fleet":
+        w = str(args.workers)
+        pairs = [("w1", ["--workers", "1"]),
+                 (f"w{w}", ["--workers", w])]
+        names = ("fleet workers=1", f"fleet workers={w}")
+    elif args.preset == "fleetobs":
+        # SAME worker count both legs; the variable is the fleet
+        # observability plane (worker telemetry export + FleetObserver
+        # merge + durable history tier, docs/OBSERVABILITY.md) —
+        # acceptance: the on leg's saturation within 3% of off
+        w = str(args.workers)
+        pairs = [("off", ["--workers", w, "--no-fleet-observe"]),
+                 ("on", ["--workers", w])]
+        names = (f"fleet-observe off (w={w})", f"fleet-observe on (w={w})")
+    elif args.preset == "wire":
+        # SAME worker count both legs; the variable is the wire
+        # data-plane fast path (kernel/wire.py: streaming poll
+        # prefetch + pipelined micro-batched produce + zero-copy
+        # codec). The fleet observability plane stays ON in both legs
+        # — its merged critical path is the instrument that measures
+        # the broker-hop stages this preset exists to compare.
+        w = str(args.workers)
+        pairs = [("off", ["--workers", w, "--no-wire-fastpath"]),
+                 ("on", ["--workers", w])]
+        names = (f"wire fast path off (w={w})", f"wire fast path on (w={w})")
+    elif args.preset == "predictive":
+        # SAME topology both legs (live autoscaler, 1..max workers);
+        # the variable is the predictive planner (fleet/forecast.py:
+        # history-trained forecaster served through the tenant-0 slot,
+        # scale-up ahead of a worker's start-up). Acceptance:
+        # the on leg beats the off leg on backlog event-seconds AND
+        # good-tenant paced p99, its decisions carry forecast
+        # provenance, and the kill drill loses 0 on both legs.
+        pairs = [("off", ["--ramp", "--no-forecast"]),
+                 ("on", ["--ramp"])]
+        names = ("forecast off (reactive)", "forecast on (predictive)")
+    elif args.preset == "replay":
+        # THREE legs, one rig, one day: the standard live saturation
+        # bench (the denominator of the replay reports), then the historical replay plane reading the
+        # columnar cold tier back from disk (page cache dropped before
+        # every timed pass) and from the page cache. The replay legs
+        # run the plane's natural dispatch-bound configuration (zscore,
+        # 8192-device rank rounds); each artifact records its own model
+        # + shape and the live leg's median is threaded into the replay
+        # artifacts below, so every file is self-describing.
+        rp = ["--replay", "--model", "zscore", "--devices", "8192",
+              "--max-inflight", "32", "--replay-events", "800000"]
+        pairs = [("live", []),
+                 ("cold", rp + ["--replay-io", "cold"]),
+                 ("warm", rp + ["--replay-io", "warm"])]
+        names = ("live saturation", "replay cold", "replay warm")
+    else:  # lanes: fusion on in both, shard count is the variable
+        pairs = [("lanes1", ["--egress-lanes", "1"]),
+                 (f"lanes{args.lanes}", ["--egress-lanes",
+                                         str(args.lanes)])]
+        names = ("lanes=1", f"lanes={args.lanes}")
+
+    artifacts = []
+    for i, (tag, extra) in enumerate(pairs):
+        if args.preset == "predictive" and i == 1 and artifacts:
+            # pin leg B's drill to leg A's measured shape: same offered
+            # ramp (ev/s) and same armed scale-up bar — run-to-run rig
+            # drift otherwise calibrates two DIFFERENT drills and the
+            # delta measures the rig, not the planner
+            r0 = artifacts[0].get("ramp") or {}
+            if r0.get("saturation_rate"):
+                extra = extra + [
+                    "--ramp-sat-rate", str(r0["saturation_rate"]),
+                    "--ramp-scale-lag", str(r0["scale_up_lag_armed"])]
+        if args.preset == "replay" and i > 0 and artifacts:
+            # stamp the live leg's measured median into each replay
+            # report: each replay report carries its same-day
+            # denominator, not a reference to another file
+            lm = artifacts[0].get("value_median")
+            if lm:
+                extra = extra + ["--live-median", str(lm)]
+        artifact = run_bench(extra, args.bench_args, f"{prefix}_{tag}")
+        path = f"{prefix}_{tag}.json"
+        with open(path, "w") as f:
+            json.dump(artifact, f, indent=1)
+            f.write("\n")
+        print(f"[ab_compare] wrote {path}", file=sys.stderr)
+        artifacts.append(artifact)
+
+    if args.preset == "replay":
+        live, cold, warm = artifacts
+        print(replay_delta_table(live, cold, warm))
+        return 0
+    b, a = artifacts  # baseline ran first (off / lanes1 / w1)
+    if args.preset == "predictive":
+        print(ramp_delta_table(names[1], a, names[0], b))
+    elif args.preset == "fleet":
+        print(fleet_delta_table(names[1], a, names[0], b))
+    elif args.preset == "wire":
+        print(fleet_delta_table(names[1], a, names[0], b))
+        print()
+        print(wire_delta_table(names[1], a, names[0], b))
+    elif args.preset == "fleetobs":
+        print(fleet_delta_table(names[1], a, names[0], b))
+        obs = (a.get("fleet") or {}).get("observe") or {}
+        hist = obs.get("history") or {}
+        rows = [
+            ("workers reporting beats", obs.get("workers_reporting")),
+            ("telemetry records folded", obs.get("telemetry_records")),
+            ("telemetry-topic observer lag", obs.get("telemetry_lag")),
+            ("fleet critical-path stages",
+             len(obs.get("critical_path") or {})),
+            ("fleet queue-wait p99 (ms)", obs.get("queue_wait_p99_ms")),
+            ("fleet service p99 (ms)", obs.get("service_p99_ms")),
+            ("history series / windows / segments",
+             f"{hist.get('series')} / {hist.get('windows')} / "
+             f"{hist.get('segments')}"),
+            ("history lag windows per tenant",
+             obs.get("history_lag_windows_per_tenant")),
+        ]
+        print()
+        print("| fleet-observe (on leg) | value |")
+        print("|---|---|")
+        for m, v in rows:
+            print(f"| {m} | {v} |")
+    else:
+        print(delta_table(names[1], a, names[0], b))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -59,7 +59,7 @@ import sys
 import tempfile
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
@@ -82,6 +82,8 @@ BURST_TICKS, ANOMALY_AT = 6, 3
 # the share of it at which the SIGKILL lands; the waits' bounds
 INTERVAL_S, DEAD_AFTER_S, HEARTBEAT_S = 0.25, 6.0, 0.25
 FLOOD_S, KILL_AT = 6.0, 0.4
+# the zombie drill's wait between the victim's last ticks and its SIGSTOP
+STOP_SETTLE_S = 0.005
 READY_TIMEOUT_S, DRAIN_TIMEOUT_S = 600.0, 180.0
 # the run's steps at INFO, the controller's placement trail beside them
 logger = logging.getLogger(__name__)
@@ -90,20 +92,48 @@ logger = logging.getLogger(__name__)
 @dataclass
 class FleetConfig:
     workers: int = 2
-    devices: int = 32768       # over TENANTS tenants
+    devices: int = 32768       # over the tenants
     # lstm (windowed) on a dedicated session, or lstm-stream in the pool
     model: str = "lstm"
     zombie: bool = False
     # the workers' torch device: None is the CUDA card
     device: Optional[str] = None
+    # the bench's levers (`bench.py --workers N`): the tenant count (0:
+    # the bench's rule, max(TENANTS, 2N)), the tenants' window, batch
+    # window, flushes in flight and megabatch (None: the pool for
+    # lstm-stream only), the fleet observability plane, the wire fast
+    # path, and chaos (the controller's `fleet.rebalance` and each
+    # worker's `fleet.heartbeat`, at most `chaos_faults` a site)
+    tenants: int = 0
+    window: int = WINDOW
+    window_ms: float = 2.0
+    max_inflight: int = 8
+    megabatch: Optional[bool] = None
+    fleet_observe: bool = True
+    wire_fastpath: bool = True
+    chaos: bool = False
+    chaos_seed: int = 0
+    chaos_faults: int = 4
+    # the autoscaler (None: pinned to `workers`), the workers requested
+    # at start (None: `workers`), and settings over the defaults of the
+    # controller's runtime and of each worker
+    policy: Optional[object] = None
+    start_workers: Optional[int] = None
+    settings: dict = field(default_factory=dict)
+    worker_settings: dict = field(default_factory=dict)
+
+    @property
+    def n_tenants(self) -> int:
+        return self.tenants if self.tenants > 1 else max(TENANTS,
+                                                         2 * self.workers)
 
     @property
     def per_tenant(self) -> int:
-        return max(self.devices // TENANTS, 1)
+        return max(self.devices // self.n_tenants, 1)
 
     @property
     def tenant_ids(self) -> list[str]:
-        return [f"bench{i}" for i in range(TENANTS)]
+        return [f"bench{i}" for i in range(self.n_tenants)]
 
 
 class WorkerDied(RuntimeError):
@@ -121,7 +151,7 @@ def warm_and_burst(cfg: FleetConfig) -> dict:
         spike = SimConfig(num_devices=cfg.per_tenant, seed=i,
                           anomaly_rate=0.05, anomaly_magnitude=12.0)
         sim = sims[tid] = DeviceSimulator(base, tenant_id=tid)
-        warm = WINDOW + 4
+        warm = cfg.window + 4
         out = []
         for k in range(warm + BURST_TICKS):
             sim.cfg = spike if k == warm + ANOMALY_AT else base
@@ -150,6 +180,7 @@ class Fleet:
         self._wids = iter(range(10_000))
         self._dir = None
         self.closing = False
+        self.faults = None  # the controller's FaultInjector under chaos
 
     # -- workers ----------------------------------------------------------
 
@@ -170,12 +201,27 @@ class Fleet:
                 "engine_ready_timeout_s": READY_TIMEOUT_S,
                 "fleet_heartbeat_s": HEARTBEAT_S,
                 "flow_degrade_at": 10.0, "flow_defer_at": 10.0,
+                # the fleetobs lever: the off leg's workers export no
+                # telemetry beats (the per-process recorder stays on)
+                "observe_export": cfg.fleet_observe,
+                "observe_history": cfg.fleet_observe,
+                # the wire lever: off = request/response poll and a
+                # task per fire-and-forget produce
+                "wire_prefetch": cfg.wire_fastpath,
+                "wire_pipeline": cfg.wire_fastpath,
                 # worker-LOCAL scratch (registry WAL + snapshots), one
                 # private dir a worker: adoption state comes from bus
                 # replay (hermetic fleet)
                 "data_dir": os.path.join(self._dir, wid),
+                **cfg.worker_settings,
             },
         }
+        if cfg.chaos:
+            # worker-side chaos: the heartbeat loop crashes (bounded)
+            # and the supervisor keeps the worker alive through it
+            wcfg["chaos"] = {"seed": cfg.chaos_seed, "sites": {
+                "fleet.heartbeat": {"rate": 0.01,
+                                    "max_faults": cfg.chaos_faults}}}
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
         self.stderr[wid] = tempfile.TemporaryFile(mode="w+")
@@ -281,13 +327,19 @@ class Fleet:
         # deep retention: a reassignment window must never trim records
         # the kill drill still owes the new owner
         self.bus = EventBus(default_partitions=4, retention=65536)
-        self.rt = ServiceRuntime(InstanceSettings(
-            instance_id=INSTANCE, bus_retention=65536,
-            engine_ready_timeout_s=READY_TIMEOUT_S,
-            fleet_interval_s=INTERVAL_S,
-            fleet_dead_after_s=DEAD_AFTER_S,
-            flow_degrade_at=10.0, flow_defer_at=10.0, device=cfg.device,
-            data_dir=os.path.join(self._dir, "controller")), bus=self.bus)
+        self.rt = ServiceRuntime(InstanceSettings(**{
+            "instance_id": INSTANCE, "bus_retention": 65536,
+            "engine_ready_timeout_s": READY_TIMEOUT_S,
+            "fleet_interval_s": INTERVAL_S,
+            "fleet_dead_after_s": DEAD_AFTER_S,
+            "flow_degrade_at": 10.0, "flow_defer_at": 10.0,
+            "device": cfg.device,
+            # the observer and the controller's telemetry history ride
+            # the fleetobs lever's on leg
+            "fleet_observe": cfg.fleet_observe,
+            "data_dir": (os.path.join(self._dir, "controller")
+                         if cfg.fleet_observe else None),
+            **cfg.settings}), bus=self.bus)
         self.rt.add_service(EventSourcesService(self.rt))
         # hermetic tenant state: the seeding runtime's registrations land
         # on each tenant's registry-state topic; workers adopt by replay
@@ -306,20 +358,33 @@ class Fleet:
         # (the kill drill's replacement) stays live, load-driven scaling
         # and migration cannot perturb the measured phases
         self.controller = FleetController(
-            self.rt, policy=AutoscalerPolicy(
+            self.rt, policy=cfg.policy or AutoscalerPolicy(
                 min_workers=cfg.workers, max_workers=cfg.workers,
                 scale_up_lag=1e18, imbalance_ratio=1e18),
             spawner=self._spawn)
         self.rt.add_child(self.controller)
+        if cfg.chaos:
+            from sitewhere_tpu_torch.kernel.faults import FaultInjector
+
+            # controller-side chaos: the placement publish crashes
+            # (bounded); epoch recovery and the pending rebalance's
+            # retry must converge
+            self.faults = self.rt.install_faults(
+                FaultInjector(seed=cfg.chaos_seed))
+            self.faults.arm("fleet.rebalance", rate=0.05,
+                            max_faults=cfg.chaos_faults)
         await self.rt.start()
         await self.broker.start()
-        for _ in range(cfg.workers):
+        start = cfg.workers if cfg.start_workers is None else cfg.start_workers
+        for _ in range(start):
             self.controller.request_replica()
         # the tenants are placed while the workers start, as the bench
         # does: the first worker to join adopts them all and the next
         # one's placement moves tenants that are still starting
         sections = tenant_sections(SplitConfig(
-            devices=cfg.per_tenant, model=cfg.model, window=WINDOW))
+            devices=cfg.per_tenant, model=cfg.model, window=cfg.window,
+            window_ms=cfg.window_ms, max_inflight=cfg.max_inflight,
+            megabatch=cfg.megabatch))
         for tid in cfg.tenant_ids:
             # spins the local event-sources engine and registers the
             # tenant for placement
@@ -330,7 +395,7 @@ class Fleet:
         self.meters = {tid: self.bus.subscribe(
             self.rt.naming.tenant_topic(tid, TopicNaming.SCORED_EVENTS),
             group="fleet-meter") for tid in cfg.tenant_ids}
-        await self.converged(READY_TIMEOUT_S, workers=cfg.workers)
+        await self.converged(READY_TIMEOUT_S, workers=start)
         mark("converged")
 
     async def converged(self, timeout: float, *, workers: int,
@@ -485,6 +550,17 @@ class Fleet:
             if stop_at >= 0 and info is None and elapsed >= stop_at:
                 victim, owned = self.busiest()
                 if victim is not None:
+                    # stop it holding work: its writes after SIGCONT are
+                    # what fencing must reject, and a worker that keeps up
+                    # with the flood is often idle between ticks. One
+                    # more tick for each tenant it owns, and a moment for
+                    # the broker to push them to it, before the signal
+                    for tid in owned:
+                        batch, _ = sims[tid].tick(t=t0_tick + TICK_S * k)
+                        await self.submit(tid, batch.encode(), len(batch))
+                        sent[tid] += len(batch)
+                    k += 1
+                    await asyncio.sleep(STOP_SETTLE_S)
                     self.procs[victim].send_signal(signal.SIGSTOP)
                     info = {"worker": victim, "owned": list(owned),
                             "t_stop": time.monotonic()}
@@ -551,14 +627,16 @@ def stats_delta(before: dict, after: dict) -> dict:
             for wid, s in after.items()}
 
 
-async def kill_drill(fleet: Fleet, sims: dict, t_next: float):
-    """SIGKILL the busiest worker mid-flood; everything accepted must be
-    scored, the decoded topics drained and the fleet whole again."""
+async def kill_drill(fleet: Fleet, sims: dict, t_next: float,
+                     seconds: float = FLOOD_S):
+    """SIGKILL the busiest worker `KILL_AT` into a `seconds` flood;
+    everything accepted must be scored, the decoded topics drained and
+    the fleet whole again."""
     cfg, rt = fleet.cfg, fleet.rt
     deaths = rt.metrics.counter("fleet.worker_deaths")
     deaths0, base = deaths.value, dict(fleet.scored)
-    sent, info, t_next = await fleet.flood(sims, t_next, FLOOD_S,
-                                           kill_at=KILL_AT * FLOOD_S)
+    sent, info, t_next = await fleet.flood(sims, t_next, seconds,
+                                           kill_at=KILL_AT * seconds)
     if info is None:
         raise AssertionError("fleet: no worker to kill")
     logger.info("fleet: SIGKILL %s (owned %s)", info["worker"], info["owned"])
@@ -612,17 +690,18 @@ async def kill_drill(fleet: Fleet, sims: dict, t_next: float):
     }, t_next
 
 
-async def zombie_drill(fleet: Fleet, sims: dict, t_next: float):
-    """SIGSTOP the busiest worker past the death bound, SIGCONT it
-    mid-reassignment under live traffic: its writes are fenced, nothing
-    accepted is lost, and a flood after reconvergence lands exactly
-    once (`bench.py:1054-1126`)."""
+async def zombie_drill(fleet: Fleet, sims: dict, t_next: float,
+                       seconds: float = FLOOD_S):
+    """SIGSTOP the busiest worker 30% into a `seconds` flood, past the
+    death bound, SIGCONT it mid-reassignment under live traffic: its
+    writes are fenced, nothing accepted is lost, and a flood after
+    reconvergence lands exactly once (`bench.py:1054-1126`)."""
     cfg, rt, bus = fleet.cfg, fleet.rt, fleet.bus
     deaths = rt.metrics.counter("fleet.worker_deaths")
     deaths0, base = deaths.value, dict(fleet.scored)
     rejections0 = bus.fences.rejections if bus.fences is not None else 0
-    sent, info, t_next = await fleet.flood(sims, t_next, FLOOD_S,
-                                           stop_at=0.3 * FLOOD_S)
+    sent, info, t_next = await fleet.flood(sims, t_next, seconds,
+                                           stop_at=0.3 * seconds)
     if info is None:
         raise AssertionError("fleet: no worker to stop")
     await fleet.converged(READY_TIMEOUT_S, workers=1)
@@ -631,11 +710,13 @@ async def zombie_drill(fleet: Fleet, sims: dict, t_next: float):
     await fleet.drained(DRAIN_TIMEOUT_S)
     backlog = fleet.decoded_backlog()
     lost = sum(max(fleet.sent[t] - fleet.scored[t], 0) for t in fleet.sent)
+    replayed = sum(max(fleet.scored[t] - fleet.sent[t], 0)
+                   for t in fleet.sent)
     fenced = (bus.fences.rejections if bus.fences is not None else 0) \
         - rejections0
     post_base = dict(fleet.scored)
     post_sent, _, t_next = await fleet.flood(sims, t_next,
-                                             min(FLOOD_S, 5.0))
+                                             min(seconds, 5.0))
     await fleet.caught_up(DRAIN_TIMEOUT_S)
     post_dup = sum(fleet.scored[t] - post_base[t] for t in fleet.sent) \
         - sum(post_sent.values())
@@ -651,6 +732,7 @@ async def zombie_drill(fleet: Fleet, sims: dict, t_next: float):
         "scored_events": int(sum(fleet.scored[t] - base[t]
                                  for t in fleet.sent)),
         "lost_accepted_events": int(lost),
+        "replayed_events": int(replayed),
         "decoded_backlog_after_drain": backlog,
         "post_reconverge_accepted": int(sum(post_sent.values())),
         "duplicate_committed_events": int(max(post_dup, 0)),
@@ -663,7 +745,7 @@ async def run(cfg: FleetConfig) -> tuple[dict, dict]:
     {tenant: scored batches of the burst}})."""
     plan = warm_and_burst(cfg)
     ticks, sims = plan["ticks"], plan["sims"]
-    warm_n = WINDOW + 4
+    warm_n = cfg.window + 4
     fleet = Fleet(cfg)
     t_setup = time.perf_counter()
     try:
@@ -681,7 +763,7 @@ async def run(cfg: FleetConfig) -> tuple[dict, dict]:
         await fleet.send({t: [b for b, _ in v[warm_n:]]
                           for t, v in ticks.items()})
         t_last = await fleet.caught_up(DRAIN_TIMEOUT_S)
-        burst_events = BURST_TICKS * cfg.per_tenant * TENANTS
+        burst_events = BURST_TICKS * cfg.per_tenant * cfg.n_tenants
         rate = burst_events / max(t_last - t0, 1e-9)
         burst = fleet.keep
         fleet.keep = None
@@ -704,7 +786,8 @@ async def run(cfg: FleetConfig) -> tuple[dict, dict]:
             "deployment": f"fleet (bus+ingress+controller | {cfg.workers} "
                           f"worker processes)",
             "model": cfg.model, "workers": cfg.workers,
-            "tenants": TENANTS, "devices": cfg.per_tenant * TENANTS,
+            "tenants": cfg.n_tenants,
+            "devices": cfg.per_tenant * cfg.n_tenants,
             "setup_s": setup_s, "setup_steps_s": fleet.setup_s,
             "converge_s": converge_s,
             "burst_events": burst_events, "events_per_s": rate,

@@ -19,15 +19,19 @@ so setting it sizes the whole pipeline. With `data_dir` (the bench's
 log and snapshots its registry there, and `build` returns once the new
 fleet's registry snapshot is on disk; a `build` on a directory that
 already holds them restores the store and the registry instead of
-registering the fleet again.
+registering the fleet again. `deploy` takes every lever of the bench's
+default run (`Deployment`: tenants, pooled, megabatch, the batch window,
+flushes in flight, history, readback, egress fusion and lanes, the fast
+lane, the flight recorder, durability, chaos) and returns one `Pipeline`
+a tenant on one runtime; `build` is its single-tenant default.
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 from sitewhere_tpu_torch.cli import build_runtime
 from sitewhere_tpu_torch.config import InstanceSettings, TenantConfig
@@ -78,59 +82,141 @@ class Pipeline:
         await self.rt.stop()
 
 
+@dataclass
+class Deployment:
+    """The levers of the bench's default deployment (`bench.py:2319-2409`),
+    as its flags name them. `devices` is the whole fleet, split over the
+    tenants (None: `FLEET`, read when `deploy` runs); `pooled` > 1 puts
+    that many tenants on one shared pool (`shared: true`); `chaos` arms
+    fault sites before the services start, `{site: (rate, max_faults)}`
+    with `chaos_seed`."""
+    model: str = "lstm-stream"
+    devices: Optional[int] = None
+    tenants: int = 1
+    pooled: int = 1
+    megabatch: bool = True
+    window: int = WINDOW
+    window_ms: float = 2.0
+    max_inflight: int = 8
+    history: int = HISTORY
+    readback: str = "full"
+    egress_fused: bool = True
+    egress_lanes: int = 1
+    egress_autotune: bool = False
+    fastlane: bool = True
+    observe: bool = True
+    data_dir: Optional[str] = None
+    device: Optional[str] = None
+    trace_sample: int = 1
+    ready_timeout_s: float = WARMUP_TIMEOUT_S
+    # the traffic simulators' anomalies (the bench's: 0.001 at 12 sigma)
+    anomaly_rate: float = 0.0
+    chaos: dict = field(default_factory=dict)
+    chaos_seed: int = 0
+
+    @property
+    def tenant_ids(self) -> list[str]:
+        n = max(self.pooled, self.tenants, 1)
+        return [f"{TENANT}{i}" for i in range(n)] if n > 1 else [TENANT]
+
+
+def tenant_sections(dep: Deployment, per_tenant: int) -> dict:
+    """A tenant's sections in the bench's default deployment."""
+    return {
+        **({} if dep.fastlane else {"fastlane": {"enabled": False}}),
+        "egress": {"fused": dep.egress_fused,
+                   "lanes": max(dep.egress_lanes, 1),
+                   "autotune": dep.egress_autotune},
+        "event-management": {"history": dep.history},
+        "rule-processing": {
+            "model": dep.model,
+            "model_config": {"window": dep.window},
+            "threshold": THRESHOLD,
+            "batch_window_ms": dep.window_ms,
+            # one fleet-sized bucket: one flush is one dispatch
+            "buckets": [per_tenant],
+            "capacity": per_tenant,
+            "max_inflight": dep.max_inflight,
+            "readback": dep.readback,
+            "shared": dep.pooled > 1,
+            "megabatch": {"enabled": dep.megabatch},
+        },
+    }
+
+
+async def deploy(dep: Deployment) -> list[Pipeline]:
+    """The bench's default deployment, warmed and ready to take ticks: one
+    `Pipeline` a tenant, all on one runtime (tenant i's simulator from
+    seed SEED + i)."""
+    from sitewhere_tpu_torch.kernel.faults import FaultInjector
+
+    tenant_ids = dep.tenant_ids
+    devices = FLEET if dep.devices is None else dep.devices
+    per_tenant = max(devices // len(tenant_ids), 1)
+    rt = build_runtime(InstanceSettings(
+        instance_id="bench", trace_sample=dep.trace_sample,
+        data_dir=dep.data_dir, device=dep.device,
+        engine_ready_timeout_s=dep.ready_timeout_s,
+        observe_enabled=dep.observe,
+        # the bench's shed policy: reject at ingress only
+        flow_degrade_at=10.0, flow_defer_at=10.0))
+    if dep.chaos:
+        injector = rt.install_faults(FaultInjector(seed=dep.chaos_seed))
+        for site, (rate, max_faults) in dep.chaos.items():
+            injector.arm(site, rate=rate, max_faults=max_faults)
+    await rt.start()
+    try:
+        sections = tenant_sections(dep, per_tenant)
+        for tid in tenant_ids:
+            await rt.add_tenant(TenantConfig(tenant_id=tid, sections=sections),
+                                timeout=dep.ready_timeout_s)
+        pipes, waits = [], []
+        for i, tid in enumerate(tenant_ids):
+            dm = rt.api("device-management").management(tid)
+            em = rt.api("event-management").management(tid)
+            spikes = ({"anomaly_rate": dep.anomaly_rate,
+                       "anomaly_magnitude": 12.0} if dep.anomaly_rate else {})
+            sim_cfg = SimConfig(num_devices=per_tenant, seed=SEED + i,
+                                **spikes)
+            sim = DeviceSimulator(sim_cfg, tenant_id=tid)
+            if dm.restored_from is None:
+                dm.bootstrap_fleet(DeviceType(token="thermo",
+                                              name="Thermometer"), per_tenant)
+                for k in range(dep.window + 4):
+                    em.telemetry.append_measurements(sim.tick(t=TICK_S * k)[0])
+            engine = rt.api("rule-processing").engine(tid)
+            sink = engine.session or engine.pool_slot
+            # a registry just registered on a data_dir: its first snapshot
+            # (the whole fleet, seconds of codec encode beside the loop)
+            # is set-up, not part of the traffic that follows
+            snapshot = dep.data_dir is not None and dm.restored_from is None
+            waits.append((sink, dm, snapshot))
+            receiver = rt.api("event-sources").engine(tid).receiver("default")
+            pipes.append(Pipeline(rt, engine, sink, em, receiver, sim,
+                                  sim_cfg, TICK_S * (dep.window + 4)))
+        deadline = time.monotonic() + dep.ready_timeout_s
+        while not all(sink.ready and (dm.snapshot_current or not snap)
+                      for sink, dm, snap in waits):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"scoring warmup or the registry snapshot "
+                                   f"not done in {dep.ready_timeout_s} s")
+            await asyncio.sleep(0.01)
+        # the warm history entered the store directly: reseed the rings
+        for pipe in pipes:
+            pipe.sink.reload_history()
+        return pipes
+    except BaseException:
+        await rt.stop()
+        raise
+
+
 async def build(model: str = "lstm-stream", megabatch: bool = True,
                 data_dir: str | None = None) -> Pipeline:
     """The bench's default deployment (`model`, `megabatch`, `data_dir`
     as its `--model` / `--megabatch` / `--durable` levers), warmed and
     ready to take ticks."""
-    devices = FLEET
-    rt = build_runtime(InstanceSettings(
-        instance_id="bench", trace_sample=1, data_dir=data_dir,
-        # the bench's shed policy: reject at ingress only
-        flow_degrade_at=10.0, flow_defer_at=10.0))
-    await rt.start()
-    await rt.add_tenant(TenantConfig(tenant_id=TENANT, sections={
-        "egress": {"fused": True, "lanes": 1, "autotune": False},
-        "event-management": {"history": HISTORY},
-        "rule-processing": {
-            "model": model,
-            "model_config": {"window": WINDOW},
-            "threshold": THRESHOLD,
-            "batch_window_ms": 2.0,
-            "buckets": [devices],
-            "capacity": devices,
-            "max_inflight": 8,
-            "readback": "full",
-            "shared": False,
-            "megabatch": {"enabled": megabatch},
-        },
-    }), timeout=WARMUP_TIMEOUT_S)
-    dm = rt.api("device-management").management(TENANT)
-    em = rt.api("event-management").management(TENANT)
-    sim_cfg = SimConfig(num_devices=devices, seed=SEED)
-    sim = DeviceSimulator(sim_cfg, tenant_id=TENANT)
-    if dm.restored_from is None:
-        dm.bootstrap_fleet(DeviceType(token="thermo", name="Thermometer"),
-                           devices)
-        for k in range(WINDOW + 4):
-            em.telemetry.append_measurements(sim.tick(t=TICK_S * k)[0])
-    engine = rt.api("rule-processing").engine(TENANT)
-    sink = engine.session or engine.pool_slot
-    # a registry just registered on a data_dir: its first snapshot (the
-    # whole fleet, seconds of codec encode beside the loop) is set-up,
-    # not part of the traffic that follows
-    snapshot = data_dir is not None and dm.restored_from is None
-    deadline = time.monotonic() + WARMUP_TIMEOUT_S
-    while not sink.ready or (snapshot and not dm.snapshot_current):
-        if time.monotonic() > deadline:
-            raise TimeoutError(f"scoring warmup or the registry snapshot "
-                               f"not done in {WARMUP_TIMEOUT_S} s")
-        await asyncio.sleep(0.01)
-    # the warm history entered the store directly: reseed the ring
-    sink.reload_history()
-    receiver = rt.api("event-sources").engine(TENANT).receiver("default")
-    return Pipeline(rt, engine, sink, em, receiver, sim, sim_cfg,
-                    TICK_S * (WINDOW + 4))
+    return (await deploy(Deployment(model=model, megabatch=megabatch,
+                                    data_dir=data_dir)))[0]
 
 
 async def collect_scored(consumer, want: int, timeout: float = 120.0):

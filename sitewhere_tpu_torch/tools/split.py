@@ -90,25 +90,32 @@ class SplitConfig:
     timeout_s: float = 300.0
     # the broker the child attaches to (set by the parent)
     broker_port: int = 0
+    # the bench's `--window-ms`, `--max-inflight`, `--history`, and
+    # `--megabatch` (None: the megabatch pool for lstm-stream only)
+    window_ms: float = BATCH_WINDOW_MS
+    max_inflight: int = MAX_INFLIGHT
+    history: int = HISTORY
+    megabatch: Optional[bool] = None
 
     @property
     def pooled(self) -> bool:
-        return self.model == "lstm-stream"
+        return (self.model == "lstm-stream" if self.megabatch is None
+                else self.megabatch)
 
 
 def tenant_sections(cfg: SplitConfig) -> dict:
     """The child's tenant: the bench pipeline's sections."""
     return {
         "egress": {"fused": True, "lanes": 1, "autotune": False},
-        "event-management": {"history": HISTORY},
+        "event-management": {"history": cfg.history},
         "rule-processing": {
             "model": cfg.model,
             "model_config": {"window": cfg.window, **cfg.model_config},
             "threshold": THRESHOLD,
-            "batch_window_ms": BATCH_WINDOW_MS,
+            "batch_window_ms": cfg.window_ms,
             "buckets": [cfg.devices],
             "capacity": cfg.devices,
-            "max_inflight": MAX_INFLIGHT,
+            "max_inflight": cfg.max_inflight,
             "readback": "full",
             "shared": False,
             "megabatch": {"enabled": cfg.pooled},
@@ -226,6 +233,7 @@ async def child_main(cfg: SplitConfig) -> None:
                 "e2e_p50_ms": 1e3 * q(0.5),
                 "e2e_p99_ms": 1e3 * q(0.99),
                 "breakdown": {nm: {"p50_ms": 1e3 * h.quantile(0.5),
+                                   "p95_ms": 1e3 * h.quantile(0.95),
                                    "p99_ms": 1e3 * h.quantile(0.99)}
                               for nm, h in stages.items()},
                 "dispatches": int(dispatches.value - d0),

@@ -5,7 +5,6 @@ silent stub."""
 from __future__ import annotations
 
 ITEMS = {
-    "A.1.5": "a bench entry for the port",
     "A.2": "mesh sharding, multi-GPU",
     "A.6": "swxlint over the port",
 }

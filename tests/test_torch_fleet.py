@@ -1466,6 +1466,72 @@ def test_fleet_worker_without_cpu_and_no_card_fails_at_start():
     assert "no CUDA device" in out.stderr, out.stderr[-2000:]
 
 
+def test_history_backed_controller_without_a_card_fails_at_start(
+        run, tmp_path, monkeypatch):
+    """A controller whose runtime keeps a telemetry history (a
+    `data_dir`) serves its predictive planner on `InstanceSettings.device`.
+    With no device named and no card, the controller's start fails naming
+    the missing device; its supervised loop never runs, so it cannot
+    crash-loop through its restart budget into `LIFECYCLE_ERROR`."""
+    from sitewhere_tpu_torch.kernel.lifecycle import (
+        LifecycleException,
+        LifecycleStatus,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    async def main():
+        rt = ServiceRuntime(InstanceSettings(
+            instance_id="c2", fleet_interval_s=0.05,
+            data_dir=str(tmp_path / "d")))
+        controller = FleetController(rt)
+        rt.add_child(controller)
+        assert rt.history is not None
+        with pytest.raises(LifecycleException, match="no CUDA device"):
+            await rt.start()
+        await asyncio.sleep(0.5)  # a started loop would have crashed by now
+        loop = controller._loop
+        status = (controller.status, loop.status, loop.restart_count,
+                  controller.planner)
+        await rt.stop()
+        return status
+
+    status, loop_status, restarts, planner = run(main())
+    assert status is LifecycleStatus.LIFECYCLE_ERROR
+    assert loop_status is not LifecycleStatus.LIFECYCLE_ERROR
+    assert loop_status is not LifecycleStatus.STARTED
+    assert restarts == 0 and planner is None
+
+
+def test_cli_run_fleet_controller_with_a_history_and_no_card_fails_at_start(
+        run, tmp_path, monkeypatch):
+    """`cli run --fleet-controller` with `SWX_DATA_DIR` (so a telemetry
+    history) and services that never touch the card, without `--cpu`, on
+    a host with no card: the start raises naming the device instead of
+    running on with a controller loop that crashes on every tick."""
+    from sitewhere_tpu_torch import cli
+    from sitewhere_tpu_torch.kernel.lifecycle import LifecycleException
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("SWX_DATA_DIR", str(tmp_path / "d"))
+    captured = {}
+
+    def fake_run(coro):
+        captured["args"] = coro.cr_frame.f_locals["args"]
+        coro.close()
+
+    with monkeypatch.context() as patch:  # the cli's own parsing
+        patch.setattr(cli.asyncio, "run", fake_run)
+        cli.main(["run", "--services", "event-sources,instance-management",
+                  "--fleet-controller", "--no-tenants", "--port", "0"])
+
+    async def main():
+        with pytest.raises(LifecycleException, match="no CUDA device"):
+            await asyncio.wait_for(cli.cmd_run(captured["args"]), 30.0)
+
+    run(main())
+
+
 def test_fleet_tool_prints_its_report():
     """`python -m sitewhere_tpu_torch.tools.fleet --cpu --devices 512
     --zombie-drill`: two worker processes, the burst scored once, the

@@ -113,7 +113,7 @@ async def observed_fleet(tmp_path, *, observe=True, n_workers=2,
         instance_id="fleet-test", fleet_interval_s=0.05,
         fleet_dead_after_s=1.5, rest_port=0, observe_enabled=observe,
         observe_interval_ms=50.0, trace_sample=1,
-        observe_export_stages_every=2,
+        observe_export_stages_every=2, device="cpu",
         data_dir=(str(tmp_path / "driver-data") if history else None)))
     driver.add_service(EventSourcesService(driver))
     controller = FleetController(
@@ -196,10 +196,20 @@ def test_telemetry_export_and_fleet_observer(run, tmp_path):
             for rt in runtimes.values():
                 assert rt.metrics.counter("observe.exports").value > 0
             # stage exports merge into ONE fleet critical path that
-            # contains WORKER-side spine stages the driver never ran
-            await wait_until(lambda: "rule-processing.score" in
-                             observer.snapshot()["critical_path"]["stages"],
-                             timeout=30.0)
+            # contains WORKER-side spine stages the driver never ran. A
+            # worker's export can land between a flush's score span and
+            # its egress publish span, so wait for every stage asserted
+            # below (and every export merged), not for the first of them
+            asserted = {"event-sources.receive", "event-sources.decode",
+                        "rule-processing.dispatch", "rule-processing.score",
+                        "egress.publish"}
+
+            def merged() -> bool:
+                cp = observer.snapshot()["critical_path"]
+                return (asserted <= set(cp["stages"])
+                        and cp["workers_merged"] >= 3)
+
+            await wait_until(merged, timeout=30.0)
             snap = observer.snapshot()
             stages = snap["critical_path"]["stages"]
             assert {"event-sources.receive", "event-sources.decode"} \

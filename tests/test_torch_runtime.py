@@ -294,7 +294,11 @@ def _runtime(**settings):
 
 CUTS = {
     "lint": (lambda: tcli.main(["lint"]), "A.6"),
-    "bench": (lambda: tcli.main(["bench", "--split"]), "A.1.5"),
+    "bench-mesh": (lambda: __import__(
+        "sitewhere_tpu_torch.tools.bench", fromlist=["run"]).run(
+        __import__("sitewhere_tpu_torch.tools.bench",
+                   fromlist=["parser"]).parser().parse_args(
+            ["--mesh", "2x2", "--cpu"])), "A.2"),
     "train-distributed": (lambda: tcli.main(
         ["train", "--cpu", "--distributed"]), "A.2"),
     "longwin-mesh": (lambda: __import__(

@@ -130,7 +130,16 @@ def test_three_process_instance_scores_end_to_end(run):
                     f"stalled at {em.telemetry.total_events} events; "
                     f"ingest rc={proc.poll()}")
             assert em.telemetry.total_events == 50 * 40
-            state = rt.api("device-state").state("acme").get_state(7)
+            # device-state consumes the same records in a group of its
+            # own: it can trail event-management's count by a batch, so
+            # it gets a wait of its own
+            states = rt.api("device-state").state("acme")
+            deadline = asyncio.get_running_loop().time() + 60.0
+            while (states.get_state(7) or {}).get("last_seen") != 60.0 * 39:
+                await asyncio.sleep(0.05)
+                assert asyncio.get_running_loop().time() < deadline, (
+                    f"device-state at {states.get_state(7)}")
+            state = states.get_state(7)
             assert state["last_seen"] == 60.0 * 39
             out, err = await asyncio.get_running_loop().run_in_executor(
                 None, lambda: proc.communicate(timeout=60))
