@@ -263,7 +263,36 @@ prints no result):
                 drained, its kill drill losing 0); each report on `gpu`
                 with the card's name, events/s > 0 and 0 < mfu <= 1 where
                 the model counts its FLOPs; then a `tools/ab_compare.py
-                fastlane` pair; one stats line a run.
+                fastlane` pair; one stats line a run. Also `--mesh 4x2`
+                (bench-mesh): on one card the reference's degrade, the
+                report's `scoring.mesh` `shape` null and `devices` 0 with
+                the logged warning (with more cards, the fit to them);
+ 33. lint     — the port's swxlint over the port (host only): no new
+                finding, no stale or reasonless baseline entry; counts by
+                code and each checker's seconds;
+ 34. mesh-pool — the pool at the bench's megabatch shape (8 tenants ×
+                4,096 devices, `lstm-stream`) twice, four fleet ticks
+                each: over an explicit `{data: 2, model: 2}` mesh (cuda:0
+                repeated; distinct cards where there are more), then
+                meshless; every event scored once, the meshed scores held
+                to the meshless run's (atol 1e-2 plus 1e-3 relative,
+                float16 readback), `mesh_stats()` reporting 4 devices;
+                wall time and flush p50/p99 of both;
+ 35. ring     — `ring_attention_sharded` at longwin-512's width (W=512,
+                d=32, 4 heads, B=1,024, causal, a random validity mask)
+                over a 4-way `seq` axis, against `dense_attention` (f32
+                inputs 2e-5; bf16 inputs 2e-3); then `LongWindowModel`
+                at W=512 sequence-parallel over the same axis against the
+                meshless model on 1,024 rows (f32: quantile outputs 1e-4
+                and the loss 1e-5 relative; bf16: 99.9% of the outputs
+                within 1e-2, the loss 1e-3 relative);
+ 36. train-dp — `Trainer` at the CLI's `lstm` (W=64, h=64, batch 1,024)
+                with `data: 2` against meshless for 5 steps on the same
+                batches, losses printed and held (1e-3 relative), then
+                `cli train --distributed` as one nccl process (world size
+                1) through the SWX_* contract. Two ranks cannot share one
+                card under nccl: the two-process lockstep is a CPU test
+                (`tests/test_torch_distributed.py`), and the phase says so.
 Phases 5–8 and 12–15 check that every event is scored, every score
 finite, the dispatches are the occurrence rounds, injected anomalies
 stand out (lstm, lstm-stream and tft; untrained longwin scores ordinary
@@ -398,8 +427,10 @@ BENCH_RUNS = {
                "--latency-seconds", "2"), 240),
     "ramp": (("--ramp", "--ramp-seed-seconds", "8", "--ramp-seconds",
               "12"), 420),
+    "mesh": (("--mesh", "4x2", "--seconds", "3", "--sat-trials", "1",
+              "--latency-seconds", "3"), 240),
 }
-BENCH_LANES = (("workers", "overload"), ("ramp",),
+BENCH_LANES = (("workers", "overload"), ("ramp", "mesh"),
                ("default", "window", "replay", "chaos"))
 # the pair: one saturation trial a leg
 BENCH_AB = ("fastlane", "--seconds", "2", "--sat-trials", "1",
@@ -407,6 +438,20 @@ BENCH_AB = ("fastlane", "--seconds", "2", "--sat-trials", "1",
 # the overload run's bar: each well-behaved tenant keeps this share of its
 # baseline goodput beside the hog (`bench.py --overload`'s acceptance)
 OVERLOAD_RETENTION = 0.9
+# the mesh phases: the meshed pool's (tenants, devices a tenant, buckets),
+# its mesh and fleet ticks; ring attention's batch, window, heads, width
+# and sequence axis; the longwin rows; the data-parallel trainer's data
+# axis, steps and batch
+MESH_POOL = (8, FLEET // 8, (FLEET // 8,))
+MESH_SPEC, MESH_TICKS = {"data": 2, "model": 2}, 4
+RING_B, RING_W, RING_HEADS, RING_D, RING_AXIS = 1024, 512, 4, 32, 4
+RING_ATOL = {"float32": 2e-5, "bfloat16": 2e-3}
+LONGWIN_ROWS = 1024
+# longwin sequence-parallel vs meshless: f32 outputs and loss; bf16 (a
+# bf16 ulp of an output may land differently): share within LW_BF16_ATOL
+LW_F32_ATOL, LW_F32_LOSS_RTOL = 1e-4, 1e-5
+LW_BF16_ATOL, LW_BF16_SHARE, LW_BF16_LOSS_RTOL = 1e-2, 0.999, 1e-3
+DP_DATA, DP_STEPS, DP_BATCH, DP_RTOL = 2, 5, 1024, 1e-3
 
 
 def log(msg: str) -> None:
@@ -3495,7 +3540,7 @@ def check_bench(name: str, run: dict, kind: str) -> dict:
          f"platform / device_kind not gpu / {kind}")
     stats = {"seconds": run["seconds"], "metric": r["metric"],
              "value": r["value"]}
-    if name in ("default", "window", "chaos"):
+    if name in ("default", "window", "chaos", "mesh"):
         need(r["value"] > 0 and all(v for k, v in r["drain"].items()
                                     if k.endswith("complete")),
              "no events/s or a drain incomplete")
@@ -3557,7 +3602,265 @@ def check_bench(name: str, run: dict, kind: str) -> dict:
             "ramp_drain_s", "good_paced_p50_ms", "good_paced_p99_ms",
             "workers_final", "converge_s", "train",
             "forecast_attributed_decisions", "kill")})
+    if name == "mesh":
+        # the reference's fit: every card, D×M wanted; on one card the
+        # degrade to meshless, logged
+        from sitewhere_tpu_torch.parallel.mesh import (
+            mesh_devices,
+            mesh_from_spec,
+        )
+
+        spec = {"data": 4, "model": 2}
+        fit = mesh_from_spec(spec, mesh_devices())
+        want = {"spec": spec, "shape": dict(fit.shape) if fit else None,
+                "devices": fit.size if fit else 0}
+        need(r["scoring"]["mesh"] == want, f"scoring.mesh is not {want}")
+        said = ("running meshless" if fit is None else "fitting")
+        need(said in run["stderr"], f"no `{said}` warning")
+        stats["scoring_mesh"] = r["scoring"]["mesh"]
+        stats["warning"] = next(ln for ln in run["stderr"].splitlines()
+                                if said in ln)
     log(f"bench-{name}: {json.dumps(stats)}")
+    return stats
+
+
+def logical_cards(torch, n: int) -> list:
+    """`n` mesh positions over the cards: distinct cards while there are
+    enough, then cuda:0, cuda:1, … again (logical devices)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def phase_lint() -> dict:
+    """The port's swxlint over the port (host only)."""
+    from sitewhere_tpu_torch.analysis import lint_package
+
+    t0 = time.perf_counter()
+    report = lint_package()
+    by_code: dict = {}
+    for f in report.findings:
+        by_code.setdefault(f.code, {"new": 0, "baselined": 0})["new"] += 1
+    for f, _ in report.baselined:
+        by_code.setdefault(f.code, {"new": 0, "baselined": 0})[
+            "baselined"] += 1
+    stats = {"seconds": time.perf_counter() - t0,
+             "files": report.checked_files, "new": len(report.findings),
+             "baselined": len(report.baselined),
+             "suppressed": len(report.suppressed), "by_code": by_code,
+             "timings_s": {c: round(t, 4)
+                           for c, t in sorted(report.timings.items())}}
+    log(f"lint: {json.dumps(stats)}")
+    if report.findings or report.stale_baseline \
+            or report.undocumented_baseline:
+        raise AssertionError(f"lint: {report.render_text()}")
+    return stats
+
+
+async def phase_mesh_pool(torch) -> dict:
+    """The pool at the bench's megabatch shape over a {data: 2, model: 2}
+    mesh, then meshless, on the same tenants, weights and ticks."""
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+    from sitewhere_tpu_torch.tools import main_path
+
+    tenants, devices, buckets = MESH_POOL
+    mesh = make_mesh(MESH_SPEC["data"], MESH_SPEC["model"],
+                     devices=logical_cards(torch, 4))
+    runs = {}
+    for label, m in (("mesh", mesh), ("meshless", None)):
+        t0 = time.perf_counter()
+        path = await main_path.build_pool("t", "lstm-stream", tenants,
+                                          devices, buckets, mesh=m)
+        setup_s = time.perf_counter() - t0
+        flush_ms, scores, n_events = [], [], 0
+        t_wall = time.perf_counter()
+        for k in range(MESH_TICKS):
+            t = path.t + TICK_S * k
+            ticks = {tid: mm.sim.tick(t=t)[0]
+                     for tid, mm in path.tenants.items()}
+            for tid, batch in ticks.items():
+                path.ingest(tid, batch)
+            t1 = time.perf_counter()
+            scored = await path.flush()
+            flush_ms.append(1e3 * (time.perf_counter() - t1))
+            for tid, batch in ticks.items():
+                check_scored(f"mesh-pool {label} {tid}", scored[tid],
+                             batch.device_index)
+                n_events += batch.device_index.shape[0]
+            scores.append({tid: scored[tid].score for tid in ticks})
+        wall = time.perf_counter() - t_wall
+        mstats = path.pool.mesh_stats()
+        runs[label] = {
+            "setup_s": setup_s, "wall_s": wall, "events": n_events,
+            "events_per_s": n_events / wall,
+            "flush_p50_ms": float(np.quantile(flush_ms, 0.5)),
+            "flush_p99_ms": float(np.quantile(flush_ms, 0.99)),
+            "mesh_devices": mstats["devices"], "shape": mstats["shape"],
+            "devices": sorted({str(d) for d in m.devices.flat})
+            if m is not None else None}, scores
+        path.pool.close()
+        torch.cuda.empty_cache()
+    err = max(check_close(f"mesh-pool tick {k} {tid}", on[tid], off[tid])
+              for k, (on, off) in enumerate(zip(runs["mesh"][1],
+                                                runs["meshless"][1]))
+              for tid in on)
+    stats = {label: run[0] for label, run in runs.items()}
+    stats["max_abs_err_vs_meshless"] = err
+    log(f"mesh-pool: {json.dumps(stats)}")
+    if stats["mesh"]["mesh_devices"] != 4 \
+            or stats["mesh"]["shape"] != MESH_SPEC \
+            or stats["meshless"]["mesh_devices"] != 0:
+        raise AssertionError(f"mesh-pool: mesh_stats {stats}")
+    return stats
+
+
+def phase_ring(torch) -> dict:
+    """Ring attention over a 4-way `seq` axis against dense attention,
+    then longwin sequence-parallel against meshless, at longwin-512's
+    width."""
+    from sitewhere_tpu_torch.models.longwin import (
+        LongWindowConfig,
+        LongWindowModel,
+    )
+    from sitewhere_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from sitewhere_tpu_torch.parallel.ring import (
+        dense_attention,
+        ring_attention_sharded,
+    )
+
+    dev = torch.device("cuda", 0)
+    cards = logical_cards(torch, RING_AXIS)
+    seq = Mesh(np.array(cards, dtype=object), ("seq",))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (RING_B, RING_W, RING_HEADS, RING_D // RING_HEADS)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    valid = torch.rand((RING_B, RING_W), generator=gen, device=dev) > 0.1
+    stats: dict = {"devices": sorted({str(c) for c in cards})}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        qd, kd, vd = q.to(dt), k.to(dt), v.to(dt)
+        # one untimed call of each first (allocator growth, first launches)
+        ring_attention_sharded(qd, kd, vd, valid, seq, "seq", causal=True)
+        dense_attention(qd, kd, vd, valid, causal=True)
+        ring, ring_ms = timed(lambda: ring_attention_sharded(
+            qd, kd, vd, valid, seq, "seq", causal=True))
+        dense, dense_ms = timed(lambda: dense_attention(
+            qd, kd, vd, valid, causal=True))
+        err = float((ring - dense).abs().max())
+        stats[f"ring_{name}"] = {"max_abs_err": err, "ring_ms": ring_ms,
+                                 "dense_ms": dense_ms}
+        del ring, dense
+        torch.cuda.empty_cache()
+        if not err <= RING_ATOL[name]:
+            raise AssertionError(f"ring: {name} ring vs dense {err}")
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(20.0, 2.0, (LONGWIN_ROWS, RING_W))
+                         .astype(np.float32)).to(dev)
+    ok = torch.ones_like(x, dtype=torch.bool)
+    mesh = make_mesh(RING_AXIS, 1, devices=cards)
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        cfg = LongWindowConfig(window=RING_W, compute_dtype=dt)
+        plain = LongWindowModel(cfg)
+        sp = LongWindowModel(cfg, mesh=mesh)
+        params = plain.init(torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            xn, _, _ = plain._normalize(x, ok.float())
+            plain._quantile_deltas(params, xn, ok.float())
+            sp._quantile_deltas(params, xn, ok.float())
+            want, plain_ms = timed(lambda: plain._quantile_deltas(
+                params, xn, ok.float()))
+            got, sp_ms = timed(lambda: sp._quantile_deltas(
+                params, xn, ok.float()))
+            loss_plain = float(plain.loss(params, x, ok))
+            loss_sp = float(sp.loss(params, x, ok))
+        err = (got - want).abs()
+        within = float((err <= LW_BF16_ATOL).float().mean())
+        rel = abs(loss_sp - loss_plain) / abs(loss_plain)
+        stats[f"longwin_{name}"] = {
+            "max_abs_err": float(err.max()), "share_within_1e-2": within,
+            "loss": loss_sp, "loss_meshless": loss_plain, "loss_rel": rel,
+            "sequence_parallel_ms": sp_ms, "meshless_ms": plain_ms}
+        del got, want, err
+        torch.cuda.empty_cache()
+        if name == "float32":
+            bad = (stats["longwin_float32"]["max_abs_err"] > LW_F32_ATOL
+                   or rel > LW_F32_LOSS_RTOL)
+        else:
+            bad = within < LW_BF16_SHARE or rel > LW_BF16_LOSS_RTOL
+        if bad:
+            raise AssertionError(f"ring: longwin {name} {stats}")
+    log(f"ring: {json.dumps(stats)}")
+    return stats
+
+
+def phase_train_dp(torch) -> dict:
+    """`Trainer` data-parallel over `data: 2` against meshless on the same
+    batches, then `cli train --distributed` as one nccl process."""
+    import socket
+
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+    from sitewhere_tpu_torch.training.trainer import (
+        Trainer,
+        TrainerConfig,
+        make_windows,
+    )
+
+    model = build_model("lstm", window=WINDOW)
+    rng = np.random.default_rng(SEED)
+    values = rng.normal(20.0, 2.0, (1024, 192)).astype(np.float32)
+    windows, valid = make_windows(values, np.full(1024, 192), window=WINDOW,
+                                  max_windows=500_000)
+    cfg = TrainerConfig(batch_size=DP_BATCH, steps=DP_STEPS, seed=SEED,
+                        log_every=1)
+    params = model.init(torch.Generator().manual_seed(SEED))
+    mesh = make_mesh(DP_DATA, 1, devices=logical_cards(torch, DP_DATA))
+    _, dp = Trainer(model, cfg, mesh=mesh).train(windows, valid,
+                                                 params=params)
+    _, plain = Trainer(model, cfg).train(windows, valid, params=params)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"],
+                                                   plain["losses"]))
+    stats = {"data": DP_DATA,
+             "devices": sorted({str(d) for d in mesh.devices.flat}),
+             "losses": dp["losses"], "losses_meshless": plain["losses"],
+             "max_rel": rel, "seconds": dp["seconds"],
+             "seconds_meshless": plain["seconds"]}
+    if rel > DP_RTOL:
+        raise AssertionError(f"train-dp: {json.dumps(stats)}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, SWX_COORDINATOR=f"127.0.0.1:{port}",
+               SWX_NUM_PROCESSES="1", SWX_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "sitewhere_tpu_torch.cli", "train",
+         "--distributed", "--model", "lstm", "--steps", str(DP_STEPS),
+         "--batch-size", str(DP_BATCH)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    report = json.loads(lines[-1]) if lines else {}
+    stats["cli_distributed"] = {"exit": out.returncode, "rank": lines[0]
+                                if lines else None, **report,
+                                "command_seconds": time.perf_counter() - t0}
+    log(f"train-dp: {json.dumps(stats)}")
+    log("train-dp: two ranks cannot share one card under nccl; the "
+        "two-process lockstep is a CPU test on gloo "
+        "(tests/test_torch_distributed.py)")
+    if (out.returncode != 0 or not lines
+            or lines[0] != "train: rank 0/1 backend=nccl data=1"
+            or not np.isfinite(report.get("final_loss", float("nan")))):
+        raise AssertionError(f"train-dp: cli train --distributed exit "
+                             f"{out.returncode}: {out.stdout[-2000:]} "
+                             f"{out.stderr[-3000:]}")
     return stats
 
 
@@ -3687,6 +3990,11 @@ def main() -> int:
     asyncio.run(phase_fleet_forecast(torch))
     asyncio.run(phase_cli_fleet())
     mark("fleet, fleet-forecast, cli-fleet")
+    phase_lint()
+    asyncio.run(phase_mesh_pool(torch))
+    phase_ring(torch)
+    phase_train_dp(torch)
+    mark("lint, mesh-pool, ring, train-dp")
     phase_bench(kind)
     mark("bench")
     top = rows[-1]  # the main path's full flushes run at the largest bucket

@@ -1,0 +1,47 @@
+"""swxlint — AST-based invariant checker for the platform's contracts.
+
+The platform holds three *convention*-enforced contracts: every ingress
+edge charges the `FlowController`, every bus poll loop quarantines
+poison records to the DLQ, and every fault/metric site is a bare string
+literal. Nothing machine-checked them, so the next ingress protocol or
+poll loop could silently regress tenant isolation. This package is the
+build-time policy check (cloud-native platforms make the same argument
+for policy-at-build over discovery-at-runtime — PAPERS.md):
+
+    swx lint [--format json]          # CLI subcommand
+    python -m sitewhere_tpu_torch.analysis  # same engine, no CLI deps
+
+Checks (each has a stable code, a one-line fix hint, and same-line
+`# swxlint: disable=CODE` suppression; see docs/ANALYSIS.md):
+
+    ASY01  blocking call (time.sleep, requests.*, sync faults.check,
+           open, ...) inside `async def`
+    FLW01  ingress-module function publishes without consulting the
+           FlowController on the same path
+    DLQ01  bus poll loop whose per-record handling is not wrapped by
+           the DLQ quarantine helper
+    FLT01  fault-site literal not in the central registry
+    MET01  metric-name literal not in the central registry (or used as
+           the wrong metric kind)
+    LIF01  LifecycleComponent subclass overrides start/stop/_do_stop
+           without chaining super
+
+The engine walks the package once, shares parsed ASTs across checkers,
+emits `path:line: CODE message` plus a JSON report, supports a
+checked-in baseline (`analysis/baseline.json`) for grandfathered
+findings, and exits nonzero on new findings. Dependency-free: stdlib
+`ast` only — importable from `tools/bench.py` and CI without torch.
+"""
+
+from sitewhere_tpu_torch.analysis.engine import (  # noqa: F401
+    Finding,
+    LintEngine,
+    Report,
+    lint_package,
+    lint_sources,
+)
+from sitewhere_tpu_torch.analysis.registry import (  # noqa: F401
+    DYNAMIC_METRIC_PREFIXES,
+    FAULT_SITES,
+    METRICS,
+)

@@ -1,0 +1,678 @@
+"""swxlint engine: one AST walk, shared across every checker.
+
+The engine parses every module under the package root exactly once
+(`Module` wraps source + AST + suppression pragmas + scope index), builds
+a project-wide class-hierarchy index (`Project` — LIF01 needs transitive
+subclass facts across files), then runs each checker over each module.
+
+Findings are classified three ways:
+
+- *suppressed*: the finding's line carries `# swxlint: disable=CODE`
+  (comma list; `ALL` matches every code), or the module carries
+  `# swxlint: disable-file=CODE`. Suppression is same-line — put the
+  pragma on the reported line, with a short justification after it.
+- *baselined*: the finding matches an entry in the baseline file
+  (`analysis/baseline.json` inside the package) by (path, code, qualname). Baseline
+  entries MUST carry a non-empty `reason` — an undocumented entry is
+  ignored and the finding fails, which is what keeps the baseline a
+  list of *documented* false positives rather than a mute button.
+- *new*: everything else. New findings fail the build (exit 1).
+
+Line numbers are deliberately NOT part of the baseline fingerprint:
+unrelated edits above a grandfathered finding must not resurrect it.
+"""
+
+from __future__ import annotations
+
+import ast
+import bisect
+import datetime
+import json
+import re
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, Iterable, Iterator, Optional
+
+_PRAGMA = re.compile(r"#\s*swxlint:\s*disable=([A-Z0-9_,\s]+)")
+_FILE_PRAGMA = re.compile(r"#\s*swxlint:\s*disable-file=([A-Z0-9_,\s]+)")
+
+
+@dataclass(frozen=True)
+class Finding:
+    path: str          # package-relative posix path
+    line: int
+    code: str          # stable check code, e.g. "DLQ01"
+    message: str
+    hint: str = ""     # one-line fix hint
+    qualname: str = "" # enclosing Class.method scope (baseline fingerprint)
+
+    def render(self) -> str:
+        out = f"{self.path}:{self.line}: {self.code} {self.message}"
+        if self.hint:
+            out += f"  [fix: {self.hint}]"
+        return out
+
+    @property
+    def key(self) -> tuple[str, str, str]:
+        return (self.path, self.code, self.qualname)
+
+    def to_json(self) -> dict:
+        return {"path": self.path, "line": self.line, "code": self.code,
+                "message": self.message, "hint": self.hint,
+                "qualname": self.qualname}
+
+
+class Module:
+    """One parsed source file: AST + pragmas + scope index, parsed once."""
+
+    def __init__(self, relpath: str, source: str):
+        self.relpath = relpath
+        self.source = source
+        self.lines = source.splitlines()
+        self.tree = ast.parse(source, filename=relpath)
+        self.file_disables: set[str] = set()
+        self.line_disables: dict[int, set[str]] = {}
+        for i, text in enumerate(self.lines, 1):
+            m = _PRAGMA.search(text)
+            if m:
+                self.line_disables[i] = _codes(m.group(1))
+            m = _FILE_PRAGMA.search(text)
+            if m:
+                self.file_disables |= _codes(m.group(1))
+        # (start_line, end_line, qualname) per def/class, innermost last
+        self._scopes: list[tuple[int, int, str]] = []
+        self._index_scopes(self.tree, ())
+
+    def _index_scopes(self, node: ast.AST, stack: tuple[str, ...]) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.ClassDef)):
+                qual = (*stack, child.name)
+                self._scopes.append((child.lineno,
+                                     child.end_lineno or child.lineno,
+                                     ".".join(qual)))
+                self._index_scopes(child, qual)
+            else:
+                self._index_scopes(child, stack)
+
+    def qualname_at(self, line: int) -> str:
+        """Innermost def/class scope covering `line` ("" at module level)."""
+        best = ""
+        best_span = None
+        for start, end, qual in self._scopes:
+            if start <= line <= end:
+                span = end - start
+                if best_span is None or span <= best_span:
+                    best, best_span = qual, span
+        return best
+
+    def suppressed(self, finding: Finding) -> bool:
+        if finding.code in self.file_disables or "ALL" in self.file_disables:
+            return True
+        codes = self.line_disables.get(finding.line, ())
+        return finding.code in codes or "ALL" in codes
+
+
+def _codes(raw: str) -> set[str]:
+    return {c.strip() for c in raw.split(",") if c.strip()}
+
+
+class Project:
+    """Cross-module facts the per-module checkers share."""
+
+    def __init__(self, modules: list[Module]):
+        self.modules = modules
+        # class name -> base names (name-based; fine for one package)
+        self.class_bases: dict[str, set[str]] = {}
+        for mod in modules:
+            for node in ast.walk(mod.tree):
+                if isinstance(node, ast.ClassDef):
+                    bases = set()
+                    for b in node.bases:
+                        if isinstance(b, ast.Name):
+                            bases.add(b.id)
+                        elif isinstance(b, ast.Attribute):
+                            bases.add(b.attr)
+                    self.class_bases.setdefault(node.name, set()).update(bases)
+        # dataflow indexes are built lazily — most checkers never need them
+        self._flows: dict[str, "ModuleFlow"] = {}
+        self._method_index: Optional[dict[tuple[str, str], "FuncFlow"]] = None
+        self._module_by_dotted = {_dotted_module(m.relpath): m
+                                  for m in modules
+                                  if m.relpath.endswith(".py")}
+
+    def is_subclass_of(self, name: str, root: str, *,
+                       strict: bool = True) -> bool:
+        """Transitive name-based subclass check. With `strict`, the root
+        itself does not count (the defining class is exempt from rules
+        about overriding its own methods)."""
+        if name == root:
+            return not strict
+        seen: set[str] = set()
+        frontier = [name]
+        while frontier:
+            cur = frontier.pop()
+            if cur in seen:
+                continue
+            seen.add(cur)
+            for base in self.class_bases.get(cur, ()):
+                if base == root:
+                    return True
+                frontier.append(base)
+        return False
+
+    # -- dataflow entry points (built lazily, cached) -----------------------
+
+    def flow(self, module: Module) -> "ModuleFlow":
+        mf = self._flows.get(module.relpath)
+        if mf is None:
+            mf = self._flows[module.relpath] = ModuleFlow(module)
+        return mf
+
+    def _methods(self) -> dict[tuple[str, str], "FuncFlow"]:
+        """(class name, method name) -> FuncFlow, across every module —
+        name-based, like class_bases (fine for one package)."""
+        if self._method_index is None:
+            index: dict[tuple[str, str], FuncFlow] = {}
+            for mod in self.modules:
+                index.update(self.flow(mod).by_class)
+            self._method_index = index
+        return self._method_index
+
+    def method_flow(self, class_name: str, meth: str) -> Optional["FuncFlow"]:
+        """Resolve `class_name.meth` with an inheritance walk over the
+        name-based class hierarchy (MRO approximated by base order)."""
+        methods = self._methods()
+        seen: set[str] = set()
+        frontier = [class_name]
+        while frontier:
+            cur = frontier.pop(0)
+            if cur in seen:
+                continue
+            seen.add(cur)
+            flow = methods.get((cur, meth))
+            if flow is not None:
+                return flow
+            frontier.extend(self.class_bases.get(cur, ()))
+        return None
+
+    def resolve_call(self, module: Module, call: ast.Call,
+                     class_name: Optional[str] = None) -> Optional["FuncFlow"]:
+        """ONE-level call resolution: `self.m(...)` through the class
+        hierarchy, bare names through the module's top level or its
+        import table, `alias.f(...)` through an `import m` alias. Returns
+        None for anything else (builtins, externals, dynamic dispatch) —
+        checkers must treat an unresolved call as opaque, not safe/unsafe.
+        """
+        mf = self.flow(module)
+        fn = call.func
+        if isinstance(fn, ast.Attribute):
+            if isinstance(fn.value, ast.Name) and fn.value.id == "self" \
+                    and class_name is not None:
+                return self.method_flow(class_name, fn.attr)
+            if isinstance(fn.value, ast.Name):
+                origin = mf.imports.get(fn.value.id)
+                if origin is not None:
+                    return self._toplevel_at(origin, fn.attr)
+            return None
+        if isinstance(fn, ast.Name):
+            local = mf.toplevel.get(fn.id)
+            if local is not None:
+                return local
+            origin = mf.imports.get(fn.id)
+            if origin is not None and "." in origin:
+                dotted_mod, name = origin.rsplit(".", 1)
+                return self._toplevel_at(dotted_mod, name)
+        return None
+
+    def _toplevel_at(self, dotted_mod: str,
+                     name: str) -> Optional["FuncFlow"]:
+        target = self._module_by_dotted.get(dotted_mod)
+        if target is None:
+            return None
+        return self.flow(target).toplevel.get(name)
+
+
+# -- async-dataflow layer ----------------------------------------------------
+#
+# Shared by the concurrency-hazard checkers (TSK01/CAN01/ASY02): per-
+# function await-point segmentation of statements, attribute-root
+# read/write sets, and one-level call resolution through the module's
+# import table. Deliberately position-based (source order), not a CFG —
+# precise enough for the documented bug classes, cheap enough to run on
+# every build (docs/ANALYSIS.md, "async-dataflow layer").
+
+Pos = tuple[int, int]  # (lineno, col_offset) — source order
+
+
+def node_pos(node: ast.AST) -> Pos:
+    return (node.lineno, node.col_offset)
+
+
+def _end_pos(node: ast.AST) -> Pos:
+    return (node.end_lineno or node.lineno,
+            node.end_col_offset or node.col_offset)
+
+
+def import_table(tree: ast.AST) -> dict[str, str]:
+    """Local name -> dotted origin ("t" -> "time", "sleep" -> "time.sleep")."""
+    table: dict[str, str] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                local = alias.asname or alias.name.split(".")[0]
+                table[local] = alias.name if alias.asname else local
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            for alias in node.names:
+                table[alias.asname or alias.name] = \
+                    f"{node.module}.{alias.name}"
+    return table
+
+
+def own_body(fn: ast.AST) -> Iterator[ast.AST]:
+    """Nodes lexically in `fn`, excluding nested function scopes —
+    pre-order in SOURCE order (first-capture-wins reasoning relies on
+    visiting an earlier assignment before a later one)."""
+    stack: list[ast.AST] = list(ast.iter_child_nodes(fn))[::-1]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        yield node
+        stack.extend(list(ast.iter_child_nodes(node))[::-1])
+
+
+class FuncFlow:
+    """Await-segmented dataflow facts for ONE function's own body.
+
+    - `await_points`: sorted positions of every suspension point
+      (`await`, `async for`, `async with`) lexically in the body —
+      `segment_of(pos)` counts the suspension points before `pos`, so
+      two positions in different segments have a suspension between
+      them (position-wise; loops are approximated by source order).
+      Each point is recorded at the position where the suspension
+      actually happens: the END of an `await` expression (its operand
+      and arguments evaluate before the coroutine yields, so a load
+      inside `await f(x)` is pre-suspension for THAT await), the end of
+      an `async for`'s iterable, the end of an `async with`'s context
+      expressions.
+    - `self_reads` / `self_writes`: attribute ROOTS touched through
+      `self` (`self.assignment.get(t)` reads root "assignment"), each
+      with its position.
+    - `captures`: local name -> (position, direct self-roots of the
+      assigned value, calls in the assigned value) — the raw material
+      for "stale snapshot of shared state" reasoning; calls resolve one
+      level via `Project.resolve_call`.
+    - `loads`: local name -> positions of later reads.
+    """
+
+    def __init__(self, node: ast.AST, qualname: str,
+                 class_name: Optional[str] = None):
+        self.node = node
+        self.name = getattr(node, "name", "")
+        self.qualname = qualname
+        self.class_name = class_name
+        self.is_async = isinstance(node, ast.AsyncFunctionDef)
+        self.await_points: list[Pos] = []
+        self.self_reads: list[tuple[Pos, str]] = []
+        self.self_writes: list[tuple[Pos, str]] = []
+        self.calls: list[ast.Call] = []
+        self.captures: dict[str, tuple[Pos, frozenset, tuple]] = {}
+        self.loads: dict[str, list[Pos]] = {}
+        self._build()
+        self.await_points.sort()
+
+    def _build(self) -> None:
+        for node in own_body(self.node):
+            if isinstance(node, ast.Await):
+                self.await_points.append(_end_pos(node))
+            elif isinstance(node, ast.AsyncFor):
+                self.await_points.append(_end_pos(node.iter))
+            elif isinstance(node, ast.AsyncWith):
+                self.await_points.append(
+                    _end_pos(node.items[-1].context_expr))
+            elif isinstance(node, ast.Call):
+                self.calls.append(node)
+            elif isinstance(node, ast.Attribute) \
+                    and isinstance(node.value, ast.Name) \
+                    and node.value.id == "self":
+                if isinstance(node.ctx, ast.Store):
+                    self.self_writes.append((node_pos(node), node.attr))
+                elif isinstance(node.ctx, ast.Del):
+                    self.self_writes.append((node_pos(node), node.attr))
+                else:
+                    self.self_reads.append((node_pos(node), node.attr))
+            elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                    and isinstance(node.targets[0], ast.Name):
+                roots = frozenset(
+                    sub.attr for sub in ast.walk(node.value)
+                    if isinstance(sub, ast.Attribute)
+                    and isinstance(sub.value, ast.Name)
+                    and sub.value.id == "self")
+                calls = tuple(sub for sub in ast.walk(node.value)
+                              if isinstance(sub, ast.Call))
+                self.captures.setdefault(
+                    node.targets[0].id, (node_pos(node), roots, calls))
+            elif isinstance(node, ast.Name) and isinstance(node.ctx, ast.Load):
+                self.loads.setdefault(node.id, []).append(node_pos(node))
+        # a Load that is itself the capture's value must not count as a
+        # "later use" of the same name (x = x.copy() style) — positions
+        # handle that: uses strictly after the capture position count.
+        for positions in self.loads.values():
+            positions.sort()
+
+    def segment_of(self, pos: Pos) -> int:
+        """How many suspension points precede `pos` in source order."""
+        return bisect.bisect_left(self.await_points, pos)
+
+    def touches(self, root: str) -> list[Pos]:
+        """Positions where `self.<root>` is read or written."""
+        return sorted(p for p, r in self.self_reads + self.self_writes
+                      if r == root)
+
+    def touched_after_await(self, root: str) -> bool:
+        """Is `self.<root>` re-read (or re-written) in any post-await
+        segment of this function?"""
+        return any(self.segment_of(p) > 0 for p in self.touches(root))
+
+    def loads_after(self, name: str, pos: Pos) -> list[Pos]:
+        """Loads of local `name` strictly after `pos`."""
+        return [p for p in self.loads.get(name, ()) if p > pos]
+
+
+class ModuleFlow:
+    """Per-module dataflow index: every function's FuncFlow plus the
+    import table — built once per module, shared by all checkers."""
+
+    def __init__(self, module: Module):
+        self.module = module
+        self.imports = import_table(module.tree)
+        self.functions: dict[str, FuncFlow] = {}   # qualname -> flow
+        self.by_class: dict[tuple[str, str], FuncFlow] = {}
+        self.toplevel: dict[str, FuncFlow] = {}
+        self._index(module.tree, (), None)
+
+    def _index(self, node: ast.AST, stack: tuple, class_name) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                qual = (*stack, child.name)
+                flow = FuncFlow(child, ".".join(qual), class_name)
+                self.functions[flow.qualname] = flow
+                if class_name is not None and len(stack) == 1:
+                    self.by_class[(class_name, child.name)] = flow
+                elif not stack:
+                    self.toplevel[child.name] = flow
+                self._index(child, qual, None)
+            elif isinstance(child, ast.ClassDef):
+                qual = (*stack, child.name)
+                self._index(child, qual, child.name)
+            else:
+                self._index(child, stack, class_name)
+
+
+def _dotted_module(relpath: str) -> str:
+    """"sitewhere_tpu_torch/kernel/dlq.py" -> "sitewhere_tpu_torch.kernel.dlq"."""
+    parts = relpath[:-3].split("/")
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+Checker = Callable[[Module, Project], Iterable[Finding]]
+
+
+# checker function -> the code it emits, for the per-code timing column
+# in `swx lint --format json` (one checker, one code; TRC01 has three
+# sub-checkers whose time is summed under the one code)
+CHECKER_CODES: dict[str, str] = {
+    "check_async_blocking": "ASY01",
+    "check_flow_consult": "FLW01",
+    "check_dlq_quarantine": "DLQ01",
+    "check_fault_sites": "FLT01",
+    "check_metric_names": "MET01",
+    "check_lifecycle_super": "LIF01",
+    "check_trace_parity": "TRC01",
+    "check_trace_stages": "TRC01",
+    "check_wire_trace_context": "TRC01",
+    "check_fence_token": "FEN01",
+    "check_task_retention": "TSK01",
+    "check_cancel_safety": "CAN01",
+    "check_await_atomicity": "ASY02",
+}
+
+
+def default_checkers() -> list[Checker]:
+    from sitewhere_tpu_torch.analysis.checkers_async import check_async_blocking
+    from sitewhere_tpu_torch.analysis.checkers_atomic import check_await_atomicity
+    from sitewhere_tpu_torch.analysis.checkers_cancel import check_cancel_safety
+    from sitewhere_tpu_torch.analysis.checkers_fence import check_fence_token
+    from sitewhere_tpu_torch.analysis.checkers_flow import (
+        check_dlq_quarantine,
+        check_flow_consult,
+    )
+    from sitewhere_tpu_torch.analysis.checkers_lifecycle import check_lifecycle_super
+    from sitewhere_tpu_torch.analysis.checkers_registry import (
+        check_fault_sites,
+        check_metric_names,
+    )
+    from sitewhere_tpu_torch.analysis.checkers_task import check_task_retention
+    from sitewhere_tpu_torch.analysis.checkers_trace import (
+        check_trace_parity,
+        check_trace_stages,
+        check_wire_trace_context,
+    )
+
+    return [check_async_blocking, check_flow_consult, check_dlq_quarantine,
+            check_fault_sites, check_metric_names, check_lifecycle_super,
+            check_trace_parity, check_trace_stages,
+            check_wire_trace_context, check_fence_token,
+            check_task_retention, check_cancel_safety,
+            check_await_atomicity]
+
+
+# -- baseline ----------------------------------------------------------------
+
+
+@dataclass
+class Baseline:
+    """Grandfathered findings: (path, code, qualname) -> reason.
+
+    Each entry also carries a `since` date (ISO, when it was
+    grandfathered) so a reviewer can see how long a false positive has
+    been riding — `dump` stamps it, `load` preserves it.
+    """
+
+    entries: dict[tuple[str, str, str], str] = field(default_factory=dict)
+    since: dict[tuple[str, str, str], str] = field(default_factory=dict)
+    undocumented: list[dict] = field(default_factory=list)
+
+    @staticmethod
+    def load(path: Optional[Path]) -> "Baseline":
+        bl = Baseline()
+        if path is None or not path.exists():
+            return bl
+        doc = json.loads(path.read_text())
+        for entry in doc.get("entries", []):
+            key = (entry.get("path", ""), entry.get("code", ""),
+                   entry.get("qualname", ""))
+            reason = (entry.get("reason") or "").strip()
+            if reason:
+                bl.entries[key] = reason
+                if entry.get("since"):
+                    bl.since[key] = entry["since"]
+            else:
+                # an entry with no reason is not a baseline, it's a mute
+                # button — ignore it so the finding still fails
+                bl.undocumented.append(entry)
+        return bl
+
+    def match(self, finding: Finding) -> Optional[str]:
+        return self.entries.get(finding.key)
+
+    @staticmethod
+    def dump(findings: list[Finding], path: Path) -> None:
+        today = datetime.date.today().isoformat()
+        entries = [{"path": f.path, "code": f.code, "qualname": f.qualname,
+                    "reason": "", "since": today} for f in findings]
+        path.write_text(json.dumps({
+            "_comment": "swxlint baseline: grandfathered findings. Every "
+                        "entry MUST say in `reason` why it is a false "
+                        "positive — entries without a reason are ignored "
+                        "and the finding fails. `since` records when the "
+                        "entry was grandfathered.",
+            "entries": entries,
+        }, indent=2) + "\n")
+
+
+# -- report ------------------------------------------------------------------
+
+
+@dataclass
+class Report:
+    findings: list[Finding]           # new (failing)
+    baselined: list[tuple[Finding, str]]
+    suppressed: list[Finding]
+    stale_baseline: list[dict]        # entries matching nothing anymore
+    undocumented_baseline: list[dict]
+    checked_files: int
+    timings: dict[str, float] = field(default_factory=dict)  # code -> seconds
+
+    @property
+    def exit_code(self) -> int:
+        # stale baseline entries fail the build too: an entry that no
+        # longer matches anything is either a fixed finding (prune it)
+        # or a fingerprint drift silently un-grandfathering a live one
+        return 1 if self.findings or self.stale_baseline else 0
+
+    def counts(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for f in self.findings:
+            out[f.code] = out.get(f.code, 0) + 1
+        return out
+
+    def to_json(self) -> dict:
+        return {
+            "clean": not self.findings,
+            "checked_files": self.checked_files,
+            "counts": self.counts(),
+            "timings_s": {code: round(t, 4)
+                          for code, t in sorted(self.timings.items())},
+            "findings": [f.to_json() for f in self.findings],
+            "baselined": [{**f.to_json(), "reason": r}
+                          for f, r in self.baselined],
+            "suppressed": [f.to_json() for f in self.suppressed],
+            "stale_baseline": self.stale_baseline,
+            "undocumented_baseline": self.undocumented_baseline,
+        }
+
+    def render_text(self) -> str:
+        lines = [f.render() for f in self.findings]
+        if self.stale_baseline:
+            lines.append(f"error: {len(self.stale_baseline)} stale baseline "
+                         f"entr{'y' if len(self.stale_baseline) == 1 else 'ies'}"
+                         f" no longer match anything — prune them:")
+            lines += [f"  - {e.get('path')}::{e.get('qualname')} "
+                      f"[{e.get('code')}]" for e in self.stale_baseline]
+        if self.undocumented_baseline:
+            lines.append(f"note: {len(self.undocumented_baseline)} baseline "
+                         f"entries have no `reason` and were IGNORED")
+        lines.append(
+            f"swxlint: {len(self.findings)} new finding(s), "
+            f"{len(self.baselined)} baselined, "
+            f"{len(self.suppressed)} suppressed "
+            f"across {self.checked_files} files")
+        return "\n".join(lines)
+
+
+# -- engine ------------------------------------------------------------------
+
+
+class LintEngine:
+    def __init__(self, modules: list[Module],
+                 baseline: Optional[Baseline] = None,
+                 checkers: Optional[list[Checker]] = None):
+        self.modules = modules
+        self.baseline = baseline or Baseline()
+        self.checkers = checkers if checkers is not None else default_checkers()
+
+    def run(self) -> Report:
+        project = Project(self.modules)
+        new: list[Finding] = []
+        baselined: list[tuple[Finding, str]] = []
+        suppressed: list[Finding] = []
+        matched_keys: set[tuple[str, str, str]] = set()
+        timings: dict[str, float] = {}
+        for mod in self.modules:
+            for checker in self.checkers:
+                code = CHECKER_CODES.get(
+                    getattr(checker, "__name__", ""), "other")
+                t0 = time.perf_counter()
+                found = list(checker(mod, project))
+                timings[code] = timings.get(code, 0.0) \
+                    + (time.perf_counter() - t0)
+                for finding in found:
+                    if mod.suppressed(finding):
+                        suppressed.append(finding)
+                        continue
+                    reason = self.baseline.match(finding)
+                    if reason is not None:
+                        baselined.append((finding, reason))
+                        matched_keys.add(finding.key)
+                        continue
+                    new.append(finding)
+        stale = [{"path": p, "code": c, "qualname": q, "reason": r,
+                  "since": self.baseline.since.get((p, c, q), "")}
+                 for (p, c, q), r in self.baseline.entries.items()
+                 if (p, c, q) not in matched_keys]
+        new.sort(key=lambda f: (f.path, f.line, f.code))
+        return Report(findings=new, baselined=baselined,
+                      suppressed=suppressed, stale_baseline=stale,
+                      undocumented_baseline=self.baseline.undocumented,
+                      checked_files=len(self.modules), timings=timings)
+
+
+def _walk_package(root: Path) -> list[Module]:
+    base = root.parent
+    modules = []
+    for path in sorted(root.rglob("*.py")):
+        if "__pycache__" in path.parts:
+            continue
+        rel = path.relative_to(base).as_posix()
+        modules.append(Module(rel, path.read_text()))
+    return modules
+
+
+def package_root() -> Path:
+    import sitewhere_tpu_torch
+
+    return Path(sitewhere_tpu_torch.__file__).resolve().parent
+
+
+def default_baseline_path(root: Optional[Path] = None) -> Path:
+    """The package's own baseline, `analysis/baseline.json` under it."""
+    root = root or package_root()
+    return root / "analysis" / "baseline.json"
+
+
+def lint_package(root: Optional[Path] = None,
+                 baseline_path: Optional[Path] = None,
+                 checkers: Optional[list[Checker]] = None) -> Report:
+    """Lint the installed package (or `root`) against its baseline —
+    the one-call entry `tools/bench.py` and the meta-test use."""
+    root = Path(root) if root else package_root()
+    if baseline_path is None:
+        baseline_path = default_baseline_path(root)
+    engine = LintEngine(_walk_package(root),
+                        baseline=Baseline.load(Path(baseline_path)),
+                        checkers=checkers)
+    return engine.run()
+
+
+def lint_sources(sources: dict[str, str],
+                 baseline: Optional[Baseline] = None,
+                 checkers: Optional[list[Checker]] = None) -> Report:
+    """Lint in-memory sources ({relpath: source}) — the fixture-test entry."""
+    modules = [Module(rel, src) for rel, src in sorted(sources.items())]
+    return LintEngine(modules, baseline=baseline, checkers=checkers).run()

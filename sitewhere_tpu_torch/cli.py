@@ -42,7 +42,10 @@ checkpoint.
 windows (`--devices` series of `--history` points) for `--steps` Adam
 steps on the card (`--cpu` names the CPU), print one JSON line, and with
 `--checkpoint DIR` save the params under `DIR/cli/<model>/v<N>/`.
-`--distributed` (multi-host training) is ROADMAP A.2.
+`--distributed` joins a `torch.distributed` group (SWX_COORDINATOR /
+SWX_NUM_PROCESSES / SWX_PROCESS_ID or `--coordinator`, `--num-processes`,
+`--process-id`; nccl on the card, gloo with `--cpu`) and trains
+data-parallel over the processes; rank 0 writes the checkpoint.
 
 `simulate` (the JAX package's `swx simulate`): stream a simulated
 fleet's SWB1 ticks at one ingest endpoint over `--protocol` (tcp, mqtt,
@@ -83,8 +86,8 @@ card and without `--cpu` it fails at start).
 its flags (`--cpu` for `--force-cpu`); on the card unless `--cpu`, and
 without a card and without `--cpu` it exits 1 with the error artifact.
 
-`lint` (ROADMAP A.6) is not ported: it raises `NotImplementedError`
-naming its item.
+`lint` (`swx lint`): swxlint over this package (`analysis/`), exit 0
+clean, 1 new findings, 2 usage error.
 """
 
 from __future__ import annotations
@@ -98,7 +101,6 @@ import sys
 import time
 
 from sitewhere_tpu_torch.config import InstanceSettings
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 # the scored pipeline's six (identifiers): `build_runtime`'s default
 PIPELINE_SERVICES = ("device-management", "event-sources",
@@ -1114,10 +1116,19 @@ async def _replay_candidate(args, model, pool, engine, store,
 
 async def cmd_train(args) -> int:
     """Train a model over synthetic windows on one device; with
-    --checkpoint, save the params as the `cli` tenant's next version."""
+    --distributed, join the process group (SWX_COORDINATOR /
+    SWX_NUM_PROCESSES / SWX_PROCESS_ID or explicit flags) and train
+    data-parallel over its processes; with --checkpoint, save the params
+    as the `cli` tenant's next version (rank 0)."""
     import numpy as np
 
     from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        make_global_mesh,
+        process_info,
+        shutdown_distributed,
+    )
     from sitewhere_tpu_torch.training.checkpoint import CheckpointStore
     from sitewhere_tpu_torch.training.trainer import (
         Trainer,
@@ -1125,29 +1136,47 @@ async def cmd_train(args) -> int:
         make_windows,
     )
 
+    device = "cpu" if args.cpu else None
+    mesh = None
     if args.distributed:
-        raise not_ported("train --distributed (multi-host training)", "A.2")
+        joined = initialize_distributed(
+            coordinator_address=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id, device=device)
+        if not joined:
+            print("train: --distributed set but no coordinator "
+                  "(flag or SWX_COORDINATOR)", file=sys.stderr)
+            return 2
+        mesh = make_global_mesh(model=1)
+        info = process_info()
+        device = mesh.first
+        print(f"train: rank {info['process_index']}/{info['process_count']}"
+              f" backend={info['backend']} data={mesh.shape['data']}",
+              flush=True)
     # the streaming model trains on the windowed objective (same weights)
     model = build_model(args.model if args.model != "lstm-stream" else "lstm",
-                        device="cpu" if args.cpu else None,
-                        window=args.window)
+                        device=device, window=args.window)
     rng = np.random.default_rng(args.seed)
     values = rng.normal(20.0, 2.0,
                         (args.devices, args.history)).astype(np.float32)
     windows, valid = make_windows(values, np.full(args.devices, args.history),
                                   window=args.window, max_windows=500_000)
     trainer = Trainer(model, TrainerConfig(batch_size=args.batch_size,
-                                           steps=args.steps, seed=args.seed))
+                                           steps=args.steps, seed=args.seed),
+                      mesh=mesh)
     params, report = trainer.train(windows, valid)
     print(json.dumps({"steps": report["steps"],
                       "final_loss": report["final_loss"],
                       "seconds": round(report["seconds"], 2)}), flush=True)
-    if args.checkpoint:
+    if args.checkpoint and (not args.distributed
+                            or process_info()["process_index"] == 0):
         store = CheckpointStore(args.checkpoint)
         version = store.save("cli", args.model, params,
                              metadata={"window": args.window})
         print(f"checkpoint: {args.checkpoint}/cli/{args.model}/v{version}",
               flush=True)
+    if args.distributed:
+        shutdown_distributed()
     return 0
 
 
@@ -1205,7 +1234,11 @@ def main(argv=None) -> int:
     p_train.add_argument("--seed", type=int, default=0)
     p_train.add_argument("--checkpoint", help="directory to save params to")
     p_train.add_argument("--distributed", action="store_true",
-                         help="multi-host training (not ported)")
+                         help="join the SWX_* process group and train "
+                              "data-parallel over its processes")
+    p_train.add_argument("--coordinator", help="host:port of rank 0")
+    p_train.add_argument("--num-processes", type=int)
+    p_train.add_argument("--process-id", type=int)
     p_train.add_argument("--cpu", action="store_true",
                          help="train on the CPU instead of the CUDA card")
     p_sim = sub.add_parser("simulate",
@@ -1369,14 +1402,24 @@ def main(argv=None) -> int:
     p_fworker.add_argument("--cpu", action="store_true",
                            help="score on the CPU instead of the CUDA card")
 
-    p_lint = sub.add_parser("lint", help="run swxlint over the package "
-                            "(not ported)")
-    p_lint.add_argument("--root")
+    p_lint = sub.add_parser(
+        "lint", help="run swxlint, the AST-based invariant checker "
+                     "(concurrency/flow-control/fault-site contracts)")
+    p_lint.add_argument("--root",
+                        help="package dir to lint (default: the installed "
+                             "sitewhere_tpu_torch package)")
     p_lint.add_argument("--format", choices=["text", "json"],
-                        default="text")
-    p_lint.add_argument("--baseline")
-    p_lint.add_argument("--write-baseline", action="store_true")
-    p_lint.add_argument("--dump-registry", action="store_true")
+                        default="text", help="report format")
+    p_lint.add_argument("--baseline",
+                        help="baseline JSON (default: analysis/"
+                             "baseline.json inside the package)")
+    p_lint.add_argument("--write-baseline", action="store_true",
+                        help="capture current findings as the baseline "
+                             "(reasons must be filled in by hand)")
+    p_lint.add_argument("--dump-registry", action="store_true",
+                        help="print the discovered fault-site/metric "
+                             "literal inventory (registry regeneration "
+                             "aid)")
 
     sub.add_parser("bench", help="run the benchmark (bench.py's flags, "
                    "--cpu for --force-cpu; tools/bench.py)")
@@ -1387,7 +1430,10 @@ def main(argv=None) -> int:
     if extra and args.cmd != "bench":
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.cmd == "lint":
-        raise not_ported("lint (swxlint over the port)", "A.6")
+        # dependency-free static analysis: never touches torch or the card
+        from sitewhere_tpu_torch.analysis.__main__ import run as lint_run
+
+        return lint_run(args)
     if args.cmd == "bench":
         from sitewhere_tpu_torch.tools import bench
 

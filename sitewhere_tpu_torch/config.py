@@ -104,12 +104,16 @@ class InstanceSettings:
     # `megabatch: {autotune}` overrides.
     scoring_megabatch_autotune: bool = True
     # mesh-sharded megabatch serving: shard the shared pool's stacked
-    # dispatch over a {data, model} device mesh. 0/0 = no mesh (the one
-    # device operating point); any other value is refused by the shared
-    # pool until the mesh is ported (ROADMAP A.2). Tenant
-    # `rule-processing: {mesh: {data, model}}` overrides.
+    # dispatch over a {data, model} device mesh (parallel/mesh.py),
+    # fitted to the devices this process has (a spec that does not fit
+    # degrades, logged). 0/0 = no mesh (the one-device operating
+    # point). Tenant `rule-processing: {mesh: {data, model}}` overrides.
     scoring_mesh_data: int = 0
     scoring_mesh_model: int = 0
+    # the devices a mesh may span when the instance runs on the CPU:
+    # this many logical copies of the CPU (the card's instance spans
+    # every card). The one place a CPU run's mesh width comes from.
+    cpu_mesh_devices: int = 1
     # engine spin-up bound: first launches (kernel builds, warmups) can
     # take minutes
     engine_ready_timeout_s: float = 300.0

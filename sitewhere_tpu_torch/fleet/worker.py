@@ -409,6 +409,13 @@ class _WorkerControlLoop(BackgroundTaskComponent):
         consumer = rt.bus.subscribe(
             w.control_topic, group=f"fleet.worker.{w.worker_id}",
             name=f"fleet.worker.{w.worker_id}")
+        # handled-through frontier: a record `handle_control` applied is
+        # committed even when a cancellation lands mid-batch (in a
+        # quarantine), because re-applying a placement at the live epoch
+        # is not a no-op here — a worker dropped from its live list marks
+        # its owned tenants evicted, and a redelivery would stop and
+        # re-adopt engines it had already adopted again
+        handled: dict = {}
         try:
             await w.heartbeat()  # announce membership immediately
             next_hb = time.monotonic() + w.heartbeat_s
@@ -425,7 +432,10 @@ class _WorkerControlLoop(BackgroundTaskComponent):
                             rt.bus,
                             rt.naming.instance_topic(TopicNaming.DEAD_LETTER),
                             record, exc, self.path, metrics=rt.metrics)
+                    # slotted-attribute reads cannot raise — bookkeeping
+                    handled[(record.topic, record.partition)] = record.offset + 1  # swxlint: disable=DLQ01
                 consumer.commit()
+                handled.clear()
                 if time.monotonic() >= next_hb:
                     if rt.faults is not None:
                         # chaos seam: a crashed heartbeat loop must
@@ -435,6 +445,11 @@ class _WorkerControlLoop(BackgroundTaskComponent):
                     await w.heartbeat()
                     next_hb = time.monotonic() + w.heartbeat_s
         finally:
+            try:
+                if handled:
+                    consumer.commit(dict(handled))
+            except RuntimeError:
+                pass  # the broker evicted this member: nothing to keep
             consumer.close()
 
 

@@ -31,30 +31,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-logger = logging.getLogger(__name__)
+from sitewhere_tpu_torch.analysis.registry import FAULT_SITES
 
-# every site a call site consults (the JAX package's central registry,
-# sitewhere_tpu/analysis/registry.py, copied: the port imports nothing
-# of it)
-FAULT_SITES = frozenset({
-    "bus.produce",        # kernel/bus.py EventBus.produce
-    "bus.poll",           # kernel/bus.py Consumer.poll_nowait
-    "inbound.handle",     # services/inbound_processing.py per-record handle
-    "fastlane.handle",    # kernel/fastlane.py fused per-record handle
-    "egress.publish",     # kernel/egresslane.py per-batch scored publish
-    "durable.flush",      # persistence/durable.py spill writer
-    "scoring.dispatch",   # scoring/server.py flush paths
-    "scoring.megabatch",  # scoring/pool.py megabatch admission
-    "scoring.mesh",       # scoring/pool.py mesh-sharded dispatch admission
-    "flow.admit",         # kernel/flow.py ingress admission
-    "flow.shed",          # kernel/flow.py shed-mode consult
-    "observe.beat",       # kernel/observe.py telemetry-beat sampler tick
-    "fleet.heartbeat",    # fleet/worker.py heartbeat publish
-    "fleet.rebalance",    # fleet/controller.py placement publish
-    "fence.adopt",        # services/device_management.py replay-on-adopt
-    "history.compact",    # history/store.py cold-tier compaction pass
-    "history.replay",     # history/replay.py block admission into the pool
-})
+logger = logging.getLogger(__name__)
 
 
 class FaultInjected(RuntimeError):

@@ -9,7 +9,7 @@ per pipeline stage into bounded per-stage rings:
     receiver → decode → enrich → persist → dispatch → score → egress.publish
 
 plus the off-ramp stages (deferred spool/replay, DLQ quarantine/replay).
-The stage inventory is `TRACE_STAGES` below —
+The stage inventory lives in `analysis/registry.py` (`TRACE_STAGES`) —
 swxlint TRC01 resolves every recorded stage literal against it, exactly
 as MET01 does for metric names — and each stage is classified as
 *queue* (time spent waiting: receiver arrival → decode, admission →
@@ -47,40 +47,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
+from sitewhere_tpu_torch.analysis.registry import TRACE_STAGES  # noqa: F401
 from sitewhere_tpu_torch.kernel.metrics import Histogram
-
-# trace stages in pipeline order (the JAX package's central registry,
-# sitewhere_tpu/analysis/registry.py, copied: the port imports nothing
-# of it). kind "queue" = waiting, "service" = working.
-TRACE_STAGES: tuple[tuple[str, str], ...] = (
-    ("event-sources.receive", "queue"),      # arrival → decode start
-    ("event-sources.decode", "service"),     # SWB1/JSON decode
-    # wire-bus hop (kernel/wire.py): a split deployment's broker hop —
-    # produce is the append RPC (service), poll is the broker-retention
-    # wait between the append and the consuming worker's delivery
-    # (queue). Recorded client-side on each side of the socket, so a
-    # cross-process trace's queue-vs-service split covers the hop that
-    # used to be dark (docs/OBSERVABILITY.md fleet observability).
-    # Under streaming prefetch (the default), wire.poll measures broker
-    # append → CREDIT DELIVERY (the deliver frame's arrival at the
-    # consumer process), not the poll RPC round trip — prefetch-buffer
-    # residency belongs to the consuming process's own stages.
-    ("wire.produce", "service"),             # produce RPC → broker append
-    ("wire.poll", "queue"),                  # broker append → delivery
-    ("inbound.enrich", "service"),           # mask validate + split
-    ("event-management.persist", "service"), # columnar store scatter
-    ("rule-processing.dispatch", "queue"),   # admission → dispatch
-    ("rule-processing.score", "service"),    # dispatch → scores on host
-    ("egress.publish", "service"),           # settled → published
-    ("flow.defer", "service"),               # overload spool publish
-    ("flow.replay", "queue"),                # deferred drain re-admission
-    ("dlq.quarantine", "service"),           # poison → dead-letter topic
-    ("dlq.replay", "service"),               # dead letter → original topic
-    # fleet observability plane (kernel/observe.py): the beat's export
-    # publish onto the instance telemetry topic — its own trace family,
-    # so the recorder's overhead is itself visible in the span rings
-    ("fleet.telemetry", "service"),          # beat snapshot → telemetry topic
-)
 
 
 

@@ -15,8 +15,11 @@ every device in it).
   The neighbor aggregation is one row gather (`index_select`) + masked
   mean; matmuls round through the compute dtype, accumulation float32.
   Neighbor lists are 0-padded, so every gathered index is in range.
-- Node-parallel sharding over a mesh is ROADMAP A.2; one card holds the
-  graph.
+- Node-parallel sharding: `logits_blocks` runs the layers over node
+  blocks, one a device (`MaintenanceTrainer(mesh=)` cuts them over the
+  mesh's `data` axis); the neighbor gather sees every node, the blocks
+  all-gathered onto each device once a layer, as the reference's XLA
+  all-gather does.
 - Supervision: past maintenance alerts (the event store is the label
   source — predictive maintenance learns from its own incident history).
 """
@@ -27,6 +30,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils._pytree import tree_map
 
 from sitewhere_tpu_torch.models.common import _matmul_round, dense_init
 from sitewhere_tpu_torch.utils import resolve_device
@@ -73,40 +77,55 @@ class GnnMaintenanceModel:
 
     # -- forward -----------------------------------------------------------
 
-    def _encode(self, params: dict, feat: torch.Tensor,
-                neighbors: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
-        """Message passing → node embeddings [N, hidden]."""
+    def _encode(self, params: dict, feats: list, neighbors: list,
+                nbr_masks: list) -> list:
+        """Message passing over node blocks in order (block i on its own
+        device; neighbor ids index the whole graph) → embedding blocks
+        [N_i, hidden]."""
         cfg = self.cfg
         cdt = cfg.compute_dtype
-        h = feat.float()
-        # out of place: autograd keeps `h` for the neighbor path
-        h_self = (h.index_fill(1, torch.tensor([cfg.label_feature_col],
-                                               device=h.device), 0.0)
-                  if cfg.label_feature_col >= 0 else h)
-        mask = nbr_mask.float()[..., None]                    # [N, K, 1]
-        denom = mask.sum(1).clamp(min=1.0)                    # [N, 1]
-        n, k = neighbors.shape
-        flat = neighbors.reshape(-1).long()
+        ps = [tree_map(lambda t, d=f.device: t.to(d), params) for f in feats]
+        hs = [f.float() for f in feats]
+        h_selfs = [(h.index_fill(1, torch.tensor([cfg.label_feature_col],
+                                                 device=h.device), 0.0)
+                    if cfg.label_feature_col >= 0 else h) for h in hs]
+        masks = [m.float()[..., None] for m in nbr_masks]     # [N, K, 1]
+        denoms = [m.sum(1).clamp(min=1.0) for m in masks]     # [N, 1]
+        flats = [n.reshape(-1).long() for n in neighbors]
         for layer in range(cfg.layers):
-            # `index_select`, not `h[neighbors]`: both gather the same
-            # rows, but on the card the backward of advanced indexing
-            # sorts its indices and adds repeated ones in series, and the
-            # 0-padded lists repeat row 0 in most slots; `index_select`'s
-            # backward is one `index_add_`
-            nbr_h = h.index_select(0, flat).reshape(n, k, -1)  # [N, K, D]
-            agg = (nbr_h * mask).sum(1) / denom               # [N, D]
-            ws, wn = params[f"self{layer}"], params[f"nbr{layer}"]
-            z = (_matmul_round(h_self, ws["w"], cdt)
-                 + _matmul_round(agg, wn["w"], cdt) + ws["b"] + wn["b"])
-            h = torch.relu(z)
-            h_self = h
-        return h
+            # the neighbor gather sees every node: the blocks gathered
+            # onto each device holding one
+            whole: dict = {}
+            for h in hs:
+                if h.device not in whole:
+                    whole[h.device] = hs[0] if len(hs) == 1 else torch.cat(
+                        [x.to(h.device) for x in hs])
+            out = []
+            for i, h in enumerate(hs):
+                n, k = neighbors[i].shape
+                nbr_h = whole[h.device].index_select(0, flats[i]).reshape(
+                    n, k, -1)                                 # [N, K, D]
+                agg = (nbr_h * masks[i]).sum(1) / denoms[i]   # [N, D]
+                ws = ps[i][f"self{layer}"]
+                wn = ps[i][f"nbr{layer}"]
+                z = (_matmul_round(h_selfs[i], ws["w"], cdt)
+                     + _matmul_round(agg, wn["w"], cdt) + ws["b"] + wn["b"])
+                out.append(torch.relu(z))
+            hs = h_selfs = out
+        return hs
+
+    def logits_blocks(self, params: dict, feats: list, neighbors: list,
+                      nbr_masks: list) -> list:
+        """Per-node logits of each node block (see `_encode`)."""
+        out = []
+        for h in self._encode(params, feats, neighbors, nbr_masks):
+            head = tree_map(lambda t, d=h.device: t.to(d), params["head"])
+            out.append((h @ head["w"] + head["b"])[..., 0])
+        return out
 
     def logits(self, params: dict, feat: torch.Tensor,
                neighbors: torch.Tensor, nbr_mask: torch.Tensor) -> torch.Tensor:
-        h = self._encode(params, feat, neighbors, nbr_mask)
-        head = params["head"]
-        return (h @ head["w"] + head["b"])[..., 0]
+        return self.logits_blocks(params, [feat], [neighbors], [nbr_mask])[0]
 
     def risk(self, params: dict, feat: torch.Tensor, neighbors: torch.Tensor,
              nbr_mask: torch.Tensor) -> torch.Tensor:
@@ -119,7 +138,13 @@ class GnnMaintenanceModel:
              label_mask: torch.Tensor) -> torch.Tensor:
         """Masked binary cross-entropy over labeled (device) nodes, with
         positive-class reweighting (failures are rare)."""
-        logits = self.logits(params, feat, neighbors, nbr_mask)
+        return self.loss_from_logits(
+            self.logits(params, feat, neighbors, nbr_mask), labels,
+            label_mask)
+
+    @staticmethod
+    def loss_from_logits(logits: torch.Tensor, labels: torch.Tensor,
+                         label_mask: torch.Tensor) -> torch.Tensor:
         m = label_mask.float()
         y = labels.float()
         n_pos = (y * m).sum().clamp(min=1.0)

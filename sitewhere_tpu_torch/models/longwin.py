@@ -1,14 +1,18 @@
 """Long-window transformer forecaster.
 
 A device's telemetry history as one long window: scalar embedding +
-sinusoidal positions → L pre-LN causal transformer blocks (dense
-attention; GLU feed-forward) → per-position next-step quantile heads.
-The JAX package also runs it sequence-parallel, the time axis sharded
-over a mesh with ring attention; that is ROADMAP A.2, and a `mesh`
-raises here. On one card attention is `parallel/ring.dense_attention`,
-O(W²) in memory: at W=512 the scores of a 1,024-row batch are
-[1024, 4, 512, 512] float32 (4.3 GB), so callers bound their buckets
-for long windows.
+sinusoidal positions → L pre-LN causal transformer blocks (GLU
+feed-forward) → per-position next-step quantile heads. On one device
+attention is `parallel/ring.dense_attention`, O(W²) in memory: at W=512
+the scores of a 1,024-row batch are [1024, 4, 512, 512] float32
+(4.3 GB), so callers bound their buckets for long windows.
+
+With a `mesh` the model runs sequence-parallel, as the reference's does
+inside a `shard_map`: the time axis is cut over the devices of
+`cfg.seq_axis` (`window % axis size == 0`), everything but attention
+computes on each device's time block, and attention is ring attention
+(`parallel/ring.ring_attention`), the K/V blocks rotating between the
+axis's devices.
 
 Scoring contract matches every registry model (`init`, `score`, `loss`
 over `x[B, W]`, `valid[B, W]`): the anomaly score is the newest
@@ -22,11 +26,12 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils._pytree import tree_map
 
 from sitewhere_tpu_torch.models.common import _matmul_round, dense_init
-from sitewhere_tpu_torch.parallel.ring import dense_attention
+from sitewhere_tpu_torch.parallel.mesh import split_blocks
+from sitewhere_tpu_torch.parallel.ring import dense_attention, ring_attention
 from sitewhere_tpu_torch.utils import resolve_device
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 
 @dataclass(frozen=True)
@@ -39,9 +44,7 @@ class LongWindowConfig:
     compute_dtype: Any = torch.bfloat16
     score_clip: float = 50.0
     min_history: int = 32
-    # the mesh axis the time dimension shards over: accepted so the JAX
-    # package's model configs build here; only a mesh (A.2) reads it
-    seq_axis: str = "data"
+    seq_axis: str = "data"      # mesh axis the time dimension shards over
 
 
 def _ln(x):
@@ -53,17 +56,25 @@ def _ln(x):
 
 class LongWindowModel:
     """Functional long-window forecaster on `device` (the card unless
-    named). Instances hold config only — params are always passed
-    explicitly."""
+    named); optional mesh → sequence parallel. Instances hold config
+    (and mesh) only — params are always passed explicitly."""
 
     name = "longwin"
 
     def __init__(self, cfg: LongWindowConfig = LongWindowConfig(),
                  mesh: Optional[Any] = None, device=None):
-        if mesh is not None:
-            raise not_ported("longwin over a mesh (ring attention)", "A.2")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._seq_devices = None
+        if mesh is not None:
+            assert cfg.window % mesh.shape[cfg.seq_axis] == 0, \
+                "window must divide across the sequence axis"
+            if mesh.process_count != 1 or mesh.device_type != \
+                    self.device.type:
+                raise ValueError(f"a sequence axis runs on this process's "
+                                 f"{self.device.type} devices, not {mesh}")
+            self._seq_devices = mesh.axis_devices(cfg.seq_axis)
 
     # -- params ------------------------------------------------------------
 
@@ -95,40 +106,70 @@ class LongWindowModel:
         sd = torch.sqrt(var + 1e-6)
         return (x - mu) / sd, mu, sd
 
-    def _quantile_deltas(self, params, xn, valid):
-        """Per-timestep stack: xn [B, T] normalized values, valid [B, T]
-        float → quantile predictions for the NEXT step [B, T, Q]."""
+    def _stack(self, params, xns, valids, ring: bool) -> list:
+        """Per-timestep stack over time blocks in order (`xns[i]`
+        [B, T] normalized values, `valids[i]` [B, T] float, block i on
+        its own device) → each block's quantile predictions for the NEXT
+        step [B, T, Q]. Attention is dense over one block, or ring
+        attention across the blocks."""
         cfg = self.cfg
         cdt = cfg.compute_dtype
         d, H = cfg.hidden, cfg.heads
         Dh = d // H
-        B, T = xn.shape
-        dev = xn.device
-        pos = torch.arange(T, device=dev)
-        # sinusoidal positional features added to the scalar embedding
-        freqs = torch.exp(-torch.arange(d // 2, device=dev)
-                          * (8.0 / max(d // 2 - 1, 1)))
-        ang = pos[:, None] * freqs[None, :]
-        posenc = torch.cat([torch.sin(ang), torch.cos(ang)], -1)  # [T, d]
-        feats = torch.stack([xn, valid.float()], -1)              # [B, T, 2]
-        hx = (_matmul_round(feats, params["embed"]["w"], cdt)
-              + params["embed"]["b"] + posenc[None])
-        for i in range(cfg.layers):
-            p = params[f"block{i}"]
-            hn = _ln(hx)
-            # the reference keeps q/k/v in the compute dtype
-            q = _matmul_round(hn, p["q"]["w"], cdt).to(cdt).reshape(B, T, H, Dh)
-            k = _matmul_round(hn, p["k"]["w"], cdt).to(cdt).reshape(B, T, H, Dh)
-            v = _matmul_round(hn, p["v"]["w"], cdt).to(cdt).reshape(B, T, H, Dh)
-            attn = dense_attention(q, k, v, valid, causal=True)
-            attn = attn.reshape(B, T, d)
-            hx = hx + _matmul_round(attn, p["o"]["w"], cdt) + p["o"]["b"]
-            ff = _matmul_round(_ln(hx), p["ff_in"]["w"], cdt) + p["ff_in"]["b"]
-            a, g = ff.chunk(2, dim=-1)
-            ff = a * torch.sigmoid(g)
-            hx = hx + _matmul_round(ff, p["ff_out"]["w"], cdt) + p["ff_out"]["b"]
-        head = params["head"]
-        return _matmul_round(_ln(hx), head["w"], cdt) + head["b"]  # [B, T, Q]
+        B, T = xns[0].shape
+        ps = [tree_map(lambda t, dv=xn.device: t.to(dv), params)
+              for xn in xns]
+        hx = []
+        for i, (p, xn, valid) in enumerate(zip(ps, xns, valids)):
+            dev = xn.device
+            pos = i * T + torch.arange(T, device=dev)
+            # sinusoidal positional features added to the scalar embedding
+            freqs = torch.exp(-torch.arange(d // 2, device=dev)
+                              * (8.0 / max(d // 2 - 1, 1)))
+            ang = pos[:, None] * freqs[None, :]
+            posenc = torch.cat([torch.sin(ang), torch.cos(ang)], -1)  # [T, d]
+            feats = torch.stack([xn, valid.float()], -1)          # [B, T, 2]
+            hx.append(_matmul_round(feats, p["embed"]["w"], cdt)
+                      + p["embed"]["b"] + posenc[None])
+        for layer in range(cfg.layers):
+            qs, ks, vs = [], [], []
+            for p, h in zip(ps, hx):
+                blk = p[f"block{layer}"]
+                hn = _ln(h)
+                # the reference keeps q/k/v in the compute dtype
+                qs.append(_matmul_round(hn, blk["q"]["w"], cdt).to(cdt)
+                          .reshape(B, T, H, Dh))
+                ks.append(_matmul_round(hn, blk["k"]["w"], cdt).to(cdt)
+                          .reshape(B, T, H, Dh))
+                vs.append(_matmul_round(hn, blk["v"]["w"], cdt).to(cdt)
+                          .reshape(B, T, H, Dh))
+            if ring:
+                attns = ring_attention(qs, ks, vs, valids, causal=True)
+            else:
+                attns = [dense_attention(qs[0], ks[0], vs[0], valids[0],
+                                         causal=True)]
+            for i, (p, attn) in enumerate(zip(ps, attns)):
+                blk = p[f"block{layer}"]
+                h = hx[i] + _matmul_round(attn.reshape(B, T, d),
+                                          blk["o"]["w"], cdt) + blk["o"]["b"]
+                ff = (_matmul_round(_ln(h), blk["ff_in"]["w"], cdt)
+                      + blk["ff_in"]["b"])
+                a, g = ff.chunk(2, dim=-1)
+                ff = a * torch.sigmoid(g)
+                hx[i] = (h + _matmul_round(ff, blk["ff_out"]["w"], cdt)
+                         + blk["ff_out"]["b"])
+        return [_matmul_round(_ln(h), p["head"]["w"], cdt) + p["head"]["b"]
+                for p, h in zip(ps, hx)]
+
+    def _quantile_deltas(self, params, xn, valid):
+        """Quantile predictions for the NEXT step at every position
+        [B, T, Q]; sequence-parallel when a mesh is configured."""
+        if self.mesh is None:
+            return self._stack(params, [xn], [valid], ring=False)[0]
+        devs = self._seq_devices
+        blocks = self._stack(params, split_blocks(xn, devs),
+                             split_blocks(valid, devs), ring=True)
+        return torch.cat([b.to(xn.device) for b in blocks], dim=1)
 
     # -- registry contract -------------------------------------------------
 

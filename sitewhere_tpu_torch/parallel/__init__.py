@@ -1,8 +1,23 @@
-"""Per-tenant model stacking (`tenant_stack.py`) and single-device
-attention (`ring.py`). Mesh sharding of the stack, the stacked rings and
-ring attention over several cards is not ported yet (ROADMAP A.2)."""
+"""Device meshes and sharding (`mesh.py`), the multi-process entry
+(`distributed.py`), per-tenant model stacking (`tenant_stack.py`),
+dense and ring attention (`ring.py`) and the fleet's tenant placement
+(`placement.py`)."""
 
-from sitewhere_tpu_torch.parallel.ring import dense_attention
+from sitewhere_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    make_mesh,
+    mesh_from_spec,
+    replicated,
+    shard_batch,
+)
+from sitewhere_tpu_torch.parallel.ring import (
+    dense_attention,
+    ring_attention,
+    ring_attention_sharded,
+)
 from sitewhere_tpu_torch.parallel.tenant_stack import TenantStack
 
-__all__ = ["TenantStack", "dense_attention"]
+__all__ = ["Mesh", "make_mesh", "mesh_from_spec", "batch_sharding",
+           "replicated", "shard_batch", "TenantStack", "dense_attention",
+           "ring_attention", "ring_attention_sharded"]

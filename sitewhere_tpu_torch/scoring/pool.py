@@ -24,7 +24,13 @@ in place on the dispatch stream (parallel/tenant_stack.py says why that
 is safe) and `_flush_round` snapshots per-tenant versions at dispatch,
 so every settled batch is attributed to the weights that scored it.
 
-`mesh_stats()` reports a single device: mesh sharding is not ported.
+Over a mesh (`parallel/mesh.py`, `mesh=`) the stack and the ring are
+sharded — tenant rows over `model`, batch columns over `data` — and a
+dispatch runs one block a mesh position (`scoring/stream.py`
+`MeshRing`); buckets round up to a data-axis multiple. `mesh_stats()`
+reports the mesh's devices and shape (0 and `{}` meshless), and
+admission consults the `scoring.mesh` chaos seam. A meshed dispatch
+that fails marks the ring faulted and reseeds it, as meshless.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import StackedDeviceRing
 from sitewhere_tpu_torch.scoring.settle import SETTLE_POOL
 from sitewhere_tpu_torch.scoring.stream import (
+    MeshRing,
     StackedStreamingRing,
     result_ready,
     result_to_host,
@@ -239,6 +246,7 @@ class SharedScoringPool:
         self.faults = faults
         self.stack = TenantStack(model, mesh=mesh, seed=cfg.seed,
                                  device=self.device)
+        self.mesh = mesh
         self.ring = None  # created on first register
         self.tenants: dict[str, _TenantEntry] = {}
         self.ready = True          # flips False while capacity warms up
@@ -287,7 +295,7 @@ class SharedScoringPool:
         # occupancy, a live per-device model-throughput estimate, and the
         # adaptive window's live close deadline
         self.mesh_gauge = metrics.gauge(f"scoring.mesh_devices:{model.name}")
-        self.mesh_gauge.set(0)
+        self.mesh_gauge.set(mesh.size if mesh is not None else 0)
         self.occupancy_gauge = metrics.gauge(
             f"scoring.mesh_row_occupancy:{model.name}")
         self.tflops_gauge = metrics.gauge(
@@ -322,23 +330,27 @@ class SharedScoringPool:
                                  lambda: 0.0)())
         if device_s <= 0.0 or n_events <= 0 or flops_ev <= 0.0:
             return
-        tflops = n_events * flops_ev / device_s / 1e12
+        devices = max(self.mesh.size if self.mesh is not None else 1, 1)
+        tflops = n_events * flops_ev / device_s / 1e12 / devices
         self._tflops_ema = (tflops if self._tflops_ema == 0.0
                             else 0.8 * self._tflops_ema + 0.2 * tflops)
         self.tflops_gauge.set(round(self._tflops_ema, 6))
 
     def mesh_stats(self) -> dict:
-        """The stacked dispatch's live telemetry: tenant-row occupancy,
-        the adaptive window's live deadline and the throughput EMA. One
-        unsharded device: `devices` 0 and an empty shape."""
+        """The stacked dispatch's live telemetry (beat sample `mesh`
+        block, worker heartbeat `signals.mesh`, fleet observer occupancy
+        matrix): the mesh's devices and per-axis shape (0 and `{}`
+        meshless), tenant-row occupancy, the adaptive window's live
+        deadline and the per-device throughput EMA."""
         cap = int(self.stack.capacity)
         rows = len(self.tenants)
         occupancy = round(rows / cap, 4) if cap else 0.0
         self.occupancy_gauge.set(occupancy)
         return {
             "model": self.model.name,
-            "devices": 0,
-            "shape": {},
+            "devices": int(self.mesh.size) if self.mesh is not None else 0,
+            "shape": ({str(k): int(v) for k, v in self.mesh.shape.items()}
+                      if self.mesh is not None else {}),
             "tenant_rows": rows,
             "row_capacity": cap,
             "row_occupancy": occupancy,
@@ -381,16 +393,33 @@ class SharedScoringPool:
         """Stacked window ring (per-event W-step rescan) or stacked
         streaming ring (one model step per event) — the model declares
         which hot path it wants, as for the dedicated session."""
-        if self.streaming:
-            return StackedStreamingRing(
-                self.model, self.stack.capacity, device_cap=device_cap,
-                score_dtype=self.cfg.score_dtype,
-                sparse=self.cfg.readback == "anomalies",
-                sparse_k=self.cfg.sparse_k, device=self.device)
-        if self.cfg.readback == "anomalies":
+        sparse = self.streaming and self.cfg.readback == "anomalies"
+        if self.cfg.readback == "anomalies" and not self.streaming:
             logger.warning("readback='anomalies' needs a streaming "
                            "model; %s uses the stacked window ring — "
                            "full readback", type(self.model).__name__)
+        if self.mesh is not None:
+            # one meshless ring a (model shard, device), each dense; the
+            # mesh ring narrows and selects (sparse) over whole rows
+            if self.streaming:
+                def make(rows, cap, device, score_dtype):
+                    return StackedStreamingRing(
+                        self.model, rows, device_cap=cap,
+                        score_dtype=score_dtype, device=device)
+            else:
+                def make(rows, cap, device, score_dtype):
+                    return StackedDeviceRing(
+                        self.model.cfg.window, rows, device_cap=cap,
+                        score_dtype=score_dtype, device=device)
+            return MeshRing(self.mesh, make, self.stack.capacity,
+                            device_cap=device_cap,
+                            score_dtype=self.cfg.score_dtype,
+                            sparse=sparse, sparse_k=self.cfg.sparse_k)
+        if self.streaming:
+            return StackedStreamingRing(
+                self.model, self.stack.capacity, device_cap=device_cap,
+                score_dtype=self.cfg.score_dtype, sparse=sparse,
+                sparse_k=self.cfg.sparse_k, device=self.device)
         return StackedDeviceRing(
             self.model.cfg.window, self.stack.capacity,
             device_cap=device_cap, score_dtype=self.cfg.score_dtype,
@@ -487,6 +516,10 @@ class SharedScoringPool:
             # sync check: a raised fault propagates to the admitting
             # consumer's per-record quarantine; nothing was taken yet
             self.faults.check("scoring.megabatch")
+            if self.mesh is not None:
+                # the mesh-sharded dispatch's own chaos seam: same
+                # quarantine contract, armed only on a mesh
+                self.faults.check("scoring.mesh")
         mask = batch.mtype == self.cfg.mtype
         if mask.all():
             dev, val, ts = batch.device_index, batch.value, batch.ts
@@ -520,6 +553,8 @@ class SharedScoringPool:
         entry = self.tenants[tenant_id]
         if self.faults is not None:
             self.faults.check("scoring.megabatch")
+            if self.mesh is not None:
+                self.faults.check("scoring.mesh")
         n = device_index.shape[0]
         if n == 0:
             return

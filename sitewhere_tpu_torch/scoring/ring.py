@@ -243,6 +243,11 @@ class StackedDeviceRing:
         self.count[slot] = 0
         self.cursor[slot] = 0
 
+    def leaves(self) -> dict:
+        """The state tensors, each `[T_cap, D_cap+1, ...]`."""
+        return {"values": self.values, "count": self.count,
+                "cursor": self.cursor}
+
     def update_and_score(self, model, stacked_params, dev: np.ndarray,
                          v: np.ndarray) -> torch.Tensor:
         """dev: [T_cap, B] int32 (scratch-row-padded, unique ids per

@@ -35,6 +35,10 @@ process's CUDA context (JAX's scatter drops it instead).
 
 The host `TelemetryStore` stays the durable copy: `load()` rebuilds state
 from it at warmup or after a fault, as for the window ring.
+
+`MeshRing` holds either stacked ring over a mesh: tenant rows over
+`model`, batch columns over `data` (its docstring says how the shards
+and their replicas are kept).
 """
 
 from __future__ import annotations
@@ -44,7 +48,19 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
+from sitewhere_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    Mesh,
+    assemble,
+    block_slices,
+    column_replicas,
+    megabatch_sharding,
+    model_index,
+    place_tree,
+    tenant_placer,
+)
 from sitewhere_tpu_torch.scoring.ring import check_ids, torch_dtype
 from sitewhere_tpu_torch.utils import grow_pow2, resolve_device
 
@@ -177,19 +193,27 @@ def streaming_step_sparse(model, k: int, scratch_index: int, out_dtype=None,
     dense = streaming_step(model, None, stacked)
 
     def step(params, state, dev, v, threshold):
-        scores = dense(params, state, dev, v)
-        # scratch-row padding must never report: its state absorbs
-        # arbitrary writes, so its score is garbage by design
-        is_anom = (scores >= threshold) & (dev != scratch_index)
-        n_anom = is_anom.sum(-1, dtype=torch.int32)
-        masked = torch.where(is_anom, scores,
-                             torch.full_like(scores, float("-inf")))
-        top_scores, top_pos = torch.topk(masked, k, dim=-1)
-        if out_dtype is not None:
-            top_scores = top_scores.to(out_dtype)
-        return n_anom, top_pos.to(torch.int32), top_scores
+        return sparse_select(dense(params, state, dev, v), dev, threshold,
+                             k, scratch_index, out_dtype)
 
     return step
+
+
+def sparse_select(scores, dev, threshold, k: int, scratch_index: int,
+                  out_dtype=None) -> tuple:
+    """The sparse readback of dense `scores` (`[B]`, or `[T, B]` with a
+    `[T, 1]` threshold): `(n_anom, positions[k], scores[k])` per row,
+    scratch-row padding masked."""
+    # scratch-row padding must never report: its state absorbs
+    # arbitrary writes, so its score is garbage by design
+    is_anom = (scores >= threshold) & (dev != scratch_index)
+    n_anom = is_anom.sum(-1, dtype=torch.int32)
+    masked = torch.where(is_anom, scores,
+                         torch.full_like(scores, float("-inf")))
+    top_scores, top_pos = torch.topk(masked, k, dim=-1)
+    if out_dtype is not None:
+        top_scores = top_scores.to(out_dtype)
+    return n_anom, top_pos.to(torch.int32), top_scores
 
 
 def _sparse_k(sparse_k: int, bucket: int) -> int:
@@ -394,6 +418,10 @@ class StackedStreamingRing:
         for k, leaf in self.state.items():
             leaf[slot] = fresh[k]
 
+    def leaves(self) -> dict:
+        """The state tensors, each `[T_cap, D_cap+1, ...]`."""
+        return self.state
+
     # -- the step ----------------------------------------------------------
 
     def update_and_score(self, model, stacked_params, dev: np.ndarray,
@@ -427,3 +455,190 @@ class StackedStreamingRing:
         """Release the state's device memory; the ring is unusable
         afterwards."""
         self.state = {}
+
+
+class MeshRing:
+    """A stacked ring over a mesh (`parallel/mesh.py`): tenant rows over
+    `model`, replicated over `data`; megabatch columns over `data`.
+
+    Each model shard's rows live in one meshless stacked ring per
+    distinct device of its column — `make(n_tenants, device_cap, device,
+    score_dtype)` builds it (`StackedStreamingRing` or
+    `StackedDeviceRing`) — and positions of the column on the same device
+    share that ring. A dispatch runs each position's block (its tenant
+    rows × its batch columns) on its ring, in place. Ids are unique per
+    tenant row, so the blocks of one column touch disjoint rows: where a
+    column has replicas on several devices, each block's touched rows
+    are then copied to the other replicas (the updates' all-gather). The
+    score blocks land on the mesh's first device; sparse readback selects
+    there, over whole rows."""
+
+    def __init__(self, mesh: Mesh, make: Callable, n_tenants: int,
+                 device_cap: int = 1024, score_dtype=None,
+                 sparse: bool = False, sparse_k: int = 0):
+        self.mesh = mesh
+        self._make = make
+        self._m = mesh.local_shape[MODEL_AXIS]
+        if n_tenants % self._m:
+            raise ValueError(f"{n_tenants} tenant rows do not split over "
+                             f"a model axis of {self._m}")
+        self.score_dtype = torch_dtype(score_dtype)
+        self.sparse = sparse
+        self.sparse_k = sparse_k
+        self.faulted = False
+        self.rings = self._build(n_tenants // self._m, device_cap)
+
+    def _build(self, rows: int, device_cap: int) -> dict:
+        rings, by_key = {}, {}
+        for pos in self.mesh.positions():
+            key = (model_index(self.mesh, pos), self.mesh.device(*pos))
+            if key not in by_key:
+                by_key[key] = self._make(
+                    rows, device_cap, key[1],
+                    None if self.sparse else self.score_dtype)
+            rings[pos] = by_key[key]
+        return rings
+
+    def _distinct(self) -> list:
+        out: list = []
+        for ring in self.rings.values():
+            if all(ring is not o for o in out):
+                out.append(ring)
+        return out
+
+    @property
+    def t_cap(self) -> int:
+        return self._m * self._distinct()[0].t_cap
+
+    @property
+    def device_cap(self) -> int:
+        return self._distinct()[0].device_cap
+
+    @property
+    def window(self) -> int:
+        return self._distinct()[0].window
+
+    def _owner(self, slot: int, rings: Optional[dict] = None,
+               rows: Optional[int] = None) -> tuple[list, int]:
+        """The rings holding tenant `slot` (its model shard's replicas)
+        and its row in them."""
+        rings = self.rings if rings is None else rings
+        rows = self.t_cap // self._m if rows is None else rows
+        return column_replicas(self.mesh, rings, slot // rows), slot % rows
+
+    # -- capacity ----------------------------------------------------------
+
+    def ensure(self, n_tenants: int, max_device: int) -> None:
+        """Grow either axis. Growing the tenant axis re-cuts the shards
+        (slot s moves to shard s // rows), so every tenant's rows are
+        copied into the new rings."""
+        for ring in self._distinct():
+            ring.ensure(ring.t_cap, max_device)
+        if n_tenants <= self.t_cap:
+            return
+        if n_tenants % self._m:
+            raise ValueError(f"{n_tenants} tenant rows do not split over "
+                             f"a model axis of {self._m}")
+        old, old_rows, old_t = self.rings, self.t_cap // self._m, self.t_cap
+        self.rings = self._build(n_tenants // self._m, self.device_cap)
+        for slot in range(old_t):
+            (src, *_), srow = self._owner(slot, old, old_rows)
+            dsts, drow = self._owner(slot)
+            for name, leaf in src.leaves().items():
+                for dst in dsts:
+                    out = dst.leaves()[name]
+                    out[drow] = leaf[srow].to(out.device)
+        for ring in {id(r): r for r in old.values()}.values():
+            ring.close()
+
+    # -- seeding -----------------------------------------------------------
+
+    def load_tenant(self, slot: int, values: np.ndarray, count: np.ndarray,
+                    params: Optional[dict] = None) -> None:
+        """Seed tenant `slot` in every replica of its shard (a streaming
+        ring replays under `params`, moved to each replica's device)."""
+        self.ensure(self.t_cap, values.shape[0] - 1 if values.shape[0] else 0)
+        rings, row = self._owner(slot)
+        for ring in rings:
+            if params is None:
+                ring.load_tenant(row, values, count)
+            else:
+                ring.load_tenant(row, values, count, tree_map(
+                    lambda t, d=ring.device: t.to(d), params))
+        self.faulted = False
+
+    def clear_tenant(self, slot: int) -> None:
+        rings, row = self._owner(slot)
+        for ring in rings:
+            ring.clear_tenant(row)
+
+    # -- the step ----------------------------------------------------------
+
+    def update_and_score(self, model, stacked_params, dev: np.ndarray,
+                         v: np.ndarray, thresholds=None):
+        """As the meshless stacked rings' (`[T_cap, B]` columns, B a
+        multiple of the data axis): `stacked_params` is the meshed
+        `TenantStack.stacked` (`{position: params}`) or a whole stacked
+        tree, cut here."""
+        if dev.shape[0] != self.t_cap or v.shape != dev.shape:
+            raise ValueError(f"dispatch columns {dev.shape}/{v.shape} do "
+                             f"not match the ring's {self.t_cap} tenants")
+        check_ids(dev, self.device_cap + 1)  # the scratch row included
+        if not all(isinstance(k, tuple) for k in stacked_params):
+            stacked_params = place_tree(stacked_params,
+                                        tenant_placer(self.mesh), self.mesh)
+        sh = megabatch_sharding(self.mesh, 2)
+        blocks = {}
+        try:
+            for pos in self.mesh.positions():
+                sl = block_slices(sh, dev.shape, pos)
+                blocks[pos] = self.rings[pos].update_and_score(
+                    model, stacked_params[pos],
+                    np.ascontiguousarray(dev[sl]),
+                    np.ascontiguousarray(v[sl]))
+            self._sync(dev, sh)
+        except Exception:
+            self.faulted = True  # partial update; needs reseeding
+            raise
+        scores = assemble(self.mesh, blocks, dev.shape)
+        if not self.sparse:
+            return scores
+        first = self.mesh.first
+        return sparse_select(
+            scores, torch.from_numpy(dev.astype(np.int64)).to(first),
+            torch.from_numpy(np.asarray(thresholds, np.float32)).to(
+                first)[:, None],
+            _sparse_k(self.sparse_k, dev.shape[1]), self.device_cap,
+            self.score_dtype)
+
+    def _sync(self, dev: np.ndarray, sh) -> None:
+        """Copy each block's touched rows to its column's other replicas."""
+        for pos in self.mesh.positions():
+            reps, _ = self._owner(model_index(self.mesh, pos) *
+                                  (self.t_cap // self._m))
+            src = self.rings[pos]
+            if len(reps) < 2:
+                continue
+            block = dev[block_slices(sh, dev.shape, pos)]
+            t_idx, c_idx = np.nonzero(block != self.device_cap)
+            if not t_idx.shape[0]:
+                continue
+            rows = torch.from_numpy(t_idx.astype(np.int64))
+            ids = torch.from_numpy(block[t_idx, c_idx].astype(np.int64))
+            for name, leaf in src.leaves().items():
+                got = leaf[rows.to(leaf.device), ids.to(leaf.device)]
+                for dst in reps:
+                    if dst is src:
+                        continue
+                    out = dst.leaves()[name]
+                    out[rows.to(out.device), ids.to(out.device)] = \
+                        got.to(out.device)
+
+    def windows(self, slot: int, dev: np.ndarray):
+        """The window ring's query path, from the slot's first replica."""
+        rings, row = self._owner(slot)
+        return rings[0].windows(row, dev)
+
+    def close(self) -> None:
+        for ring in self._distinct():
+            ring.close()

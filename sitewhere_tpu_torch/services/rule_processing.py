@@ -21,8 +21,8 @@ Tenant config section `rule-processing`:
   emit_alerts: true
   shared: false          # true → score via the multi-tenant pool (config 4)
   megabatch: {enabled: true, window_ms: 1.0, autotune: true}
-  mesh: {data: 4, model: 2}   # serving mesh for the shared pool: not
-                              # ported yet (ROADMAP A.2), raises
+  mesh: {data: 4, model: 2}   # serving mesh for the shared pool
+                              # (fitted to the devices there are)
 
 The device every model, session and pool runs on is the instance's
 `InstanceSettings.device` (None = the CUDA card; "cpu" only when named).
@@ -69,11 +69,11 @@ from sitewhere_tpu_torch.kernel.lifecycle import (
 )
 from sitewhere_tpu_torch.kernel.service import Service, TenantEngine
 from sitewhere_tpu_torch.models.registry import build_model
+from sitewhere_tpu_torch.parallel.mesh import mesh_devices, mesh_from_spec
 from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool, TenantSlot
 from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
 from sitewhere_tpu_torch.scoring.settle import QUERY_POOL
 from sitewhere_tpu_torch.utils import resolve_device
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -181,7 +181,7 @@ class RuleProcessingEngine(TenantEngine):
         self.emit_alerts: bool = cfg.get("emit_alerts", True)
         self.shared: bool = cfg.get("shared", False)
         # serving mesh: tenant `mesh: {data, model}` over the instance
-        # default — the shared pool refuses one (ROADMAP A.2)
+        # default (`scoring_mesh_data/model`)
         self.mesh_spec: Optional[dict] = cfg.get("mesh")
         if self.mesh_spec is None:
             d = int(getattr(settings, "scoring_mesh_data", 0) or 0)
@@ -726,8 +726,6 @@ class RuleProcessingService(Service):
         """Get-or-create the multi-tenant pool for one architecture
         (config 4). Keyed by (model, config, channel): tenants selecting
         the same architecture share one stacked-params scorer."""
-        if mesh_spec:
-            raise not_ported("a serving mesh for the shared pool", "A.2")
         # canonical JSON keeps the key hashable for list/dict config values
         import json
 
@@ -746,6 +744,12 @@ class RuleProcessingService(Service):
                scoring_cfg.score_dtype)
         pool = self._pools.get(key)
         if pool is None:
+            mesh = None
+            if mesh_spec:
+                # fitted to THIS process's devices: every card, or the
+                # instance's logical CPU devices
+                mesh = mesh_from_spec(mesh_spec, mesh_devices(
+                    self.device, self.runtime.settings.cpu_mesh_devices))
             model = build_model(model_name, device=self.device,
                                 **model_config)
             # megabatch shaping knobs (window, tenants-per-dispatch,
@@ -765,8 +769,8 @@ class RuleProcessingService(Service):
                            megabatch_window_ms=scoring_cfg.megabatch_window_ms,
                            max_tenants=scoring_cfg.megabatch_max_tenants,
                            window_auto=scoring_cfg.megabatch_autotune),
-                tracer=self.runtime.tracer, faults=self.runtime.faults,
-                device=self.device)
+                mesh=mesh, tracer=self.runtime.tracer,
+                faults=self.runtime.faults, device=self.device)
             self._pools[key] = pool
         return pool
 

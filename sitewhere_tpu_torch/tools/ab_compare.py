@@ -2,7 +2,7 @@
 configurations back to back on one card in one invocation, both reports
 written, and the markdown delta table on stdout. A port of the presets
 of `scripts/ab_compare.py` (`:399-479`), which drives the JAX package's
-`bench.py`; the `mesh` preset is not ported (ROADMAP A.2).
+`bench.py`.
 
 Presets (the levers the entry exposes):
 
@@ -15,6 +15,10 @@ Presets (the levers the entry exposes):
               round)
     observe   on = the pipeline flight recorder (default), off =
               `--no-observe`
+    mesh      on = `--tenants N --mesh DxM --egress-autotune`
+              (`--mesh-shape`, default 1x8), off = `--tenants N`
+              meshless; with `--cpu` the on leg spans D×M logical CPU
+              devices, on one card it degrades to meshless (logged)
     fleet     a = `--workers N`, b = `--workers 1` (the scale-out pair,
               with the kill drill)
     fleetobs  on = `--workers N`, off = `--workers N --no-fleet-observe`
@@ -326,8 +330,12 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("preset", choices=["egress", "fastlane", "lanes",
                                            "megabatch", "observe",
-                                           "fleet", "fleetobs", "wire",
-                                           "predictive", "replay"])
+                                           "fleet", "mesh", "fleetobs",
+                                           "wire", "predictive",
+                                           "replay"])
+    parser.add_argument("--mesh-shape", default="1x8",
+                        help="DxM mesh for the mesh preset's on leg; the "
+                             "off leg runs the same tenants meshless")
     parser.add_argument("--workers", type=int, default=2,
                         help="worker-process count for the fleet presets' "
                              "scale-out leg (fleet's other leg runs "
@@ -365,6 +373,16 @@ def main(argv=None) -> int:
                  ("on", ["--tenants", t])]
         names = (f"megabatch off ({t} tenants)",
                  f"megabatch on ({t} tenants)")
+    elif args.preset == "mesh":
+        # both legs megabatch the same tenants; the variable is the
+        # serving mesh (tenant rows → model axis, batch → data axis) and
+        # the self-tuning dispatch it ships with
+        t = str(args.tenants)
+        pairs = [("off", ["--tenants", t]),
+                 ("on", ["--tenants", t, "--mesh", args.mesh_shape,
+                         "--egress-autotune"])]
+        names = (f"mesh off ({t} tenants)",
+                 f"mesh {args.mesh_shape} ({t} tenants)")
     elif args.preset == "observe":
         pairs = [("off", ["--no-observe"]), ("on", [])]
         names = ("observe off", "observe on")

@@ -36,11 +36,16 @@ Differences from `bench.py`, each deliberate:
   `"plain"` for its plain version on the CPU, null when no K1 runs. The
   launches and dispatches over the measured phases go to stderr as one
   `[bench] kernels {...}` line;
-- `lint` is what `bench.py`'s `_lint_summary` returns when its linter
-  raises: swxlint is not ported (ROADMAP A.6);
+- `lint` is `bench.py`'s `_lint_summary` over this package (the port's
+  swxlint, `analysis/`);
 - `mfu` is the achieved model FLOP/s over one card's dense bf16 peak
   (`PEAK_BF16_FLOPS`, matched on the card's name); an unknown kind gives
-  null. `--mesh` raises (ROADMAP A.2);
+  null;
+- `--mesh DxM` shards the megabatch pool over a `{data: D, model: M}`
+  mesh fitted to the devices there are (every card; with `--cpu`, D×M
+  logical CPU devices, as `bench.py` forces D×M host devices): on one
+  card it degrades to meshless with the reference's warning, and
+  `scoring.mesh` reports what ran (`shape` null, `devices` 0);
 - `--profile DIR` writes a `torch.profiler` trace of phase 1
   (`DIR/trace.json`).
 """
@@ -63,7 +68,6 @@ from typing import Optional
 
 import numpy as np
 
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 # dense bf16 tensor peak by card name (lowercased substring; NVIDIA's
 # data sheet for the H100 SXM); an unknown kind (the CPU too) reports
@@ -77,10 +81,28 @@ logger = logging.getLogger(__name__)
 
 
 def lint_summary() -> dict:
-    """`bench.py`'s `_lint_summary` when its linter raises: the port has
-    no swxlint yet."""
-    exc = not_ported("swxlint over the port", "A.6")
-    return {"error": f"{type(exc).__name__}: {exc}"}
+    """`bench.py`'s `_lint_summary` over this package: new/baselined
+    swxlint finding counts, per code, and each checker's wall time.
+    Never fails the bench."""
+    try:
+        from sitewhere_tpu_torch.analysis import lint_package
+
+        report = lint_package()
+        per_code: dict = {}
+        for f in report.findings:
+            per_code.setdefault(f.code, {"new": 0, "baselined": 0})
+            per_code[f.code]["new"] += 1
+        for f, _reason in report.baselined:
+            per_code.setdefault(f.code, {"new": 0, "baselined": 0})
+            per_code[f.code]["baselined"] += 1
+        return {"new": len(report.findings),
+                "baselined": len(report.baselined),
+                "suppressed": len(report.suppressed),
+                "by_code": per_code,
+                "timings_s": {c: round(t, 4)
+                              for c, t in sorted(report.timings.items())}}
+    except Exception as exc:  # noqa: BLE001 - the artifact must still parse
+        return {"error": f"{type(exc).__name__}: {exc}"}
 
 
 def error_artifact(args, msg: str) -> str:
@@ -188,7 +210,11 @@ async def run_default(args) -> dict:
         fastlane=not args.no_fastlane, observe=not args.no_observe,
         data_dir=args.durable, device=device_arg(args),
         trace_sample=64, ready_timeout_s=args.ready_timeout,
-        anomaly_rate=0.001, chaos=chaos, chaos_seed=args.chaos_seed)
+        anomaly_rate=0.001, chaos=chaos, chaos_seed=args.chaos_seed,
+        mesh=args.mesh_spec,
+        # a CPU run gets the D×M logical devices the spec asks for
+        cpu_mesh_devices=(args.mesh_spec["data"] * args.mesh_spec["model"]
+                          if args.mesh_spec else 1))
     pipes = await pl.deploy(dep)
     try:
         return await _default_phases(args, dep, pipes, platform,
@@ -217,6 +243,11 @@ async def _default_phases(args, dep, pipes, platform, device_kind,
              if engines[0].pool_slot is not None else None)
     eff_window_ms = (pool0.cfg.window_s * 1e3 if pool0 is not None
                      else args.window_ms)
+    # mesh provenance from the LIVE pool (mesh_from_spec may have fitted
+    # the request down to this process's devices)
+    mesh = pool0.mesh if pool0 is not None else None
+    mesh_devices = mesh.size if mesh is not None else 0
+    mesh_shape = dict(mesh.shape) if mesh is not None else None
     disp_counter = rt.metrics.counter("scoring.dispatches")
     fastlane_on = all(getattr(e, "fastlane", None) is not None
                       for e in engines)
@@ -351,7 +382,7 @@ async def _default_phases(args, dep, pipes, platform, device_kind,
     breakdown = breakdown_of(stages)
 
     # MFU: achieved model FLOP/s at the saturation rate over one card's
-    # peak (the port dispatches on one device: no mesh, ROADMAP A.2)
+    # peak
     model_obj = getattr(session, "model", None) or session.pool.model
     flops_ev = float(getattr(model_obj, "flops_per_event", lambda: 0.0)())
     model_flops_s = rate * flops_ev
@@ -420,8 +451,10 @@ async def _default_phases(args, dep, pipes, platform, device_kind,
                        "egress.autotune_adjusts").value)},
         "scoring": {
             "megabatch": megabatch_on,
-            # the port dispatches on one device (ROADMAP A.2)
-            "mesh": {"spec": None, "shape": None, "devices": 0},
+            # serving mesh: requested spec + what actually ran (0
+            # devices = single-device stacked dispatch)
+            "mesh": {"spec": args.mesh_spec, "shape": mesh_shape,
+                     "devices": mesh_devices},
             "window_ms": round(eff_window_ms, 3),
             "window_ms_live": (round(pool0._window_s * 1e3, 3)
                                if pool0 is not None
@@ -449,7 +482,9 @@ async def _default_phases(args, dep, pipes, platform, device_kind,
         "model_flops_per_event": flops_ev,
         "model_tflops": round(model_flops_s / 1e12, 3),
         "model_tflops_median": round(model_tflops_median, 4),
-        "model_tflops_per_device": round(model_tflops_median, 5),
+        # achieved model TFLOP/s over the devices the dispatch spans
+        "model_tflops_per_device": round(
+            model_tflops_median / max(mesh_devices or n_chips, 1), 5),
         "mfu": round(mfu, 5) if mfu is not None else None,
         "fleet_devices": args.devices,
         "readback": "anomalies" if sparse else "full",
@@ -1602,7 +1637,9 @@ def parser() -> argparse.ArgumentParser:
         help="dedicated per-tenant sessions (a windowed lstm then "
              "launches K1)")
     add("--mesh", default=None, metavar="DxM",
-        help="not ported: raises (ROADMAP A.2)")
+        help="shard the megabatch dispatch over a {data: D, model: M} "
+             "device mesh (tenant rows on `model`, batch columns on "
+             "`data`), fitted to the devices there are")
     add("--egress-autotune", action="store_true")
     add("--max-inflight", type=int, default=8)
     add("--drain-timeout", type=float, default=60.0)
@@ -1652,10 +1689,20 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def mesh_spec_of(text: Optional[str]) -> Optional[dict]:
+    """`--mesh DxM` as `{data: D, model: M}`; ValueError if malformed."""
+    if not text:
+        return None
+    d, _, m = text.lower().partition("x")
+    spec = {"data": int(d), "model": int(m or 1)}
+    if spec["data"] < 1 or spec["model"] < 1:
+        raise ValueError(f"--mesh axes must be positive, got {text!r}")
+    return spec
+
+
 def run(args) -> dict:
     """The mode the flags select, in `bench.py`'s order of precedence."""
-    if args.mesh:
-        raise not_ported("bench --mesh", "A.2")
+    args.mesh_spec = mesh_spec_of(args.mesh)
     if args.train:
         return run_train(args)
     if args.gnn:
@@ -1678,6 +1725,17 @@ def main(argv=None) -> int:
     if args.egress_autotune and args.workers > 0:
         p.error("--egress-autotune is not threaded into the fleet "
                 "bench's worker config; run it without --workers")
+    try:
+        mesh_spec_of(args.mesh)
+    except ValueError:
+        p.error(f"--mesh wants DxM (e.g. 4x2) with positive axes, got "
+                f"{args.mesh!r}")
+    if args.mesh and not args.megabatch:
+        p.error("--mesh shards the megabatch pool's stacked dispatch; "
+                "drop --no-megabatch")
+    if args.mesh and args.workers > 0:
+        p.error("--mesh is not threaded into the fleet bench's worker "
+                "config; run it without --workers")
     logging.basicConfig(level=logging.WARNING)
     try:
         result = run(args)

@@ -170,16 +170,17 @@ class PoolPath:
 
 async def build_pool(prefix: str, model: str, tenants: int, devices: int,
                      buckets: tuple[int, ...], timeout: float = 300.0,
-                     **model_cfg: Any) -> PoolPath:
+                     mesh=None, **model_cfg: Any) -> PoolPath:
     """A warmed pool on `model` (at `MODEL_CFG[model]`, its fields
     overridden by `model_cfg`, e.g. `compute_dtype`) with `tenants`
     tenants of `devices` devices each (tenant i: weights and simulator
-    from seed SEED + i)."""
+    from seed SEED + i), sharded over `mesh` if one is given."""
     scorer = build_model(model, **{**MODEL_CFG[model], **model_cfg})
     window = scorer.cfg.window
     metrics = MetricsRegistry()
     pool = SharedScoringPool(scorer, metrics,
-                             PoolConfig(batch_buckets=buckets, seed=SEED))
+                             PoolConfig(batch_buckets=buckets, seed=SEED),
+                             mesh=mesh)
     members = {}
     arrived = asyncio.Event()
     for i in range(tenants):

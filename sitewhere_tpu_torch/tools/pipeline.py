@@ -33,6 +33,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+from sitewhere_tpu_torch.analysis.registry import FAULT_SITES
 from sitewhere_tpu_torch.cli import build_runtime
 from sitewhere_tpu_torch.config import InstanceSettings, TenantConfig
 from sitewhere_tpu_torch.domain.model import DeviceType
@@ -113,6 +114,10 @@ class Deployment:
     anomaly_rate: float = 0.0
     chaos: dict = field(default_factory=dict)
     chaos_seed: int = 0
+    # the serving mesh `{data, model}` of the shared pool (None: none),
+    # and the logical CPU devices a CPU run may span
+    mesh: Optional[dict] = None
+    cpu_mesh_devices: int = 1
 
     @property
     def tenant_ids(self) -> list[str]:
@@ -140,6 +145,7 @@ def tenant_sections(dep: Deployment, per_tenant: int) -> dict:
             "readback": dep.readback,
             "shared": dep.pooled > 1,
             "megabatch": {"enabled": dep.megabatch},
+            **({"mesh": dict(dep.mesh)} if dep.mesh else {}),
         },
     }
 
@@ -158,12 +164,17 @@ async def deploy(dep: Deployment) -> list[Pipeline]:
         data_dir=dep.data_dir, device=dep.device,
         engine_ready_timeout_s=dep.ready_timeout_s,
         observe_enabled=dep.observe,
+        cpu_mesh_devices=dep.cpu_mesh_devices,
         # the bench's shed policy: reject at ingress only
         flow_degrade_at=10.0, flow_defer_at=10.0))
     if dep.chaos:
         injector = rt.install_faults(FaultInjector(seed=dep.chaos_seed))
         for site, (rate, max_faults) in dep.chaos.items():
-            injector.arm(site, rate=rate, max_faults=max_faults)
+            if site not in FAULT_SITES:
+                raise ValueError(f"chaos site {site!r} is not a registered "
+                                 f"fault site (analysis/registry.py)")
+            # the registry vouches for the site on the line above
+            injector.arm(site, rate=rate, max_faults=max_faults)  # swxlint: disable=FLT01
     await rt.start()
     try:
         sections = tenant_sections(dep, per_tenant)

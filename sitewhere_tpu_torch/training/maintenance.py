@@ -6,7 +6,12 @@ the durable source of truth the reference also resumes from
 [SURVEY.md §5.4]). The graph's arrays stay on the card for the whole
 run; `torch.optim.AdamW` stands in for optax's `adamw` (both decay the
 weights decoupled from the gradient, by lr · weight_decay a step).
-Node-sharded training and scoring over a mesh is ROADMAP A.2.
+
+Over a mesh (`mesh=`) the node axis is sharded over the `data` axis's
+devices (the graph's node count padded to a multiple of it): each
+device runs the layers on its node block, the neighbor gather sees every
+node (`GnnMaintenanceModel.logits_blocks`), and the loss is taken over
+the whole graph on the first device, so a step is the meshless step.
 """
 
 from __future__ import annotations
@@ -21,8 +26,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from sitewhere_tpu_torch.models.gnn import GnnConfig, GnnMaintenanceModel
 from sitewhere_tpu_torch.models.graph import FleetGraph
+from sitewhere_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, split_blocks
 from sitewhere_tpu_torch.training.trainer import trainable
-from sitewhere_tpu_torch.utils.roadmap import not_ported
 
 
 @dataclass(frozen=True)
@@ -42,28 +47,48 @@ class MaintenanceTrainerConfig:
 
 class MaintenanceTrainer:
     """Full-graph GNN trainer: the graph's arrays resident on the
-    model's device for the whole run."""
+    model's device (or their node blocks on the mesh's `data` devices)
+    for the whole run."""
 
     def __init__(self, model: GnnMaintenanceModel,
                  cfg: MaintenanceTrainerConfig = MaintenanceTrainerConfig(),
-                 mesh=None):
-        if mesh is not None:
-            raise not_ported("node-sharded GNN training over a mesh", "A.2")
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+
+    @property
+    def _devices(self) -> list:
+        """The node blocks' devices (one: the model's, meshless)."""
+        if self.mesh is None:
+            return [self.model.device]
+        return self.mesh.axis_devices(DATA_AXIS)
 
     def _place(self, graph: FleetGraph):
-        """The graph's arrays on the model's device."""
-        dev = self.model.device
+        """The graph's arrays on the first device."""
+        dev = self._devices[0]
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                      for a in (graph.node_feat, graph.neighbors,
                                graph.nbr_mask, graph.labels,
                                graph.label_mask))
 
+    def _logits(self, params, feat, nbrs, mask) -> torch.Tensor:
+        """Whole-graph logits on the first device, from node blocks."""
+        devs = self._devices
+        if len(devs) == 1:
+            return self.model.logits(params, feat, nbrs, mask)
+        blocks = self.model.logits_blocks(
+            params, split_blocks(feat, devs, 0), split_blocks(nbrs, devs, 0),
+            split_blocks(mask, devs, 0))
+        return torch.cat([b.to(devs[0]) for b in blocks])
+
     def train(self, graph: FleetGraph,
               params: Optional[dict] = None) -> tuple[dict, dict]:
         model, cfg = self.model, self.cfg
-        dev = model.device
+        dev = self._devices[0]
         if params is None:
             params = model.init(torch.Generator().manual_seed(cfg.seed))
         params = trainable(params, dev)
@@ -84,7 +109,8 @@ class MaintenanceTrainer:
                 f = torch.where(keep, feat / (1.0 - p_drop),
                                 torch.zeros_like(feat))
             opt.zero_grad(set_to_none=True)
-            loss = model.loss(params, f, nbrs, mask, labels, label_mask)
+            loss = model.loss_from_logits(
+                self._logits(params, f, nbrs, mask), labels, label_mask)
             loss.backward()
             opt.step()
             if i % cfg.log_every == 0 or i == cfg.steps - 1:
@@ -98,7 +124,7 @@ class MaintenanceTrainer:
         """Per-device maintenance risk [n_devices] float32 in [0, 1]."""
         feat, nbrs, mask, _, _ = self._place(graph)
         with torch.no_grad():
-            risk = self.model.risk(params, feat, nbrs, mask)
+            risk = torch.sigmoid(self._logits(params, feat, nbrs, mask))
         return risk.cpu().numpy()[: graph.n_devices]
 
 

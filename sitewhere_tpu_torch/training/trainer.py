@@ -6,8 +6,16 @@ snapshot (`[D, T]` → `[N, W]` via one strided gather), each step draws
 a batch with `np.random.default_rng(seed).integers(0, n, bs)` — the
 reference's draw, so both trainers see the same batches — and takes one
 `torch.optim.Adam` step on `model.loss` (optax's `adam`: the same lr,
-betas (0.9, 0.999) and eps 1e-8). Data-parallel training over a mesh is
-ROADMAP A.2: a `mesh` raises.
+betas (0.9, 0.999) and eps 1e-8).
+
+Data-parallel over a mesh (`parallel/mesh.py`): the batch — a multiple
+of the `data` axis — is split over the `data` axis's devices, each shard
+computes the loss of its rows with its own replica of the params (a
+copy on its device that autograd traces back to the one set of params),
+and the replicas' gradients are averaged into those params before one
+optimizer step. Over a process group (`parallel/distributed.py`) each
+process computes its own shards and the gradients and the loss are
+all-reduced over the group, so every process takes the same step.
 """
 
 from __future__ import annotations
@@ -20,7 +28,15 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
-from sitewhere_tpu_torch.utils.roadmap import not_ported
+from sitewhere_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    model_index,
+    place,
+    place_tree,
+    replicated,
+    shard_batch,
+)
 
 
 @dataclass(frozen=True)
@@ -72,22 +88,61 @@ def trainable(params, device):
                     .requires_grad_(True), params)
 
 
+def data_parallel_loss(loss_fn, params, mesh: Mesh, *batch) -> torch.Tensor:
+    """This process's share of the mean data-parallel loss: params
+    replicated, this process's rows of the global batch sharded over its
+    `data` devices, and the sum of `loss_fn` over its shards divided by
+    the global data size."""
+    per = batch[0].shape[0] // mesh.process_count
+    rows = slice(mesh.process_index * per, (mesh.process_index + 1) * per)
+    replicas = place_tree(params, lambda t: place(t, replicated(mesh)), mesh)
+    *shards, _ = shard_batch(mesh, *(b[rows] for b in batch))
+    total = sum(loss_fn(replicas[pos], *(s.blocks[pos] for s in shards))
+                .to(mesh.first) for pos in mesh.positions()
+                if model_index(mesh, pos) == 0)
+    return total / mesh.shape[DATA_AXIS]
+
+
+def all_reduce_grads(params, mesh: Mesh) -> None:
+    """Sum the gradients over the mesh's process group (no-op for one
+    process)."""
+    if mesh.process_count == 1:
+        return
+    import torch.distributed as dist
+
+    for leaf in tree_leaves(params):
+        if leaf.grad is not None:
+            dist.all_reduce(leaf.grad)
+
+
+def reduced_loss(loss: torch.Tensor, mesh: Mesh) -> float:
+    """The loss summed over the mesh's process group."""
+    loss = loss.detach().clone()
+    if mesh.process_count > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(loss)
+    return float(loss)
+
+
 class Trainer:
     """Self-supervised trainer for any registry model, on the model's
-    device."""
+    device, or data-parallel over `mesh`."""
 
     def __init__(self, model, cfg: TrainerConfig = TrainerConfig(),
-                 mesh=None):
-        if mesh is not None:
-            raise not_ported("data-parallel training over a mesh", "A.2")
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
 
     def train(self, windows: np.ndarray, valid: np.ndarray,
               params: Optional[dict] = None) -> tuple[dict, dict]:
         """Train over the window dataset; returns (params, report)."""
-        cfg, model = self.cfg, self.model
-        device = model.device
+        cfg, model, mesh = self.cfg, self.model, self.mesh
+        device = model.device if mesh is None else mesh.first
         if params is None:
             params = model.init(torch.Generator().manual_seed(cfg.seed))
         params = trainable(params, device)
@@ -97,19 +152,29 @@ class Trainer:
                 "steps": 0, "losses": [], "seconds": 0.0}
         opt = torch.optim.Adam(tree_leaves(params), lr=cfg.learning_rate,
                                betas=(0.9, 0.999), eps=1e-8)
+        bs = cfg.batch_size
+        if mesh is not None:
+            d = mesh.shape[DATA_AXIS]
+            bs = max((bs // d) * d, d)  # divisible by the data axis
         rng = np.random.default_rng(cfg.seed)
         losses = []
         t0 = time.monotonic()
         for step_i in range(cfg.steps):
-            idx = rng.integers(0, n, cfg.batch_size)
-            xb = torch.from_numpy(np.ascontiguousarray(windows[idx])).to(device)
-            vb = torch.from_numpy(np.ascontiguousarray(valid[idx])).to(device)
+            idx = rng.integers(0, n, bs)
+            xb = torch.from_numpy(np.ascontiguousarray(windows[idx]))
+            vb = torch.from_numpy(np.ascontiguousarray(valid[idx]))
             opt.zero_grad(set_to_none=True)
-            loss = model.loss(params, xb, vb)
-            loss.backward()
+            if mesh is None:
+                loss = model.loss(params, xb.to(device), vb.to(device))
+                loss.backward()
+            else:
+                loss = data_parallel_loss(model.loss, params, mesh, xb, vb)
+                loss.backward()
+                all_reduce_grads(params, mesh)
             opt.step()
             if step_i % cfg.log_every == 0 or step_i == cfg.steps - 1:
-                losses.append(float(loss.detach()))
+                losses.append(float(loss.detach()) if mesh is None
+                              else reduced_loss(loss, mesh))
         elapsed = time.monotonic() - t0
         return tree_map(torch.Tensor.detach, params), {
             "steps": cfg.steps, "losses": losses, "seconds": elapsed,

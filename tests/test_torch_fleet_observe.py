@@ -2,8 +2,7 @@
 observer.py`, the telemetry export of `kernel/observe.py`) on the cases
 of `tests/test_fleet_observe.py` that the other port tests do not cover
 (`TelemetryHistory` is held to the reference in
-`tests/test_torch_durable.py`; the TRC01 lint case waits for the port's
-swxlint, ROADMAP A.6):
+`tests/test_torch_durable.py`):
 
 - broker self-stats (`EventBus.stats()` and the `bus_stats` wire op);
 - telemetry export and fold: each worker's beat publishes onto the
@@ -13,6 +12,9 @@ swxlint, ROADMAP A.6):
 - fleet-level observe on/off scored-output equivalence;
 - `render_top`'s fleet scope and `render_fleet_top`, equal to the JAX
   package's text on the same reports;
+- the TRC01 wire-context contract of the port's swxlint over
+  `kernel/wire.py` and `kernel/codec.py`, each case also through the
+  JAX linter on the same source;
 - cross-worker trace continuity over two real port worker processes
   (marked `slow`, as its reference is).
 
@@ -401,6 +403,57 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def test_trc01_wire_context_contract():
+    from sitewhere_tpu.analysis.checkers_trace import (
+        check_wire_trace_context as jax_check,
+    )
+    from sitewhere_tpu.analysis.engine import lint_sources as jax_lint
+    from sitewhere_tpu_torch.analysis.checkers_trace import (
+        check_wire_trace_context,
+    )
+    from sitewhere_tpu_torch.analysis.engine import (
+        lint_package,
+        lint_sources,
+    )
+
+    def codes(module: str, src: str) -> list:
+        """The port's TRC01 codes on `src` at `sitewhere_tpu_torch/
+        <module>`, held equal to the JAX linter's at `sitewhere_tpu/
+        <module>`."""
+        got = lint_sources({f"sitewhere_tpu_torch/{module}": src},
+                           checkers=[check_wire_trace_context])
+        want = jax_lint({f"sitewhere_tpu/{module}": src},
+                        checkers=[jax_check])
+        assert [(f.code, f.line) for f in got.findings] == \
+            [(f.code, f.line) for f in want.findings]
+        return [f.code for f in got.findings]
+
+    # rebuilding a BatchContext at the wire boundary without trace_id
+    # snaps the cross-process trace — flagged
+    bad = ("def rewrap(self, value):\n"
+           "    return BatchContext(tenant_id=value.ctx.tenant_id)\n")
+    assert codes("kernel/wire.py", bad) == ["TRC01"]
+    # threading the trace id through satisfies the contract
+    good = ("def rewrap(self, value):\n"
+            "    return BatchContext(tenant_id=value.ctx.tenant_id,\n"
+            "                        trace_id=value.ctx.trace_id)\n")
+    assert codes("kernel/wire.py", good) == []
+    # **kwargs may carry it (the codec's field-dict construction)
+    splat = ("def rewrap(self, kwargs):\n"
+             "    return BatchContext(**kwargs)\n")
+    assert codes("kernel/codec.py", splat) == []
+    # modules OUTSIDE the wire boundary legitimately mint fresh
+    # contexts (ingress edges start traces)
+    assert codes("services/event_sources.py", bad) == []
+    # the port's live tree is clean (no baseline entries needed)
+    package = lint_package()
+    assert not [f for f in package.findings if f.code == "TRC01"]
+    assert not [f for f, _ in package.baselined
+                if f.code == "TRC01" and f.path.startswith(
+                    ("sitewhere_tpu_torch/kernel/wire.py",
+                     "sitewhere_tpu_torch/kernel/codec.py"))]
 
 
 @pytest.mark.slow

@@ -213,7 +213,38 @@ def test_gnn_init_keeps_the_jax_layout():
                  or pytest.fail(f"{a.shape} vs {b.shape}"), mine, p)
 
 
-def test_maintenance_trainer_mesh_is_a_cut():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2:"):
-        MaintenanceTrainer(build_maintenance_model(device="cpu"),
-                           mesh=object())
+def test_maintenance_trainer_over_a_mesh_matches_jax():
+    """The node axis sharded over a 4-way `data` axis (logical CPU
+    devices, the JAX trainer on 4 of its virtual devices): the steps
+    match the JAX package's meshed trainer without dropout, and the
+    port's meshless trainer with dropout (the masks are drawn whole on
+    the first device)."""
+    from sitewhere_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
+    jm, tm, p, tp = _pair()
+    g = _graph(PORT)
+    mesh = make_mesh(data=4, model=1, devices=["cpu"] * 4)
+    cfg = dict(learning_rate=1e-2, steps=5, seed=0, log_every=1,
+               feature_dropout=0.0, weight_decay=1e-3)
+    jp, jreport = JTrainer(jm, JTrainerConfig(**cfg), mesh=jmake_mesh(
+        data=4, model=1, devices=jax.devices()[:4])).train(g, params=p)
+    tp2, treport = MaintenanceTrainer(tm, MaintenanceTrainerConfig(**cfg),
+                                      mesh=mesh).train(g, params=tp)
+    np.testing.assert_allclose(treport["losses"], jreport["losses"],
+                               atol=1e-4)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(
+        a, np.asarray(b), atol=1e-4, rtol=1e-3), params_to_numpy(tp2), jp)
+    cfg["feature_dropout"] = 0.3
+    meshed = MaintenanceTrainer(tm, MaintenanceTrainerConfig(**cfg),
+                                mesh=mesh)
+    mp, mreport = meshed.train(g, params=tp)
+    _, report = MaintenanceTrainer(tm, MaintenanceTrainerConfig(
+        **cfg)).train(g, params=tp)
+    np.testing.assert_allclose(mreport["losses"], report["losses"],
+                               rtol=1e-5)
+    np.testing.assert_allclose(meshed.score(mp, g),
+                               MaintenanceTrainer(tm).score(mp, g),
+                               atol=1e-6)
+    with pytest.raises(TypeError, match="Mesh"):
+        MaintenanceTrainer(tm, mesh=object())

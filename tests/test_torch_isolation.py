@@ -66,6 +66,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sitewhere_tpu_torch.services.geofence, sitewhere_tpu_torch.services.qrcode\n"
         "import sitewhere_tpu_torch.fleet, sitewhere_tpu_torch.fleet.worker_main\n"
         "import sitewhere_tpu_torch.parallel.placement, sitewhere_tpu_torch.tools.fleet\n"
+        "import sitewhere_tpu_torch.analysis, sitewhere_tpu_torch.analysis.__main__\n"
+        "import sitewhere_tpu_torch.parallel.mesh\n"
+        "import sitewhere_tpu_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'sitewhere_tpu')]\n"
         "print(bad)\n"

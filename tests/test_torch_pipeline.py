@@ -74,14 +74,17 @@ def _weights(case: str) -> dict:
 
 
 async def _drive(pkg, case: str, weights: dict, port: bool,
-                 protocol: str = None) -> dict:
+                 protocol: str = None, settings: dict = None,
+                 rule_extra: dict = None) -> dict:
     """One package's six-service runtime through the case; returns
     {tenant: observables} once everything drained and committed. The
     ticks go through each tenant's in-proc queue receiver, or with
     `protocol` ("mqtt", "amqp", ...) through a receiver of that kind,
     sent by the package's own `sim.clients` sender (one connection and
-    one topic a tenant, so each tenant's stream stays ordered)."""
-    extra = {"device": "cpu"} if port else {}
+    one topic a tenant, so each tenant's stream stays ordered).
+    `settings` adds instance settings, `rule_extra` rule-processing
+    keys."""
+    extra = {"device": "cpu", **(settings or {})} if port else {}
     rt = pkg.service.ServiceRuntime(pkg.config.InstanceSettings(
         instance_id=f"parity-{case}", **extra))
     s = pkg.services
@@ -92,7 +95,8 @@ async def _drive(pkg, case: str, weights: dict, port: bool,
     await rt.start()
     try:
         rule = {**CASES[case],
-                "batch_window_ms": 1.0, "buckets": [256], "capacity": 256}
+                "batch_window_ms": 1.0, "buckets": [256], "capacity": 256,
+                **(rule_extra or {})}
         sections = {"rule-processing": rule}
         if protocol is not None:
             sections["event-sources"] = {"receivers": [

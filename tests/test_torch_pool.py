@@ -458,12 +458,19 @@ def test_tenant_stack_swap_grow_and_slot_reuse():
 
 
 def test_mesh_is_refused_not_ignored():
+    """Something that is not a mesh is refused, never dropped; a mesh of
+    another device type than the stack's is refused too (a meshed pool
+    is held in tests/test_torch_mesh.py)."""
+    from sitewhere_tpu_torch.parallel.mesh import Mesh
+
     model = _model("lstm-stream")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TenantStack(model, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         SharedScoringPool(model, MetricsRegistry(), mesh=object(),
                           device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        TenantStack(model, mesh=Mesh([["meta"]]), device="cpu")
     pool = _pool(model)
     assert pool.mesh_stats()["devices"] == 0
     assert pool.mesh_stats()["shape"] == {}

@@ -3,9 +3,8 @@ the same inputs (bus, flow control, codec and SWB1, the lane predicates,
 metrics, the copied registry constants), the storage plane through the
 runtime (a `data_dir` restart in either package from either package's
 files, registry adoption from the in-process `registry-state` topic,
-`cli replay`), and every path the port does not take over yet raising
-`NotImplementedError` that names its ROADMAP item. Everything here is
-host code: the comparisons are exact."""
+`cli replay`). Everything here is host code: the comparisons are
+exact."""
 
 import asyncio
 import contextlib
@@ -284,42 +283,10 @@ def test_registry_constants_match_the_reference():
     assert ttracing.TRACE_STAGES == jregistry.TRACE_STAGES
 
 
-# -- what the port does not take over yet ----------------------------------------
-
 def _runtime(**settings):
     from sitewhere_tpu_torch.cli import build_runtime
 
     return build_runtime(tconfig.InstanceSettings(device="cpu", **settings))
-
-
-CUTS = {
-    "lint": (lambda: tcli.main(["lint"]), "A.6"),
-    "bench-mesh": (lambda: __import__(
-        "sitewhere_tpu_torch.tools.bench", fromlist=["run"]).run(
-        __import__("sitewhere_tpu_torch.tools.bench",
-                   fromlist=["parser"]).parser().parse_args(
-            ["--mesh", "2x2", "--cpu"])), "A.2"),
-    "train-distributed": (lambda: tcli.main(
-        ["train", "--cpu", "--distributed"]), "A.2"),
-    "longwin-mesh": (lambda: __import__(
-        "sitewhere_tpu_torch.models.longwin", fromlist=["LongWindowModel"]
-    ).LongWindowModel(mesh=object(), device="cpu"), "A.2"),
-    "trainer-mesh": (lambda: __import__(
-        "sitewhere_tpu_torch.training.trainer", fromlist=["Trainer"]).Trainer(
-        None, mesh=object()), "A.2"),
-    "mesh": (lambda: _runtime().services["rule-processing"].shared_pool(
-        "zscore", {}, __import__(
-            "sitewhere_tpu_torch.scoring.server",
-            fromlist=["ScoringConfig"]).ScoringConfig(),
-        {"data": 2, "model": 2}), "A.2"),
-}
-
-
-@pytest.mark.parametrize("cut", list(CUTS))
-def test_cut_raises_naming_its_roadmap_item(cut):
-    make, item = CUTS[cut]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}:"):
-        make()
 
 
 def test_forecast_raises_lookup_error_as_the_reference_does(run):

@@ -147,9 +147,36 @@ def test_trainer_lowers_the_loss(name):
                jax.tree.leaves(params, is_leaf=torch.is_tensor))
 
 
-def test_trainer_mesh_is_a_cut():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2:"):
-        Trainer(build_model("seasonal", device="cpu"), mesh=object())
+@pytest.mark.parametrize("name", list(TRAIN))
+def test_trainer_over_a_mesh_matches_jax_and_meshless(name):
+    """Data-parallel over a 2-way `data` axis (logical CPU devices): the
+    batch is split, the replicas' gradients averaged into one step; the
+    losses match the JAX trainer on 2 of its virtual devices and the
+    port's meshless trainer on the same batches."""
+    from sitewhere_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from sitewhere_tpu_torch.parallel.mesh import make_mesh
+
+    jm, tm, p = _train_pair(name)
+    values, counts = _series(seed=1)
+    windows, valid = make_windows(values, counts, jm.cfg.window)
+    cfg = dict(learning_rate=1e-2, batch_size=16, steps=3, seed=5,
+               log_every=1)
+    _, jreport = JTrainer(jm, JTrainerConfig(**cfg), mesh=jmake_mesh(
+        data=2, model=1, devices=jax.devices()[:2])).train(
+        windows, valid, params=p)
+    mesh = make_mesh(data=2, model=1, devices=["cpu"] * 2)
+    tp, treport = Trainer(tm, TrainerConfig(**cfg), mesh=mesh).train(
+        windows, valid, params=params_from_numpy(p, "cpu"))
+    _, plain = Trainer(tm, TrainerConfig(**cfg)).train(
+        windows, valid, params=params_from_numpy(p, "cpu"))
+    np.testing.assert_allclose(treport["losses"], jreport["losses"],
+                               atol=1e-5)
+    np.testing.assert_allclose(treport["losses"], plain["losses"],
+                               atol=1e-5)
+    assert all(not leaf.requires_grad for leaf in
+               jax.tree.leaves(tp, is_leaf=torch.is_tensor))
+    with pytest.raises(TypeError, match="Mesh"):
+        Trainer(tm, mesh=object())
 
 
 # -- checkpoints ---------------------------------------------------------------
@@ -222,9 +249,14 @@ def test_cli_train_writes_a_checkpoint(tmp_path):
     assert meta["window"] == 16 and params["lstm0"]["wx"].shape == (1, 256)
 
 
-def test_cli_train_distributed_is_a_cut():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2:"):
-        tcli.main(["train", "--cpu", "--distributed"])
+def test_cli_train_distributed_needs_a_coordinator(monkeypatch, capsys):
+    """`--distributed` with no coordinator (flag or SWX_COORDINATOR)
+    exits 2, as the JAX CLI does; the group itself is held in
+    tests/test_torch_distributed.py."""
+    monkeypatch.delenv("SWX_COORDINATOR", raising=False)
+    assert tcli.main(["train", "--cpu", "--distributed", "--steps",
+                      "1"]) == 2
+    assert "no coordinator" in capsys.readouterr().err
 
 
 DEVICES, W = 64, 16
