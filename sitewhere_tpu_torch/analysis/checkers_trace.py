@@ -11,13 +11,14 @@ shape:
   function that emits pipeline output (`.produce(...)` /
   `.produce_nowait(...)`) or persists a batch (`.add_measurements` /
   `.add_locations`) must, on the same path, record a span
-  (`<...>tracer.record(...)`). A new hot-path hop that forwards batches
+  (`<...>tracer.record(...)` or `with <...>tracer.span(...)`). A new hot-path hop that forwards batches
   without a span is exactly the regression this exists to catch.
   Reported at the function's `def` line (the contract is per-path, not
   per-call). Justified gaps — cold API surfaces with no batch ctx,
   helpers whose caller owns the span — ride the reasoned baseline.
 - **stage names** — every literal passed to `tracer.record(trace_id,
-  "stage", ...)` must resolve against the central inventory
+  "stage", ...)` or `tracer.span("stage", ...)` must resolve against
+  the central inventory
   (`analysis/registry.py` TRACE_STAGES), exactly as MET01 resolves
   metric names: a typo'd stage silently vanishes from the critical-path
   report instead of failing the build. A computed stage is itself a
@@ -68,6 +69,9 @@ _CTX_CLASSES = {"BatchContext"}
 _EMIT_ATTRS = {"produce", "produce_nowait",
                "add_measurements", "add_locations"}
 
+# the tracer's write paths and the position of the stage argument
+_RECORD_ATTRS = {"record": 1, "span": 0}
+
 
 def _is_tracer_receiver(recv: str | None) -> bool:
     """Does the receiver chain end in a Tracer? (`runtime.tracer`,
@@ -88,7 +92,7 @@ def check_trace_parity(module: Module, project: Project) -> Iterable[Finding]:
                                                          ast.Attribute):
                 if node.func.attr in _EMIT_ATTRS and emits is None:
                     emits = node
-                if node.func.attr == "record" \
+                if node.func.attr in _RECORD_ATTRS \
                         and _is_tracer_receiver(_receiver_last(node.func)):
                     records = True
         if emits is not None and not records:
@@ -140,18 +144,19 @@ def check_trace_stages(module: Module, project: Project) -> Iterable[Finding]:
     for node in ast.walk(module.tree):
         if not isinstance(node, ast.Call) \
                 or not isinstance(node.func, ast.Attribute) \
-                or node.func.attr != "record" or len(node.args) < 2:
+                or node.func.attr not in _RECORD_ATTRS \
+                or len(node.args) <= _RECORD_ATTRS[node.func.attr]:
             continue
         if not _is_tracer_receiver(_receiver_last(node.func)):
             continue
-        arg = node.args[1]
+        arg = node.args[_RECORD_ATTRS[node.func.attr]]
         qual = module.qualname_at(node.lineno)
         if not (isinstance(arg, ast.Constant) and isinstance(arg.value, str)):
             yield Finding(
                 path=module.relpath, line=node.lineno, code="TRC01",
-                message="trace stage passed to `tracer.record()` must be "
-                        "a bare string literal (the registry can only "
-                        "vouch for literals)",
+                message=f"trace stage passed to `tracer.{node.func.attr}()` "
+                        f"must be a bare string literal (the registry can "
+                        f"only vouch for literals)",
                 hint="pass the stage name inline and register it in "
                      "analysis/registry.py TRACE_STAGES",
                 qualname=qual)

@@ -19,8 +19,10 @@ suffix) under its kind below. A name may have exactly ONE kind — the
 import-time check at the bottom fails the build on a conflict.
 Adding a trace stage: add `(name, kind)` to `TRACE_STAGES` in pipeline
 order (kind: "queue" = time spent waiting, "service" = time spent
-working — the critical-path analyzer's split), then record it via
-`tracer.record(trace_id, name, ...)`; TRC01 resolves the literal here.
+working — the critical-path analyzer's split; "host" = host work that
+belongs to no trace), then record it via `with tracer.span(name, ...)`
+(or `tracer.record(trace_id, name, ...)` for a back-dated start); TRC01
+resolves the literal here.
 """
 
 from __future__ import annotations
@@ -81,11 +83,24 @@ TRACE_STAGES: tuple[tuple[str, str], ...] = (
     # publish onto the instance telemetry topic — its own trace family,
     # so the recorder's overhead is itself visible in the span rings
     ("fleet.telemetry", "service"),          # beat snapshot → telemetry topic
+    # host stages: work of the process that belongs to no trace (one a
+    # dispatch, one a collection). Recorded on every occurrence into
+    # their own bounded rings, and a profiler range each while
+    # torch.profiler runs; the critical-path split leaves them out.
+    ("scoring.pool_take", "host"),           # pool: take every due tenant
+    ("scoring.take_pending", "host"),        # session: take the admissions
+    ("scoring.dispatch", "host"),            # pack + launch, no device wait
+    ("scoring.update_and_score", "host"),    # session: one round's launch
+    ("scoring.settle", "host"),              # results on host → delivered
+    ("runtime.gc.full", "host"),             # a generation-2 collection
+    ("runtime.gc.young", "host"),            # gen 0/1: a profiler range only
 )
 
 TRACE_STAGE_KINDS: dict[str, str] = dict(TRACE_STAGES)
 if len(TRACE_STAGE_KINDS) != len(TRACE_STAGES):
     raise ValueError("duplicate trace stage in TRACE_STAGES")
+HOST_STAGES = frozenset(name for name, kind in TRACE_STAGES
+                        if kind == "host")
 
 
 def trace_stage_kind(name: str) -> str | None:
@@ -182,6 +197,9 @@ COUNTERS = (
     # streamed from those blocks through the megabatch scoring path
     "history.compactions",
     "history.replay_events",
+    # the process's garbage collections (kernel/tracing.py watch_gc):
+    # per generation, `:gen0` / `:gen1` / `:gen2`
+    "runtime.gc_collections",
 )
 
 GAUGES = (
@@ -256,6 +274,8 @@ HISTOGRAMS = (
     "observe.loop_lag_s",
     # fleet: placement-seen → engines-adopted per tenant move
     "fleet.handoff_s",
+    # the loop's pause in each garbage collection, every generation
+    "runtime.gc_pause_s",
 )
 
 # f-string metric names whose suffix is computed at runtime

@@ -362,20 +362,20 @@ class EgressStage:
             # produce re-raises it into the dead_letter hook, which
             # reports the ownership loss instead of quarantining
             try:
-                self._produce_nowait(self.scored_topic, scored, key=key,
-                                     fence=self.engine.fence_token())
+                # the trace spine's egress terminus: the sampled trace
+                # of a scored event ends at this publish (sync fast
+                # path — the span IS the bare append; a failed append
+                # records none, the shard path's span stands for it)
+                with self.tracer.span(
+                        "egress.publish", self.engine.tenant_id,
+                        getattr(scored.ctx, "trace_id", 0), len(scored)):
+                    self._produce_nowait(self.scored_topic, scored,
+                                         key=key,
+                                         fence=self.engine.fence_token())
             except Exception:  # noqa: BLE001 - shard path quarantines
                 pass  # fall through: the shard publishes (or DLQs) it
             else:
-                now = time.monotonic()
-                self.stage_sink.observe(now - t_submit)
-                # the trace spine's egress terminus: the sampled trace
-                # of a scored event ends at this publish (sync fast
-                # path — the span IS the bare append)
-                self.tracer.record(
-                    getattr(scored.ctx, "trace_id", 0), "egress.publish",
-                    self.engine.tenant_id, t_submit, now - t_submit,
-                    len(scored))
+                self.stage_sink.observe(time.monotonic() - t_submit)
                 self.published_meter.mark(len(scored))
                 self.accounted += 1
                 if (self.engine.emit_alerts

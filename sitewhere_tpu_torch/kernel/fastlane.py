@@ -402,6 +402,8 @@ class FastLane(BackgroundTaskComponent):
             # acheck, not check: a delay-mode fault must suspend this
             # coroutine, not the event loop
             await runtime.faults.acheck("fastlane.handle")
+        # back-dated, not `tracer.span`: the block awaits, and a profiler
+        # range open across an await would time other coroutines' work
         t_span = time.monotonic()
         if isinstance(batch, (MeasurementBatch, LocationBatch)):
             batch = await validate_and_split(

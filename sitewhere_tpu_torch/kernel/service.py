@@ -371,6 +371,7 @@ class ServiceRuntime(LifecycleComponent):
         self.metrics = MetricsRegistry()
         from sitewhere_tpu_torch.kernel.tracing import Tracer
         self.tracer = Tracer(sample=settings.trace_sample)
+        self._gc_watch = None   # kernel/tracing.py watch_gc while started
         # `bus` may be a RemoteEventBus (kernel/wire.py): this process
         # then shares one broker's topics with peer processes — the
         # process-split deployment the reference runs as 14 JVMs
@@ -654,7 +655,18 @@ class ServiceRuntime(LifecycleComponent):
         if eb is not None:
             await eb.initialize()
 
+    async def _do_start(self, monitor: LifecycleProgressMonitor) -> None:
+        # every garbage collection of the process: `runtime.gc.full`
+        # spans, `runtime.gc_collections:gen*`, `runtime.gc_pause_s`
+        from sitewhere_tpu_torch.kernel.tracing import watch_gc
+        if self._gc_watch is None:
+            self._gc_watch = watch_gc(self.tracer, self.metrics)
+
     async def _do_stop(self, monitor: LifecycleProgressMonitor) -> None:
+        from sitewhere_tpu_torch.kernel.tracing import unwatch_gc
+        if self._gc_watch is not None:
+            unwatch_gc(self._gc_watch)
+            self._gc_watch = None
         eb = getattr(self, "_external_bus", None)
         if eb is not None:
             await eb.stop()

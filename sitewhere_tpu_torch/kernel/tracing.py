@@ -30,26 +30,97 @@ span per batch per stage, so only every `sample`-th trace id records
 (trace ids are dense counters, so modulo sampling is uniform). Spans
 ring per STAGE (one chatty stage — a busy egress shard, a flapping DLQ
 — can no longer evict every other stage's spans from a shared ring).
-The model plane's profiler story is `torch.profiler`
-(`python -m sitewhere_tpu_torch.tools.flush_profile`).
+
+Host stages (kind "host" in TRACE_STAGES) are the process's own work
+between the pipeline's hops — the scoring pool's take, dispatch and
+settle, garbage collections — which belongs to no trace: they record
+on every occurrence, into rings of their own, whatever the sampling.
+
+`Tracer.span(stage, ...)` is the write path for work timed as it runs:
+a context manager that stamps the ring's span with `time.monotonic()`
+and, while `torch.profiler` runs, opens a profiler range of the same
+name, so the span lands on the device trace's clock with no offset
+arithmetic (`python -m sitewhere_tpu_torch.tools.flush_profile` and the
+benchmark's traced runs read those ranges). With no profiler it costs
+one flag check, two clock reads and a ring append. `record()` stays for
+spans whose start is back-dated (queue waits). `watch_gc` times every
+collection of the process into a runtime's tracer and metrics.
 
 `Tracer.spans()` / `Tracer.trace(trace_id)` are the query surface (REST
-exposes them, with tenant filtering and pagination); `record()` is the
-single write path (kept lean: the hot pipeline calls it per batch per
-stage).
+exposes them, with tenant filtering and pagination).
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
+import sys
+import threading
+import time
+import weakref
 import zlib
 from collections import deque
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
-from sitewhere_tpu_torch.analysis.registry import TRACE_STAGES  # noqa: F401
+import numpy as np
+
+from sitewhere_tpu_torch.analysis.registry import (  # noqa: F401
+    HOST_STAGES,
+    TRACE_STAGES,
+)
 from sitewhere_tpu_torch.kernel.metrics import Histogram
 
+
+def profiler_range(name: str):
+    """A `torch.profiler` range named `name`, opened, while a profiler
+    runs; None otherwise (torch not loaded cannot be profiling). Close
+    it with `close_range`. It is torch's C++ range (`_RecordFunctionFast`,
+    a plain CPU range with no device-side copy): Python's
+    `record_function` adds tens of µs inside the range at each end, more
+    than the shortest host spans last."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch._C._profiler._RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+def close_range(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+class _Span:
+    """One `Tracer.span` block. `n_events` and `trace_id` may be set
+    inside the block, where they are known only there. A block left by
+    an exception closes its profiler range and records no span."""
+
+    __slots__ = ("_tracer", "stage", "tenant_id", "trace_id", "n_events",
+                 "t_start", "_range")
+
+    def __init__(self, tracer: "Tracer", stage: str, tenant_id: str,
+                 trace_id: int, n_events: int):
+        self._tracer = tracer
+        self.stage = stage
+        self.tenant_id = tenant_id
+        self.trace_id = trace_id
+        self.n_events = n_events
+
+    def __enter__(self) -> "_Span":
+        self._range = profiler_range(self.stage)
+        self.t_start = time.monotonic()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        duration = time.monotonic() - self.t_start
+        close_range(self._range)
+        if exc_type is None:
+            # the stage literal is resolved at the `span(...)` call site
+            self._tracer.record(self.trace_id, self.stage, self.tenant_id,  # swxlint: disable=TRC01
+                                self.t_start, duration, self.n_events)
+        return False
 
 
 @dataclass(frozen=True, slots=True)
@@ -111,9 +182,16 @@ class Tracer:
     def sampled(self, trace_id: int) -> bool:
         return trace_id > 0 and trace_id % self.sample == 0
 
+    def span(self, stage: str, tenant_id: str = "", trace_id: int = 0,
+             n_events: int = 0) -> _Span:
+        """`with tracer.span(stage, ...):` times the block into the
+        stage's ring (host stages always, per-trace stages when the
+        trace is sampled) and, under `torch.profiler`, as a range."""
+        return _Span(self, stage, tenant_id, trace_id, n_events)
+
     def record(self, trace_id: int, stage: str, tenant_id: str,
                t_start: float, duration_s: float, n_events: int = 0) -> None:
-        if not self.sampled(trace_id):
+        if not self.sampled(trace_id) and stage not in HOST_STAGES:
             return
         ring = self._rings.get(stage)
         if ring is None:
@@ -171,24 +249,26 @@ class Tracer:
 
     def stage_summary(self, tenant: Optional[str] = None) -> dict[str, dict]:
         """Per-stage p50/p95/p99 duration + event counts over the
-        sampled spans (ops dashboard; quantiles via the same
-        `Histogram.quantile` the metrics registry uses — the old
-        mean/max pair hid exactly the tail this exists to show)."""
+        recorded spans (ops dashboard). The quantiles come from the
+        ring's raw durations (linear interpolation), not from a
+        histogram's fixed buckets, whose edges a tail would snap to."""
         out: dict[str, dict] = {}
         for stage in sorted(self._rings):
             spans = [s for s in self._rings[stage]
                      if tenant is None or s.tenant_id == tenant]
             if not spans:
                 continue
-            hist, count, events, total = self._stage_hist(spans)
+            durations = np.fromiter((s.duration_s for s in spans),
+                                    np.float64, len(spans))
+            p50, p95, p99 = np.quantile(durations, (0.50, 0.95, 0.99))
             out[stage] = {
-                "count": count,
-                "p50_ms": round(hist.quantile(0.50) * 1e3, 3),
-                "p95_ms": round(hist.quantile(0.95) * 1e3, 3),
-                "p99_ms": round(hist.quantile(0.99) * 1e3, 3),
-                "mean_ms": round(total / count * 1e3, 3),
-                "max_ms": round(hist._max * 1e3, 3),
-                "events": events,
+                "count": len(spans),
+                "p50_ms": round(float(p50) * 1e3, 3),
+                "p95_ms": round(float(p95) * 1e3, 3),
+                "p99_ms": round(float(p99) * 1e3, 3),
+                "mean_ms": round(float(durations.mean()) * 1e3, 3),
+                "max_ms": round(float(durations.max()) * 1e3, 3),
+                "events": sum(s.n_events for s in spans),
             }
         return out
 
@@ -224,7 +304,8 @@ class Tracer:
 
         Unregistered stages (tests, future drift) still report, with
         kind "unknown"; TRC01 is the gate that keeps the live tree's
-        stages registered."""
+        stages registered. Host stages belong to no trace and are left
+        out (`stage_summary` lists them)."""
         kinds = dict(TRACE_STAGES)
         order = {name: i for i, (name, _) in enumerate(TRACE_STAGES)}
         summary = self.stage_summary(tenant=tenant)
@@ -232,6 +313,8 @@ class Tracer:
         queue_p99 = service_p99 = 0.0
         span_count = 0
         for stage in sorted(summary, key=lambda s: order.get(s, 1000)):
+            if stage in HOST_STAGES:
+                continue
             kind = kinds.get(stage, "unknown")
             row = {**summary[stage], "kind": kind}
             stages[stage] = row
@@ -249,6 +332,111 @@ class Tracer:
         }
 
 
+class NullTracer(Tracer):
+    """A tracer that keeps nothing, for components built without a
+    runtime (tests, tools), so their call sites need no branch. Its
+    spans are still profiler ranges while `torch.profiler` runs."""
+
+    def record(self, trace_id: int, stage: str, tenant_id: str,
+               t_start: float, duration_s: float, n_events: int = 0) -> None:
+        return None
+
+
+NULL_TRACER = NullTracer()
+
+
+# -- garbage collections -----------------------------------------------------
+# `gc.callbacks` is process-wide: one hook (`_on_gc`) is installed while
+# any runtime watches and fans each collection out to every watcher. A
+# watcher holds its tracer weakly: a runtime dropped without a stop
+# leaves a dead watcher, which the hook skips and the next `watch_gc` or
+# `unwatch_gc` removes, so no forgotten runtime taxes later collections.
+
+GC_PAUSE_BUCKETS = [1e-5 * 2 ** i for i in range(18)]   # 10 µs … 1.31 s
+
+
+class GcWatch:
+    """One runtime's share of the hook: its tracer (weakly) and its
+    metrics."""
+
+    __slots__ = ("tracer", "collections", "pause")
+
+    def __init__(self, tracer: Tracer, metrics):
+        self.tracer = weakref.ref(tracer)
+        self.collections = [metrics.counter(f"runtime.gc_collections:{gen}")
+                            for gen in ("gen0", "gen1", "gen2")]
+        self.pause = metrics.histogram("runtime.gc_pause_s",
+                                       buckets=GC_PAUSE_BUCKETS)
+
+
+class _GcClock:
+    __slots__ = ("t_start", "range")
+
+    def __init__(self):
+        self.t_start: Optional[float] = None
+        self.range = None
+
+
+# one collection runs at a time, so the hook's clock needs no lock; the
+# watchers are replaced whole under `_gc_lock` and read lock-free
+_gc_watches: tuple[GcWatch, ...] = ()
+_gc_clock = _GcClock()
+_gc_lock = threading.Lock()
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """Every collection, in whatever thread ran it: a profiler range
+    (`runtime.gc.full` for generation 2, `runtime.gc.young` else), and
+    in each watching runtime its counter and pause; generation 2 also a
+    host span whose `n_events` is the objects collected."""
+    full = info["generation"] == 2
+    if phase == "start":
+        _gc_clock.range = profiler_range(
+            "runtime.gc.full" if full else "runtime.gc.young")
+        _gc_clock.t_start = time.monotonic()
+        return
+    t_start = _gc_clock.t_start
+    if t_start is None:   # the hook came in mid-collection
+        return
+    pause = time.monotonic() - t_start
+    close_range(_gc_clock.range)
+    _gc_clock.t_start = _gc_clock.range = None
+    for watch in _gc_watches:
+        tracer = watch.tracer()
+        if tracer is None:   # its runtime is gone
+            continue
+        watch.collections[info["generation"]].inc()
+        watch.pause.observe(pause)
+        if full:
+            tracer.record(0, "runtime.gc.full", "", t_start, pause,
+                          info["collected"])
+
+
+def watch_gc(tracer: Tracer, metrics) -> GcWatch:
+    """Time every garbage collection of the process into `tracer` and
+    `metrics` until `unwatch_gc`; installs the hook on the first."""
+    global _gc_watches
+    watch = GcWatch(tracer, metrics)
+    with _gc_lock:
+        _gc_watches = (*_live_watches(), watch)
+        if _on_gc not in gc.callbacks:
+            gc.callbacks.append(_on_gc)
+    return watch
+
+
+def unwatch_gc(watch: GcWatch) -> None:
+    """Stop `watch`; the last one out removes the hook."""
+    global _gc_watches
+    with _gc_lock:
+        _gc_watches = tuple(w for w in _live_watches() if w is not watch)
+        if not _gc_watches and _on_gc in gc.callbacks:
+            gc.callbacks.remove(_on_gc)
+
+
+def _live_watches() -> tuple[GcWatch, ...]:
+    return tuple(w for w in _gc_watches if w.tracer() is not None)
+
+
 def merge_stage_exports(exports: Iterable[dict]) -> dict:
     """Fold per-process `stage_export` dicts into ONE fleet critical
     path: bucket counts merge additively per stage, quantiles are read
@@ -259,6 +447,8 @@ def merge_stage_exports(exports: Iterable[dict]) -> dict:
     merged: dict[str, dict] = {}
     for export in exports:
         for stage, row in (export or {}).items():
+            if stage in HOST_STAGES:
+                continue  # no trace's: out of the critical path
             agg = merged.get(stage)
             if agg is None:
                 agg = merged[stage] = {

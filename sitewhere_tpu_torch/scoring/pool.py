@@ -46,6 +46,7 @@ import numpy as np
 from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, ScoredBatch
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
+from sitewhere_tpu_torch.kernel.tracing import NULL_TRACER
 from sitewhere_tpu_torch.parallel.tenant_stack import TenantStack
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import StackedDeviceRing
@@ -60,7 +61,6 @@ from sitewhere_tpu_torch.scoring.stream import (
 )
 from sitewhere_tpu_torch.utils import resolve_device
 from sitewhere_tpu_torch.utils.retry import retry_backoff
-from sitewhere_tpu_torch.utils.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -238,7 +238,7 @@ class SharedScoringPool:
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
-        self.tracer = tracer
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         # chaos seam ("scoring.megabatch"): consulted at admission — the
         # one pool surface reached from inside a consumer loop's
         # per-record quarantine, so an injected fault dead-letters the
@@ -772,7 +772,7 @@ class SharedScoringPool:
         self._note_rebuilds()
         takes: dict[str, tuple] = {}
         max_t = self.cfg.max_tenants
-        with span("scoring.pool_take"):
+        with self.tracer.span("scoring.pool_take"):
             for tid, e in self.tenants.items():
                 if e.pending_n == 0:
                     continue
@@ -825,7 +825,8 @@ class SharedScoringPool:
         t0 = time.monotonic()
         dispatches = []
         try:
-            with span("scoring.dispatch"):
+            with self.tracer.span("scoring.dispatch",
+                                  n_events=sum(m[2] for m in metas)):
                 for parts in round_parts:
                     b = self._bucket_for(max(p[1].shape[0] for p in parts))
                     dev_in = np.full((t_cap, b), d_cap, np.int32)  # scratch pad
@@ -846,16 +847,13 @@ class SharedScoringPool:
         self.megabatch_dispatches.inc(len(dispatches))
         self.megabatch_tenants.observe(float(len(metas)))
         self._tune_window(len(metas))
-        if self.tracer is not None:
-            # every packed tenant's traces get a queue-wait span (its own
-            # admit time → this stacked dispatch); the settle records the
-            # shared device half per tenant
-            for tid, _slot, _n, _dev, _ts, _ing, traces, *_ in metas:
-                for trace_id, n_ev, t_admit in traces:
-                    self.tracer.record(trace_id,
-                                       "rule-processing.dispatch", tid,
-                                       t_admit, max(t0 - t_admit, 0.0),
-                                       n_ev)
+        # every packed tenant's traces get a queue-wait span (its own
+        # admit time → this stacked dispatch); the settle records the
+        # shared device half per tenant
+        for tid, _slot, _n, _dev, _ts, _ing, traces, *_ in metas:
+            for trace_id, n_ev, t_admit in traces:
+                self.tracer.record(trace_id, "rule-processing.dispatch", tid,
+                                   t_admit, max(t0 - t_admit, 0.0), n_ev)
         self.inflight += 1
         seq = self.dispatch_count
         self.dispatch_count += 1
@@ -891,50 +889,12 @@ class SharedScoringPool:
                     logger.exception("pool settle failed")
                     return
                 raise
-            now = time.monotonic()
-            self.batch_latency.observe(now - t0)
-            self.stage_device.observe(now - t0)
-            self._note_device_throughput(sum(m[2] for m in metas), now - t0)
-            sparse = bool(settled) and isinstance(settled[0], tuple)
-            deliveries: list[tuple[str, Deliver, ScoredBatch]] = []
-            for (tid, slot, n, dev, ts, ing, traces, ev_rounds, ctx,
-                 version) in metas:
-                e = self.tenants.get(tid)
-                if e is None:  # unregistered mid-flight
-                    continue
-                self.scored_meter.mark(n)
-                self.latency.observe_array(now - ing)
-                if sparse:
-                    # per-tenant anomalous subset: this tenant's row of
-                    # each round, remapped back to its take positions
-                    fpos, a_scores = sparse_rows(
-                        ((tuple(a[slot] for a in settled[r]), k, rpos)
-                         for r, rpos, k in ev_rounds), self.anomaly_overflow)
-                    self.anomalies.inc(int(fpos.shape[0]))
-                    scored = ScoredBatch(
-                        ctx, dev[fpos], a_scores,
-                        np.ones(fpos.shape[0], bool), ts[fpos],
-                        # the version snapshotted at DISPATCH, not the
-                        # live one
-                        model_version=version, total_scored=n)
-                else:
-                    scores = np.empty(n, np.float32)
-                    for r, rpos, k in ev_rounds:
-                        if rpos is None:
-                            scores[:k] = settled[r][slot, :k]
-                        else:
-                            scores[rpos] = settled[r][slot, :k]
-                    is_anom = scores >= e.threshold
-                    n_anom = int(is_anom.sum())
-                    if n_anom:
-                        self.anomalies.inc(n_anom)
-                    scored = ScoredBatch(ctx, dev, scores, is_anom, ts,
-                                         model_version=version)
-                if self.tracer is not None:
-                    for trace_id, n_ev, *_ in traces:
-                        self.tracer.record(trace_id, "rule-processing.score",
-                                           tid, t0, now - t0, n_ev)
-                deliveries.append((tid, e.deliver, scored))
+            # the loop's own work of the settle; the fan-out below hands
+            # each delivery to a task of its own and resumes only after
+            # the loop has run whatever else was ready, so it stays out
+            with self.tracer.span("scoring.settle",
+                                  n_events=sum(m[2] for m in metas)):
+                deliveries = self._scored_deliveries(settled, metas, t0)
             # fan-out through the one delivery contract (deliver_scored):
             # every tenant of the megabatch delivers concurrently, failures
             # counted and isolated per tenant
@@ -952,6 +912,55 @@ class SharedScoringPool:
                 e = self.tenants.get(tid)
                 if e is not None:
                     e.inflight = max(0, e.inflight - 1)
+
+    def _scored_deliveries(self, settled, metas, t0: float) -> list:
+        """The loop's half of a settle: the scores of each tenant of the
+        megabatch assembled and counted, as `(tenant, deliver,
+        ScoredBatch)` for the fan-out."""
+        now = time.monotonic()
+        self.batch_latency.observe(now - t0)
+        self.stage_device.observe(now - t0)
+        self._note_device_throughput(sum(m[2] for m in metas), now - t0)
+        sparse = bool(settled) and isinstance(settled[0], tuple)
+        deliveries: list[tuple[str, Deliver, ScoredBatch]] = []
+        for (tid, slot, n, dev, ts, ing, traces, ev_rounds, ctx,
+             version) in metas:
+            e = self.tenants.get(tid)
+            if e is None:  # unregistered mid-flight
+                continue
+            self.scored_meter.mark(n)
+            self.latency.observe_array(now - ing)
+            if sparse:
+                # per-tenant anomalous subset: this tenant's row of
+                # each round, remapped back to its take positions
+                fpos, a_scores = sparse_rows(
+                    ((tuple(a[slot] for a in settled[r]), k, rpos)
+                     for r, rpos, k in ev_rounds), self.anomaly_overflow)
+                self.anomalies.inc(int(fpos.shape[0]))
+                scored = ScoredBatch(
+                    ctx, dev[fpos], a_scores,
+                    np.ones(fpos.shape[0], bool), ts[fpos],
+                    # the version snapshotted at DISPATCH, not the
+                    # live one
+                    model_version=version, total_scored=n)
+            else:
+                scores = np.empty(n, np.float32)
+                for r, rpos, k in ev_rounds:
+                    if rpos is None:
+                        scores[:k] = settled[r][slot, :k]
+                    else:
+                        scores[rpos] = settled[r][slot, :k]
+                is_anom = scores >= e.threshold
+                n_anom = int(is_anom.sum())
+                if n_anom:
+                    self.anomalies.inc(n_anom)
+                scored = ScoredBatch(ctx, dev, scores, is_anom, ts,
+                                     model_version=version)
+            for trace_id, n_ev, *_ in traces:
+                self.tracer.record(trace_id, "rule-processing.score", tid,
+                                   t0, now - t0, n_ev)
+            deliveries.append((tid, e.deliver, scored))
+        return deliveries
 
     def _recover_ring(self, restart_warmup: bool = True) -> None:
         # a dispatch that failed mid-update leaves the ring inconsistent —

@@ -36,6 +36,7 @@ from torch.utils._pytree import tree_map
 from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, ScoredBatch
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
+from sitewhere_tpu_torch.kernel.tracing import NULL_TRACER
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import DeviceRing
 from sitewhere_tpu_torch.scoring.settle import SETTLE_POOL
@@ -48,7 +49,6 @@ from sitewhere_tpu_torch.scoring.stream import (
 )
 from sitewhere_tpu_torch.utils import resolve_device
 from sitewhere_tpu_torch.utils.retry import retry_backoff
-from sitewhere_tpu_torch.utils.timing import span as _span
 
 logger = logging.getLogger(__name__)
 
@@ -107,7 +107,7 @@ class ScoringSession:
         self.telemetry = telemetry
         self.cfg = cfg
         self.sink = sink
-        self.tracer = tracer
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         # chaos seam ("scoring.dispatch"): consulted before a flush takes
         # its pending admissions, so an injected crash loses nothing
         self.faults = faults
@@ -421,7 +421,8 @@ class ScoringSession:
         dispatches = []
         for rdev, rval, rpos in rounds:
             bucket = self._bucket_for(rdev.shape[0])
-            with _span("scoring.update_and_score"):
+            with self.tracer.span("scoring.update_and_score",
+                                  n_events=rdev.shape[0]):
                 scores_dev = self.ring.update_and_score(
                     self.model, self.params, rdev, rval, bucket)
             # start the device→host copy NOW (non-blocking): the settle
@@ -454,40 +455,47 @@ class ScoringSession:
                     logger.exception("scoring settle failed")
                     return
                 raise
-            now = time.monotonic()
-            self.stage_device.observe(now - t0)
-            self.scored_meter.mark(dev.shape[0])
-            self.latency.observe_array(now - ingest)
-            self.batch_latency.observe(now - t0)
-            if settled and isinstance(settled[0], tuple):
-                # sparse anomaly readback: the anomalous subset only; every
-                # event was still scored on the device (`total_scored`)
-                fpos, a_scores = sparse_rows(
-                    ((s, n, rpos) for s, (_, n, rpos)
-                     in zip(settled, dispatches)), self.anomaly_overflow)
-                self.anomalies.inc(int(fpos.shape[0]))
-                scored = ScoredBatch(ctx, dev[fpos], a_scores,
-                                     np.ones(fpos.shape[0], bool), ts[fpos],
-                                     model_version=self.version,
-                                     total_scored=int(dev.shape[0]))
-            else:
-                scores = np.empty(dev.shape[0], np.float32)
-                for scores_u, (_, n, rpos) in zip(settled, dispatches):
-                    if rpos is None:
-                        scores[:n] = scores_u[:n]
-                    else:
-                        scores[rpos] = scores_u[:n]
-                is_anom = scores >= self.cfg.threshold
-                n_anom = int(is_anom.sum())
-                if n_anom:
-                    self.anomalies.inc(n_anom)
-                scored = ScoredBatch(ctx, dev, scores, is_anom, ts,
-                                     model_version=self.version)
-            if self.tracer is not None:
+            with self.tracer.span("scoring.settle",
+                                  n_events=int(dev.shape[0])):
+                now = time.monotonic()
+                self.stage_device.observe(now - t0)
+                self.scored_meter.mark(dev.shape[0])
+                self.latency.observe_array(now - ingest)
+                self.batch_latency.observe(now - t0)
+                if settled and isinstance(settled[0], tuple):
+                    # sparse anomaly readback: the anomalous subset
+                    # only; every event was still scored on the device
+                    # (`total_scored`)
+                    fpos, a_scores = sparse_rows(
+                        ((s, n, rpos) for s, (_, n, rpos)
+                         in zip(settled, dispatches)),
+                        self.anomaly_overflow)
+                    self.anomalies.inc(int(fpos.shape[0]))
+                    scored = ScoredBatch(ctx, dev[fpos], a_scores,
+                                         np.ones(fpos.shape[0], bool),
+                                         ts[fpos],
+                                         model_version=self.version,
+                                         total_scored=int(dev.shape[0]))
+                else:
+                    scores = np.empty(dev.shape[0], np.float32)
+                    for scores_u, (_, n, rpos) in zip(settled,
+                                                      dispatches):
+                        if rpos is None:
+                            scores[:n] = scores_u[:n]
+                        else:
+                            scores[rpos] = scores_u[:n]
+                    is_anom = scores >= self.cfg.threshold
+                    n_anom = int(is_anom.sum())
+                    if n_anom:
+                        self.anomalies.inc(n_anom)
+                    scored = ScoredBatch(ctx, dev, scores, is_anom, ts,
+                                         model_version=self.version)
                 for trace_id, n_ev, *_ in (traces or [(ctx.trace_id,
                                                        dev.shape[0])]):
                     self.tracer.record(trace_id, "rule-processing.score",
                                        ctx.tenant_id, t0, now - t0, n_ev)
+            # the delivery stays out of the settle's span, as the pool's
+            # does: it awaits, and the loop runs other work meanwhile
             if fut is not None and not fut.done():
                 fut.set_result(scored)
             if self.sink is not None:
@@ -507,18 +515,18 @@ class ScoringSession:
         arrival order across chunks. Returns (chunks dispatched, failed)."""
         loop = asyncio.get_running_loop()
         max_b = self.cfg.buckets[-1]
-        if self.tracer is not None and traces:
-            # queue wait (admission → dispatch) per admitted batch; the
-            # settle records "rule-processing.score" for the device half
-            for trace_id, n_ev, t_admit in traces:
-                self.tracer.record(trace_id, "rule-processing.dispatch",
-                                   ctx.tenant_id, t_admit,
-                                   max(t0 - t_admit, 0.0), n_ev)
+        # queue wait (admission → dispatch) per admitted batch; the
+        # settle records "rule-processing.score" for the device half
+        for trace_id, n_ev, t_admit in traces or ():
+            self.tracer.record(trace_id, "rule-processing.dispatch",
+                               ctx.tenant_id, t_admit,
+                               max(t0 - t_admit, 0.0), n_ev)
         n_chunks = 0
         for lo in range(0, dev.shape[0], max_b):
             hi = lo + max_b
             try:
-                with _span("scoring.dispatch"):
+                with self.tracer.span("scoring.dispatch",
+                                      n_events=min(hi, dev.shape[0]) - lo):
                     dispatches = self._dispatch(dev[lo:hi], val[lo:hi])
             except Exception:
                 logger.exception("scoring dispatch failed; reloading ring")
@@ -581,7 +589,7 @@ class ScoringSession:
         if self._pending_max >= self.ring.capacity:
             self._start_regrow()  # grow off the hot path
             return False
-        with _span("scoring.take_pending"):
+        with self.tracer.span("scoring.take_pending"):
             dev, val, ts, ingest, ctx, traces = self._take_pending()
         return self._dispatch_chunks(dev, val, ts, ingest, ctx,
                                      time.monotonic(),
@@ -596,7 +604,7 @@ class ScoringSession:
             return None
         if self.faults is not None:
             await self.faults.acheck("scoring.dispatch")
-        with _span("scoring.take_pending"):
+        with self.tracer.span("scoring.take_pending"):
             dev, val, ts, ingest, ctx, traces = self._take_pending()
         futs: list[asyncio.Future] = []
         _, failed = self._dispatch_chunks(dev, val, ts, ingest, ctx,

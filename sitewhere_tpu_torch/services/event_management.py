@@ -14,7 +14,6 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
-import time
 from typing import Sequence
 
 from sitewhere_tpu_torch.config import TenantConfig
@@ -248,37 +247,36 @@ class EventPersister(BackgroundTaskComponent):
 
     def _persist(self, record, spi, runtime, tenant_id, persisted) -> None:
         batch = record.value
-        t_span = time.monotonic()
-        if isinstance(batch, MeasurementBatch):
-            persisted.mark(spi.add_measurements(batch))
-        elif isinstance(batch, LocationBatch):
-            persisted.mark(spi.add_locations(batch))
-        elif isinstance(batch, AlertBatch):
-            persisted.mark(len(spi.add_alert_batch(batch)))
-        elif isinstance(batch, list):  # cold per-event objects
-            stored = 0
-            for ev in batch:
-                if isinstance(ev, DeviceAlert):
-                    spi.add_alerts([ev])
-                elif isinstance(ev, DeviceCommandResponse):
-                    spi.add_command_responses([ev])
-                elif isinstance(ev, DeviceStateChange):
-                    spi.add_state_changes([ev])
-                else:
-                    logger.warning("event-mgmt: unpersistable cold"
-                                   " event %r", type(ev))
-                    continue
-                stored += 1
-            persisted.mark(stored)
-        else:
-            logger.warning("event-mgmt: unknown record %r", type(batch))
-            raise _Skip()
         ctx = getattr(batch, "ctx", None)
-        if ctx is not None:
-            runtime.tracer.record(
-                ctx.trace_id, "event-management.persist",
-                tenant_id, t_span, time.monotonic() - t_span,
-                len(batch))
+        # a batch without a ctx (cold per-event objects) has no trace
+        with runtime.tracer.span("event-management.persist", tenant_id,
+                                 ctx.trace_id if ctx is not None else 0
+                                 ) as persist:
+            if isinstance(batch, MeasurementBatch):
+                persisted.mark(spi.add_measurements(batch))
+            elif isinstance(batch, LocationBatch):
+                persisted.mark(spi.add_locations(batch))
+            elif isinstance(batch, AlertBatch):
+                persisted.mark(len(spi.add_alert_batch(batch)))
+            elif isinstance(batch, list):  # cold per-event objects
+                stored = 0
+                for ev in batch:
+                    if isinstance(ev, DeviceAlert):
+                        spi.add_alerts([ev])
+                    elif isinstance(ev, DeviceCommandResponse):
+                        spi.add_command_responses([ev])
+                    elif isinstance(ev, DeviceStateChange):
+                        spi.add_state_changes([ev])
+                    else:
+                        logger.warning("event-mgmt: unpersistable cold"
+                                       " event %r", type(ev))
+                        continue
+                    stored += 1
+                persisted.mark(stored)
+            else:
+                logger.warning("event-mgmt: unknown record %r", type(batch))
+                raise _Skip()
+            persist.n_events = len(batch)
 
 
 class EventManagementService(Service):

@@ -766,25 +766,25 @@ class EventSourcesEngine(TenantEngine):
                            trace_id=tracer.new_trace_id())
         if ingest_monotonic is not None:
             ctx.ingest_monotonic = ingest_monotonic
-        t0 = time.monotonic()
         try:
-            batches = decoder.decode(payload, ctx)
+            with tracer.span("event-sources.decode", self.tenant_id,
+                             ctx.trace_id) as decode:
+                batches = decoder.decode(payload, ctx)
+                decode.n_events = n_decoded = sum(len(b) for b in batches)
         except Exception as exc:  # noqa: BLE001 - failed decode is data, not a crash
             self._decode_failures.inc()
             await self.runtime.bus.produce(
                 self._failed_topic, {"payload": payload, "error": repr(exc),
                                      "source": source})
             return
-        n_decoded = sum(len(b) for b in batches)
         # the spine's first span: receiver arrival (ingest_monotonic,
         # stamped at the socket/queue edge) → decode start — pure queue
         # wait at the receiving edge, zero when the receiver decodes
         # inline
         tracer.record(ctx.trace_id, "event-sources.receive",
                       self.tenant_id, ctx.ingest_monotonic,
-                      max(t0 - ctx.ingest_monotonic, 0.0), n_decoded)
-        tracer.record(ctx.trace_id, "event-sources.decode", self.tenant_id,
-                      t0, time.monotonic() - t0, n_decoded)
+                      max(decode.t_start - ctx.ingest_monotonic, 0.0),
+                      n_decoded)
         for batch in batches:
             n = len(batch)
             if n:

@@ -171,6 +171,8 @@ class InboundProcessor(BackgroundTaskComponent):
                       mark=None) -> None:
         engine = self.engine
         batch = record.value
+        # back-dated, not `tracer.span`: the block awaits, and a profiler
+        # range open across an await would time other coroutines' work
         t_span = time.monotonic()
         if isinstance(batch, (MeasurementBatch, LocationBatch)):
             ctx = batch.ctx

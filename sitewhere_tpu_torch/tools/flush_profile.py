@@ -16,8 +16,9 @@ from the tenant's receiver to its last record on the scored topic;
 `replay`, the bench's replay workload (`tools/replay_bench.py`), a
 "flush" there being one `ReplayEngine` pass over the whole 500,000-event
 cold tier through its pool. It warms the path, then runs N full-fleet flushes under `torch.profiler`.
-Host spans come from the path's own profiler labels (the session's
-`scoring.take_pending`, `scoring.dispatch` and
+Host spans come from the path's own host spans, which its tracer
+(`Tracer.span`) opens as profiler ranges while the profiler runs (the
+session's `scoring.take_pending`, `scoring.dispatch` and
 `scoring.update_and_score` inside it; the pool's
 `scoring.pool_take` and `scoring.dispatch`) and a `flush` label put
 around each awaited flush here; device spans from the profiler's CUDA

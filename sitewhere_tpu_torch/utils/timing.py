@@ -1,26 +1,17 @@
-"""Device timing on the card with CUDA events, and profiler labels.
+"""Device timing on the card with CUDA events.
 
 `cuda_median_ms` times one call of `fn` between two events (the host's
 launch cost included when the device waits on it); `graph_ms` captures
 back-to-back calls in one CUDA graph and replays it, so the time is the
-device's alone. Both need a CUDA device. `span` labels a host step of a
-hot path for `torch.profiler` (tools/flush_profile.py reads the labels).
+device's alone. Both need a CUDA device. Host steps of a hot path are
+labelled by the runtime's tracer (`kernel/tracing.py` `Tracer.span`).
 """
 
 from __future__ import annotations
 
 import statistics
-from contextlib import nullcontext
 
 import torch
-from torch.profiler import record_function
-
-
-def span(name: str):
-    """A `torch.profiler` label for a host step of the hot path; only a
-    flag check when no profiler runs."""
-    return (record_function(name) if torch.autograd._profiler_enabled()
-            else nullcontext())
 
 
 def cuda_median_ms(fn, reps: int, warmup: int = 3) -> float:

@@ -49,6 +49,7 @@ from sitewhere_tpu.models.registry import build_model as jax_build
 from sitewhere_tpu.sim import simulator as jsim
 from sitewhere_tpu_torch import config as tconfig
 from sitewhere_tpu_torch import services as tservices
+from sitewhere_tpu_torch.analysis.registry import HOST_STAGES
 from sitewhere_tpu_torch.cli import ALL_SERVICES
 from sitewhere_tpu_torch.convert import params_from_numpy
 from sitewhere_tpu_torch.domain import model as tmodel
@@ -76,6 +77,9 @@ _JWT = re.compile(r"^[A-Za-z0-9_-]+\.[A-Za-z0-9_-]+\.[A-Za-z0-9_-]+$")
 CLOCK_KEYS = re.compile(r"(_date|_at|At|^iat|^exp|^uptime_s|^ts)$")
 TOKEN_KEYS = {"auth_token"}
 PORT_KEYS = {"port"}
+# the port's instrumentation beyond the reference's: the process's
+# garbage collections (`runtime.gc_*`, kernel/tracing.py watch_gc)
+PORT_ONLY_METRICS = re.compile(r"(^|_)runtime[._]gc_")
 
 
 def shape(doc):
@@ -157,10 +161,11 @@ class Client:
         return status, (json.loads(data) if data else None)
 
     async def req(self, label, method, path, body=None, *, mode="equal",
-                  **kw):
+                  drop=None, **kw):
         """Send, log `(label, status, body as compared)`, return the raw
         answer. `mode`: "equal" (normalized body), "shape", "bytes"
-        (content type and bytes), "prometheus" (metric names)."""
+        (content type and bytes), "prometheus" (metric names). `drop`:
+        a pattern of top-level keys (metric names) left out of the log."""
         if mode in ("bytes", "prometheus"):
             status, headers, data = await self.http(method, path, body,
                                                     raw=True, **kw)
@@ -168,6 +173,8 @@ class Client:
                 names = sorted({re.split(r"[{ ]", ln)[0]
                                 for ln in data.decode().splitlines()
                                 if ln and not ln.startswith("#")})
+                if drop is not None:
+                    names = [n for n in names if not drop.search(n)]
                 self.log.append((label, status, headers["content-type"],
                                  names))
             else:
@@ -175,6 +182,8 @@ class Client:
                                  data))
             return status, data
         status, doc = await self.http(method, path, body, **kw)
+        if drop is not None and isinstance(doc, dict):
+            doc = {k: v for k, v in doc.items() if not drop.search(k)}
         seen = shape(doc) if mode == "shape" else self._norm(doc)
         self.log.append((label, status, seen))
         return status, doc
@@ -759,13 +768,16 @@ async def seg_instance(c):
         await receiver.submit(sim.payload(t=60.0 * k)[0])
         await settle(c)
     await beats(c)
-    await c.req("metrics", "GET", "/api/instance/metrics", mode="shape")
+    await c.req("metrics", "GET", "/api/instance/metrics", mode="shape",
+                drop=PORT_ONLY_METRICS)
     await c.req("prometheus", "GET", "/api/instance/metrics/prometheus",
-                mode="prometheus")
+                mode="prometheus", drop=PORT_ONLY_METRICS)
     await c.req("topics", "GET", "/api/instance/topics")
     await c.req("observe", "GET", "/api/instance/observe", mode="shape")
     _, summary = await c.http("GET", "/api/instance/traces")
-    c.log.append(("trace stages", sorted(summary)))
+    # the port's host stages (its scoring dispatch and settle, its
+    # collections) belong to no trace; the reference has none
+    c.log.append(("trace stages", sorted(set(summary) - HOST_STAGES)))
     await c.req("trace spans", "GET",
                 "/api/instance/traces/spans?stage=inbound.enrich&limit=2",
                 mode="shape")
