@@ -21,6 +21,19 @@ prints no result):
                 are; `graph_ms` is the kernel's device time per launch
                 (a CUDA graph of back-to-back launches); `bound_ms` the
                 card's least time for the same work;
+  3b. stream-kernel — K2 (the streaming step, `ops/lstm_stream_kernel.py`)
+                against its plain chain on the card at every bucket, one
+                tenant (float16 scores, as served) and four stacked
+                (float32 scores; one row partly filled, one slot empty:
+                scratch padding), and one tenant at B=4096 with bfloat16
+                scores; 256 consecutive steps on the same rows so that
+                the recurrence's drift shows; max |Δscore| / max(1,
+                |plain's float32 score|) held to STREAM_KERNEL_TOL plus
+                the score type's rounding, |Δh|, |Δc| and |Δpred| to
+                STREAM_STATE_TOL, the Welford stats and the count equal,
+                one launch a step; `ms`, `graph_ms`, the plain chain's
+                ms, the wrapper's input checks alone (`check_ms`), the
+                host ms of a ring dispatch with each, and the byte bound;
   4. main     — SWB1 encode → decode → store → admit → flush for ~8
                 fleet ticks (one with injected anomalies, one flush
                 holding duplicate devices, two small flushes); every
@@ -306,10 +319,11 @@ untrained weights make narrow, so a bf16 ulp that lands differently on
 the CPU moves a few rows' score past any tolerance: its bf16 sample is
 held in aggregate (a floor on the share of rows within the tolerance, a
 ceiling on the p99 |err|: BF16_SHARE_FLOOR), and the same served paths
-in float32 hold every sampled row to the tolerance. No CUDA
-kernel of the port runs on these paths (their steps are plain PyTorch),
-so K1's launch count must stay 0 there, and in phases 18–19, 23 and 27. Each
-path prints one stats line.
+in float32 hold every sampled row to the tolerance. K1 runs on none of
+these paths, so its launch count must stay 0 there, and in phases 18–19,
+23 and 27; on `lstm-stream` every dispatch launches K2 once (the
+wrapper's `launches` == dispatches, and `scoring.stream_kernel_dispatches`
+follows it), on the other models never. Each path prints one stats line.
 The second-to-last line is the `{"kernels": [...]}` record; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -351,6 +365,30 @@ CUDA_CORE_MS = {256: 0.121, 1024: 0.291, 4096: 0.484, 16384: 1.486}
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 KERNEL_ATOL = 2e-3
+# K2 against its plain chain on the card, max |Δscore| / max(1, |plain|)
+# over 256 steps: the two differ only in the order of the h·wh sum (tensor
+# cores against a float32 GEMM) before its bf16 rounding and of the
+# head's sum, so a gate may round one bf16 ulp apart and the state drift
+# a little; held well under the benchmark's `score_gap` limit (0.012),
+# near the largest gap sound pool runs gave against the reference
+# (0.00345)
+STREAM_KERNEL_TOL = 4e-3
+# K2 writes its float32 score narrowed to the ring's score type, held to
+# the plain chain's float32 score: the narrowing adds up to half an ulp,
+# 2**-11 of max(1, |score|) in float16 and 2**-8 in bfloat16
+SCORE_ROUNDING = {"float32": 0.0, "float16": 2.0 ** -11,
+                  "bfloat16": 2.0 ** -8}
+# K2's state against the plain chain's after the same 256 steps, max |Δ|:
+# four times the largest gap measured over every bucket and T (2.79e-3,
+# 3.90e-3, 7.9e-4 on an NVIDIA H100 80GB HBM3 at 700 W), the order of the
+# sums being all that differs; the Welford stats and the count take no
+# product, so they must come out equal
+STREAM_STATE_TOL = {"h0": 1.2e-2, "c0": 1.6e-2, "pred": 3.2e-3}
+STREAM_EXACT = ("mean", "var", "count")
+STREAM_STEPS, STREAM_TENANTS = 256, (1, 4)
+# one tenant at one bucket with bfloat16 scores (the ring's other 16-bit
+# score type)
+STREAM_BF16 = (1, 4096)
 SCORE_ATOL, SCORE_RTOL = 1e-2, 1e-3
 # `longwin` divides its score by a predicted interval's width, which
 # untrained weights make narrow: where the card and the CPU round a
@@ -595,6 +633,158 @@ def phase_kernels(torch) -> list[dict]:
     return rows, widths
 
 
+def stream_bound_ms(tenants: int, batch: int, hidden: int,
+                    score_bytes: int) -> tuple[float, str]:
+    """K2's least time on the card: a column reads its id and value and
+    reads and writes h, c, pred, mean, var and count, and writes its
+    score; a tenant's weights are read once."""
+    cols = tenants * batch
+    flops = cols * (8.0 * hidden * (1 + hidden) + 2.0 * hidden)
+    weights = (4 * hidden + hidden * 4 * hidden + 4 * hidden + hidden + 1) * 4
+    nbytes = (cols * (2 * (2 * hidden * 4 + 16) + 8 + score_bytes)
+              + tenants * weights)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def stream_kernel_case(torch, model, tenants: int, batch: int,
+                       score_dtype: str) -> dict:
+    """K2 against the plain chain on copies of one stacked ring's state."""
+    from sitewhere_tpu_torch.ops import lstm_stream_kernel as k2
+    from sitewhere_tpu_torch.parallel import TenantStack
+    from sitewhere_tpu_torch.scoring.stream import (
+        StackedStreamingRing,
+        streaming_step_plain,
+    )
+    from sitewhere_tpu_torch.utils.timing import cuda_median_ms, graph_ms
+
+    rng = np.random.default_rng(SEED + 7 + batch + tenants)
+    stack = TenantStack(model, seed=SEED)
+    # stacked: one slot of the four left empty (all scratch padding)
+    filled = tenants - 1 if tenants > 1 else 1
+    for i in range(filled):
+        stack.add_tenant(f"t{i}", model.init(
+            torch.Generator().manual_seed(SEED + 11 * i)))
+    ring = StackedStreamingRing(model, stack.capacity, device_cap=2 * batch,
+                                score_dtype=score_dtype)
+    cap = ring.device_cap  # ids in [0, cap); cap is the scratch row
+    for tid, slot in stack.slots.items():
+        x = rng.normal(20.0, 2.0, (cap, WINDOW)).astype(np.float32)
+        count = rng.integers(0, WINDOW + 1, cap)  # some under the gate
+        ring.load_tenant(slot, x, count, stack.get_params(tid))
+    t = ring.t_cap
+    dev = np.full((t, batch), cap, np.int32)
+    for slot in stack.slots.values():
+        # the last filled row of a stack only half full
+        n = batch // 2 if tenants > 1 and slot == filled - 1 else batch
+        dev[slot, :n] = rng.choice(cap, n, replace=False)
+    real = torch.from_numpy(dev != cap).cuda()
+    dev_t = torch.from_numpy(dev).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + batch)
+    values = 20.0 + 2.0 * torch.randn((STREAM_STEPS, t, batch),
+                                      generator=gen, device="cuda")
+    spikes = torch.rand(values.shape, generator=gen, device="cuda") < 0.01
+    values = torch.where(spikes, values + 24.0, values)
+    # the plain chain in the ring's score type (timed) and in float32 (the
+    # yardstick of K2's scores)
+    plain = streaming_step_plain(model, ring.score_dtype, stacked=True)
+    plain32 = streaming_step_plain(model, None, stacked=True)
+    state_k = ring.state
+    state_p = {k: leaf.clone() for k, leaf in state_k.items()}
+    params = stack.stacked
+    cfg = model.cfg
+
+    def kernel(v):
+        return k2.lstm_stream_step(
+            params, state_k, dev_t, v, window=cfg.window,
+            min_count=model.min_history, score_clip=cfg.score_clip,
+            out_dtype=ring.score_dtype)
+
+    launches0 = k2.launches
+    errs = []
+    for step in range(STREAM_STEPS):
+        got = kernel(values[step]).float()
+        want = plain32(params, state_p, dev_t, values[step])
+        rel = (got - want).abs() / want.abs().clamp(min=1.0)
+        errs.append(torch.where(real, rel, torch.zeros_like(rel)).max())
+    torch.cuda.synchronize()
+    if k2.launches - launches0 != STREAM_STEPS:
+        raise AssertionError(f"stream kernel: {k2.launches - launches0} "
+                             f"launches for {STREAM_STEPS} steps")
+    err = float(torch.stack(errs).max())
+    tol = STREAM_KERNEL_TOL + SCORE_ROUNDING[score_dtype]
+    gaps = {k: float((state_k[k][:, :cap].float()
+                      - state_p[k][:, :cap].float()).abs().max())
+            for k in (*STREAM_STATE_TOL, *STREAM_EXACT)}
+    off = {k: g for k, g in gaps.items()
+           if not g <= STREAM_STATE_TOL.get(k, 0.0)}
+    if not err <= tol or off:
+        raise AssertionError(
+            f"stream kernel vs plain at T={t}, B={batch}, {score_dtype} "
+            f"scores: max |Δscore| / max(1, |plain|) {err} (tolerance "
+            f"{tol}), state gaps past {STREAM_STATE_TOL} (mean, var and "
+            f"count: 0) {off}")
+    v0 = values[0]
+    # the wrapper's checks of one call's inputs, alone (inside `ms`)
+    n_checks = 1000
+    t0 = time.perf_counter()
+    for _ in range(n_checks):
+        k2.check(params, state_k, dev_t, v0, ring.score_dtype)
+    check_ms = 1e3 * (time.perf_counter() - t0) / n_checks
+    ms = cuda_median_ms(lambda: kernel(v0), reps=50)
+    dev_ms = graph_ms(lambda: kernel(v0))
+    plain_ms = cuda_median_ms(lambda: plain(params, state_p, dev_t, v0),
+                              reps=10)
+    # the host side of one ring dispatch (pad check, uploads, the step),
+    # with K2 and with the plain chain in its place
+    vals = rng.normal(20.0, 2.0, dev.shape).astype(np.float32)
+
+    def host_ms(ring) -> float:
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ring.update_and_score(model, params, dev, vals)
+            times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    k_host = host_ms(ring)
+    ring._step = plain
+    p_host = host_ms(ring)
+    score_bytes = 2 if ring.score_dtype in (torch.float16,
+                                            torch.bfloat16) else 4
+    bound_ms, bound_by = stream_bound_ms(t, batch, HIDDEN, score_bytes)
+    ring.close()
+    return {"tenants": t, "batch": batch, "scores": score_dtype,
+            "max_score_err": err, "max_h_err": gaps["h0"],
+            "max_c_err": gaps["c0"], "max_pred_err": gaps["pred"],
+            "max_mean_err": gaps["mean"], "max_var_err": gaps["var"],
+            "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
+            "check_ms": check_ms, "host_ms": k_host, "plain_host_ms": p_host,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_stream_kernel(torch) -> list[dict]:
+    """K2 against its plain chain at every bucket, one tenant and four."""
+    from sitewhere_tpu_torch.models import build_model
+
+    model = build_model("lstm-stream", window=WINDOW, hidden=HIDDEN)
+    if not model.fused:
+        raise AssertionError("the main path's lstm-stream does not take K2")
+    cases = [(tenants, batch, "float16" if tenants == 1 else "float32")
+             for tenants in STREAM_TENANTS for batch in BUCKETS]
+    cases.append((*STREAM_BF16, "bfloat16"))
+    rows = []
+    for tenants, batch, scores in cases:
+        row = stream_kernel_case(torch, model, tenants, batch, scores)
+        log(f"lstm_stream_step T={row['tenants']} B={batch} {scores}: "
+            f"{json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
 def plain_scores(torch, model, params, x, valid):
     """`score_fused` with the kernel's plain version in place of the
     kernel, on the same ring windows."""
@@ -833,6 +1023,7 @@ async def phase_stream(torch) -> dict:
     """The dedicated session on the streaming model, then its sparse
     readback twin on the same anomaly tick."""
     from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.ops import lstm_stream_kernel as k2
     from sitewhere_tpu_torch.tools import main_path
 
     t_setup = time.perf_counter()
@@ -849,8 +1040,14 @@ async def phase_stream(torch) -> dict:
         f"{time.perf_counter() - t_setup:.3f} s")
     plan = session_plan(path)
     dispatches = path.metrics.counter("scoring.dispatches")
-    d0, expect = dispatches.value, 0
+    took = path.metrics.counter("scoring.stream_kernel_dispatches")
+    # the sparse twin's dispatches launch K2 too
+    sparse_dispatches = sparse.metrics.counter("scoring.dispatches")
+    sparse_took = sparse.metrics.counter("scoring.stream_kernel_dispatches")
+    d0, k0, expect = dispatches.value, took.value, 0
+    sd0, sk0 = sparse_dispatches.value, sparse_took.value
     lstm_kernel.launches = 0
+    k2.launches = 0
     flush_ms, host_ms, n_events, busy_s = [], [], 0, 0.0
     for label, ticks, anomalous in plan:
         t0 = time.perf_counter()
@@ -881,9 +1078,19 @@ async def phase_stream(torch) -> dict:
             await sparse.session.flush()
     launches = lstm_kernel.launches
     n_dispatch = int(dispatches.value - d0)
-    if n_dispatch != expect or launches:
+    n_k2 = int(took.value - k0)
+    n_sparse = int(sparse_dispatches.value - sd0)
+    n_sparse_k2 = int(sparse_took.value - sk0)
+    # every dispatch of either session one launch of K2, and the counter
+    # of each the dispatches that launched it
+    if (n_dispatch != expect or launches or n_k2 != n_dispatch
+            or n_sparse_k2 != n_sparse
+            or k2.launches != n_dispatch + n_sparse):
         raise AssertionError(f"stream: {n_dispatch} dispatches for {expect} "
-                             f"occurrence rounds, {launches} K1 launches")
+                             f"occurrence rounds, {launches} K1 launches, "
+                             f"{k2.launches} K2 launches for {n_dispatch} + "
+                             f"{n_sparse} (sparse) dispatches, counted "
+                             f"{n_k2} + {n_sparse_k2}")
     await path.session.drain()
     stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
                        launches)
@@ -936,6 +1143,7 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     from sitewhere_tpu_torch.convert import params_from_numpy, params_to_numpy
     from sitewhere_tpu_torch.models import build_model
     from sitewhere_tpu_torch.ops import lstm_kernel
+    from sitewhere_tpu_torch.ops import lstm_stream_kernel as k2
     from sitewhere_tpu_torch.tools import main_path
 
     t_setup = time.perf_counter()
@@ -964,10 +1172,12 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     log(f"{label}: set-up (store fills, warmup) "
         f"{time.perf_counter() - t_setup:.3f} s")
     dispatches = path.metrics.counter("scoring.dispatches")
+    took = path.metrics.counter("scoring.stream_kernel_dispatches")
     per_round = path.metrics.histogram("scoring.megabatch_tenants_per_dispatch")
-    d0, expect = dispatches.value, 0
+    d0, k0, expect = dispatches.value, took.value, 0
     r0 = (per_round.count, per_round.sum)
     lstm_kernel.launches = 0
+    k2.launches = 0
     flush_ms, host_ms, n_events, busy_s, shares = [], [], 0, 0.0, []
     for k in range(fleet_ticks + 1):
         anomalous = k == fleet_ticks
@@ -1021,18 +1231,27 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
             f"|err| vs the CPU reference {max(errs):.3e}")
     launches = lstm_kernel.launches
     n_dispatch = int(dispatches.value - d0)
+    n_k2 = int(took.value - k0)
     rounds = per_round.count - r0[0]
     packed = (per_round.sum - r0[1]) / max(rounds, 1)
-    # every tenant admitted before each flush: each round packs them all
+    # every tenant admitted before each flush: each round packs them all;
+    # lstm-stream launches K2 once a dispatch, the other models never, and
+    # the counter follows the launches
+    k2_launches = k2.launches
     if (n_dispatch != expect or launches or rounds != fleet_ticks + 1
-            or packed != tenants or len(dispatch_ms) != n_dispatch):
+            or packed != tenants or len(dispatch_ms) != n_dispatch
+            or k2_launches != (n_dispatch if streaming else 0)
+            or n_k2 != k2_launches):
         raise AssertionError(
             f"{label}: {n_dispatch} dispatches for {expect} occurrence "
-            f"rounds, {launches} K1 launches, {rounds} rounds packing "
-            f"{packed} tenants each, {len(dispatch_ms)} timed")
+            f"rounds, {launches} K1 launches, {k2_launches} K2 launches "
+            f"({n_k2} counted), {rounds} rounds packing {packed} tenants "
+            f"each, {len(dispatch_ms)} timed")
     stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
                        launches)
     stats["tenants_per_dispatch"] = packed
+    stats["stream_kernel_dispatches"] = n_k2
+    stats["stream_kernel_launches"] = k2_launches
     stats["dispatch_host_ms_p50"] = float(np.quantile(dispatch_ms, 0.5))
     stats["dispatch_host_ms_max"] = float(np.max(dispatch_ms))
     if shares:
@@ -3934,13 +4153,14 @@ def main() -> int:
     kind = phase_device(torch)
     phase_build()
     rows, widths = phase_kernels(torch)
+    stream_rows = phase_stream_kernel(torch)
     mark("device, build, kernels")
     stats = asyncio.run(phase_main(torch))
     asyncio.run(phase_stream(torch))
-    for tenants, devices, buckets in POOLS:
-        asyncio.run(drive_pool(torch, f"pool-{tenants}x{devices}",
-                               "lstm-stream", tenants, devices, buckets,
-                               fleet_ticks=4))
+    pools = [asyncio.run(drive_pool(torch, f"pool-{tenants}x{devices}",
+                                    "lstm-stream", tenants, devices, buckets,
+                                    fleet_ticks=4))
+             for tenants, devices, buckets in POOLS]
     tenants, devices, buckets = WINDOW_POOL
     asyncio.run(drive_pool(torch, f"pool-window-{tenants}x{devices}", "lstm",
                            tenants, devices, buckets, fleet_ticks=1))
@@ -4013,6 +4233,24 @@ def main() -> int:
         "per_bucket": rows,
         "widths": widths,
     }]
+    # K2 at the main path's shape: one tenant, the largest bucket
+    top = next(r for r in stream_rows
+               if r["tenants"] == 1 and r["batch"] == BUCKETS[-1]
+               and r["scores"] == "float16")
+    kernels.append({
+        "name": "lstm_stream_step",
+        "route": "cuda",
+        "source": "sitewhere_tpu_torch/csrc/lstm_stream_step.cu",
+        "replaces": None,
+        "launches": pools[0]["stream_kernel_launches"],
+        "max_score_err": max(r["max_score_err"] for r in stream_rows),
+        "ms": top["ms"], "graph_ms": top["graph_ms"],
+        "plain_ms": top["plain_ms"], "host_ms": top["host_ms"],
+        "plain_host_ms": top["plain_host_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "shape": {"tenants": 1, "batch": top["batch"], "hidden": HIDDEN},
+        "per_bucket": stream_rows,
+    })
     # again at the end, beside the records (a long log's head may be cut)
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -121,6 +121,7 @@ COUNTERS = (
     "scoring.bus_records_lost",
     "scoring.dispatches",
     "scoring.megabatch_dispatches",
+    "scoring.stream_kernel_dispatches",
     "scoring.stack_rebuilds",
     # pipeline services
     "inbound.events_unregistered",

@@ -59,6 +59,11 @@ class LstmAnomalyModel:
         return (cfg.layers == 1 and cfg.compute_dtype == torch.bfloat16
                 and cfg.hidden in KERNEL_HIDDEN)
 
+    @property
+    def min_history(self) -> int:
+        """Readings a device needs before its score counts (fewer: 0)."""
+        return max(8, self.cfg.window // 8)
+
     # -- params ------------------------------------------------------------
 
     def init(self, gen: torch.Generator | None = None) -> dict:
@@ -104,7 +109,7 @@ class LstmAnomalyModel:
         `score_fused` cannot drift."""
         err = (pred_last - xn[:, -1]).abs()
         # rows with too little history can't be judged → score 0
-        enough = valid.float().sum(-1) >= max(8, self.cfg.window // 8)
+        enough = valid.float().sum(-1) >= self.min_history
         return torch.where(enough, err, torch.zeros_like(err)).clamp(
             0.0, self.cfg.score_clip)
 
@@ -226,7 +231,7 @@ class StreamingLstmModel(LstmAnomalyModel):
         cfg = self.cfg
         mean, var, cnt = rows["mean"], rows["var"], rows["count"]
         xn = (v - mean) / torch.sqrt(var + 1e-6)
-        enough = cnt >= max(8, cfg.window // 8)
+        enough = cnt >= self.min_history
         err = (xn - rows["pred"]).abs()
         score = torch.where(enough, err, torch.zeros_like(err)).clamp(
             0.0, cfg.score_clip)

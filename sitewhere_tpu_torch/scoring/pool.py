@@ -47,6 +47,7 @@ from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, Sco
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
 from sitewhere_tpu_torch.kernel.tracing import NULL_TRACER
+from sitewhere_tpu_torch.ops import lstm_stream_kernel
 from sitewhere_tpu_torch.parallel.tenant_stack import TenantStack
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import StackedDeviceRing
@@ -280,6 +281,11 @@ class SharedScoringPool:
         self.dispatches = metrics.counter("scoring.dispatches")
         self.megabatch_dispatches = metrics.counter(
             "scoring.megabatch_dispatches")
+        # dispatches that launched K2 (ops/lstm_stream_kernel.py: its
+        # `launches` grew across the dispatch); over `scoring.dispatches`
+        # it is the kernel's engagement share
+        self.stream_kernel_dispatches = metrics.counter(
+            "scoring.stream_kernel_dispatches")
         self.megabatch_tenants = metrics.histogram(
             "scoring.megabatch_tenants_per_dispatch",
             buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0])
@@ -823,7 +829,7 @@ class SharedScoringPool:
                           ctx, self.stack.versions.get(tid, 0)))
 
         t0 = time.monotonic()
-        dispatches = []
+        dispatches, took_k2 = [], 0
         try:
             with self.tracer.span("scoring.dispatch",
                                   n_events=sum(m[2] for m in metas)):
@@ -836,8 +842,10 @@ class SharedScoringPool:
                         val_in[slot, :rdev.shape[0]] = rval
                     # start the device→host copy now (non-blocking): the
                     # settle thread then waits on this copy's event only
+                    k0 = lstm_stream_kernel.launches
                     dispatches.append(start_to_host(
                         self._dispatch(dev_in, val_in)))
+                    took_k2 += lstm_stream_kernel.launches > k0
         except Exception:
             logger.exception("pool dispatch failed; reseeding ring")
             self.dropped.inc(sum(m[2] for m in metas))
@@ -845,6 +853,7 @@ class SharedScoringPool:
             return
         self.dispatches.inc(len(dispatches))
         self.megabatch_dispatches.inc(len(dispatches))
+        self.stream_kernel_dispatches.inc(took_k2)
         self.megabatch_tenants.observe(float(len(metas)))
         self._tune_window(len(metas))
         # every packed tenant's traces get a queue-wait span (its own

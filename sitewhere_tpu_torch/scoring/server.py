@@ -37,6 +37,7 @@ from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, Sco
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
 from sitewhere_tpu_torch.kernel.tracing import NULL_TRACER
+from sitewhere_tpu_torch.ops import lstm_stream_kernel
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import DeviceRing
 from sitewhere_tpu_torch.scoring.settle import SETTLE_POOL
@@ -150,6 +151,10 @@ class ScoringSession:
         # flush-path dispatches (one inc per fused update+score call —
         # chunks and occurrence rounds each count)
         self.dispatches = metrics.counter("scoring.dispatches")
+        # those of them that launched K2 (ops/lstm_stream_kernel.py: its
+        # `launches` grew across the dispatch)
+        self.stream_kernel_dispatches = metrics.counter(
+            "scoring.stream_kernel_dispatches")
         # end-to-end latency decomposition:
         #   admit  = receiver arrival → admission
         #   batch  = admission → dispatch (deadline batching + inflight gate)
@@ -421,6 +426,7 @@ class ScoringSession:
         dispatches = []
         for rdev, rval, rpos in rounds:
             bucket = self._bucket_for(rdev.shape[0])
+            k0 = lstm_stream_kernel.launches
             with self.tracer.span("scoring.update_and_score",
                                   n_events=rdev.shape[0]):
                 scores_dev = self.ring.update_and_score(
@@ -429,6 +435,8 @@ class ScoringSession:
             # thread then waits on this copy's event only
             self.batch_size_hist.observe(float(rdev.shape[0]))
             self.dispatches.inc()
+            if lstm_stream_kernel.launches > k0:
+                self.stream_kernel_dispatches.inc()
             dispatches.append((start_to_host(scores_dev), rdev.shape[0], rpos))
         return dispatches
 

@@ -19,17 +19,22 @@ and a flush is
     gather state rows → model.step_score (one cell step) → scatter back
 
 in place, uploading only (device id, value) deltas like the window ring.
+For a configuration the fused kernels take (`model.fused`: one layer,
+bf16, a hidden width K2 is built for) with the state on the card, that
+whole step is one launch of K2 (`ops/lstm_stream_kernel.py`); elsewhere it
+is the plain chain below (`streaming_step_plain`).
 Contract with the model (`StreamingLstmModel` in models/lstm.py):
 
     init_state(cap)              -> dict of [cap, ...] leaves
     step_score(params, rows, v)  -> (scores, new rows)
     warm_state(params, x, valid) -> state dict (host-window replay seed)
 
-The gather and scatter index flat rows of each leaf outside any vmap;
-only `step_score` is vmapped over the stacked ring's tenant axis. Ids are
-unique per dispatch apart from the scratch rows (occurrence rounds), so
-the nondeterministic winner of duplicate `index_put_` writes lands only
-in a row nobody reads. Ids are checked on the host before any launch:
+In the plain chain the gather and scatter index flat rows of each leaf
+outside any vmap; only `step_score` is vmapped over the stacked ring's
+tenant axis. Ids are unique per dispatch apart from the scratch rows
+(occurrence rounds), so the nondeterministic winner of duplicate
+`index_put_` writes (or of K2's racing stores) lands only in a row
+nobody reads. Ids are checked on the host before any launch:
 on the card an out-of-range index is a device-side assert that ends the
 process's CUDA context (JAX's scatter drops it instead).
 
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from sitewhere_tpu_torch.ops import lstm_stream_kernel
 from sitewhere_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
@@ -145,15 +151,36 @@ def sparse_rows(rows, overflow) -> tuple[np.ndarray, np.ndarray]:
 # -- the step bodies ----------------------------------------------------------
 
 
-def streaming_step(model, out_dtype=None, stacked: bool = False) -> Callable:
-    """The gather→step_score→scatter step body, shared by the dedicated
-    ring and the stacked ring so the two hot paths cannot diverge.
+def streaming_step(model, device, out_dtype=None,
+                   stacked: bool = False) -> Callable:
+    """The step body, shared by the dedicated ring and the stacked ring so
+    the two hot paths cannot diverge, chosen once for a ring on `device`:
+    K2 (`lstm_stream_kernel.lstm_stream_step`) where `takes_kernel` holds
+    (the configuration `model.fused` and the state on the card), the plain
+    chain (`streaming_step_plain`) everywhere else.
 
     `step(params, state, dev, v)`: `dev`/`v` are `[B]` (or `[T, B]` with
-    `stacked`, per-tenant device ids, `step_score` then vmapped over the
-    tenant axis of params, rows and values); state leaves are updated in
-    place. Returns the scores, narrowed to `out_dtype` (model state stays
+    `stacked`, per-tenant device ids); state leaves are updated in place.
+    Returns the scores, narrowed to `out_dtype` (model state stays
     float32; settle upcasts)."""
+    if not lstm_stream_kernel.takes_kernel(model, device):
+        return streaming_step_plain(model, out_dtype, stacked)
+    cfg = model.cfg
+
+    def step(params, state, dev, v):
+        return lstm_stream_kernel.lstm_stream_step(
+            params, state, dev, v, window=cfg.window,
+            min_count=model.min_history, score_clip=cfg.score_clip,
+            out_dtype=out_dtype)
+
+    return step
+
+
+def streaming_step_plain(model, out_dtype=None,
+                         stacked: bool = False) -> Callable:
+    """`streaming_step` as a chain of PyTorch ops: gather the rows of
+    every state leaf → `step_score` (vmapped over the tenant axis of
+    params, rows and values with `stacked`) → scatter them back."""
     step_score = torch.func.vmap(model.step_score) if stacked else model.step_score
 
     def step(params, state, dev, v):
@@ -177,8 +204,8 @@ def streaming_step(model, out_dtype=None, stacked: bool = False) -> Callable:
     return step
 
 
-def streaming_step_sparse(model, k: int, scratch_index: int, out_dtype=None,
-                          stacked: bool = False) -> Callable:
+def streaming_step_sparse(model, device, k: int, scratch_index: int,
+                          out_dtype=None, stacked: bool = False) -> Callable:
     """`streaming_step` with thresholding on the device: every event is
     still scored and its state advanced, but only the anomalous
     (position, score) pairs cross back to the host.
@@ -190,7 +217,7 @@ def streaming_step_sparse(model, k: int, scratch_index: int, out_dtype=None,
     flush's padded bucket, entries past `min(n_anom, k)` are padding, and
     `n_anom > k` is overflow the host counts (`scoring.anomaly_overflow`),
     so a silent top-k truncation is impossible."""
-    dense = streaming_step(model, None, stacked)
+    dense = streaming_step(model, device, None, stacked)
 
     def step(params, state, dev, v, threshold):
         return sparse_select(dense(params, state, dev, v), dev, threshold,
@@ -246,7 +273,7 @@ class StreamingRing:
         self.sparse_k = sparse_k
         self.faulted = False
         self._params: Optional[dict] = None
-        self._step = streaming_step(model, self.score_dtype)
+        self._step = streaming_step(model, self.device, self.score_dtype)
         self.state = self._init_state(self.capacity + 1)
 
     def _init_state(self, n: int) -> dict:
@@ -294,7 +321,7 @@ class StreamingRing:
     def _pad(self, dev: np.ndarray, v: np.ndarray, bucket: int):
         check_ids(dev, self.capacity)
         n = dev.shape[0]
-        out_dev = np.full(bucket, self.capacity, np.int64)  # scratch row
+        out_dev = np.full(bucket, self.capacity, np.int32)  # scratch row
         out_v = np.zeros(bucket, np.float32)
         out_dev[:n] = dev
         out_v[:n] = v
@@ -311,7 +338,7 @@ class StreamingRing:
         try:
             if self.sparse_threshold is not None:
                 step = streaming_step_sparse(
-                    model, _sparse_k(self.sparse_k, bucket),
+                    model, self.device, _sparse_k(self.sparse_k, bucket),
                     scratch_index=self.capacity, out_dtype=self.score_dtype)
                 return step(params, self.state, pdev, pv,
                             float(self.sparse_threshold))
@@ -357,7 +384,8 @@ class StackedStreamingRing:
         self.t_cap = int(n_tenants)
         self.device_cap = grow_pow2(int(device_cap), floor=1024)
         self.faulted = False
-        self._step = streaming_step(model, self.score_dtype, stacked=True)
+        self._step = streaming_step(model, self.device, self.score_dtype,
+                                    stacked=True)
         self.state = self._alloc(self.t_cap, self.device_cap)
 
     def _init_state(self, n: int) -> dict:
@@ -435,12 +463,15 @@ class StackedStreamingRing:
             raise ValueError(f"dispatch columns {dev.shape}/{v.shape} do "
                              f"not match the ring's {self.t_cap} tenants")
         check_ids(dev, self.device_cap + 1)  # the scratch row included
-        pdev = torch.from_numpy(dev.astype(np.int64)).to(self.device)
-        pv = torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
+        pdev = torch.from_numpy(np.ascontiguousarray(dev, np.int32)).to(
+            self.device)
+        pv = torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+            self.device)
         try:
             if self.sparse:
                 step = streaming_step_sparse(
-                    model, _sparse_k(self.sparse_k, dev.shape[1]),
+                    model, self.device,
+                    _sparse_k(self.sparse_k, dev.shape[1]),
                     scratch_index=self.device_cap,
                     out_dtype=self.score_dtype, stacked=True)
                 th = torch.from_numpy(
