@@ -94,6 +94,11 @@ TRACE_STAGES: tuple[tuple[str, str], ...] = (
     ("scoring.settle", "host"),              # results on host → delivered
     ("runtime.gc.full", "host"),             # a generation-2 collection
     ("runtime.gc.young", "host"),            # gen 0/1: a profiler range only
+    # the TFT's stages inside a dispatch (models/tft.py): profiler ranges
+    # only, correct under vmap, never a ring span
+    ("tft.select", "host"),                  # static GRN, both selections
+    ("tft.seq2seq", "host"),                 # encoder, decoder, gated skip
+    ("tft.attend", "host"),                  # enrichment → quantile heads
 )
 
 TRACE_STAGE_KINDS: dict[str, str] = dict(TRACE_STAGES)
@@ -123,6 +128,8 @@ COUNTERS = (
     "scoring.megabatch_dispatches",
     "scoring.stream_kernel_dispatches",
     "scoring.stack_rebuilds",
+    "scoring.window_rows",
+    "scoring.window_pad_rows",
     # pipeline services
     "inbound.events_unregistered",
     "fastlane.events_unregistered",

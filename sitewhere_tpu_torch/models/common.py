@@ -44,21 +44,24 @@ def lstm_scan(params: dict, seq: torch.Tensor, cdt,
               h0: torch.Tensor | None = None, c0: torch.Tensor | None = None):
     """Run the LSTM over time. seq: [B, T, d_in] → (outputs [B, T, d],
     (h, c)). Matmuls in `cdt` with outputs rounded to `cdt`, gates and
-    state in float32 — the reference scan path's numerics."""
-    wx, wh, b = params["wx"], params["wh"], params["b"]
+    state in float32 — the reference scan path's numerics. The input's
+    products for every step are one product before the recurrence and
+    the recurrent weight is rounded once, so a step launches only what
+    depends on the step before."""
+    wh, b = params["wh"].to(cdt).float(), params["b"]
     d = wh.shape[0]
     B = seq.shape[0]
     h = h0 if h0 is not None else torch.zeros((B, d), dtype=torch.float32,
                                               device=seq.device)
     c = c0 if c0 is not None else torch.zeros((B, d), dtype=torch.float32,
                                               device=seq.device)
+    xw = _matmul_round(seq, params["wx"], cdt)       # [B, T, 4d]
     outs = []
     for t in range(seq.shape[1]):
-        gates = (_matmul_round(seq[:, t], wx, cdt)
-                 + _matmul_round(h, wh, cdt) + b)
-        i, f, g, o = gates.split(d, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        gates = xw[:, t] + (h.to(cdt).float() @ wh).to(cdt).float() + b
+        act = torch.sigmoid(gates)            # i, f and o; g's unused
+        c = act[:, d:2 * d] * c + act[:, :d] * torch.tanh(gates[:, 2 * d:3 * d])
+        h = act[:, 3 * d:] * torch.tanh(c)
         outs.append(h)
     hs = torch.stack(outs, dim=1) if outs else seq.new_zeros((B, 0, d))
     return hs, (h, c)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sitewhere_tpu_torch.kernel.tracing import profiled
 from sitewhere_tpu_torch.models.common import (
     _matmul_round,
     dense_init,
@@ -229,12 +230,26 @@ class TftForecaster:
     # -- forward -----------------------------------------------------------
 
     def _forward(self, params, xn, valid):
-        """Normalized window → (quantiles [B, H, Q], attention [B, Hd, H, W])."""
+        """Normalized window → (quantiles [B, H, Q], attention
+        [B, Hd, H, W]). While a profiler runs, a range names each stage:
+        `tft.select` (the static GRN and both variable selections),
+        `tft.seq2seq` (the encoder and decoder LSTMs and their gated skip)
+        and `tft.attend` (enrichment, attention, the position-wise GRN and
+        the heads)."""
+        with profiled("tft.select"):
+            static_ctx, past_sel, fut_sel = self._select(params, xn, valid)
+        with profiled("tft.seq2seq"):
+            seq = self._seq2seq(params, past_sel, fut_sel)
+        with profiled("tft.attend"):
+            return self._attend(params, seq, static_ctx, valid)
+
+    def _select(self, params, xn, valid):
+        """(static context [B, d], selected past [B, Wc, d], selected
+        future [B, H, d])."""
         cfg = self.cfg
         cdt = cfg.compute_dtype
-        B, W = xn.shape
-        Wc, H, d = cfg.context, cfg.horizon, cfg.hidden
-        dev = xn.device
+        B = xn.shape[0]
+        Wc, d = cfg.context, cfg.hidden
 
         static_ctx = _grn(params["grn_static"],
                           params["static"].expand(B, d), cdt)
@@ -246,7 +261,7 @@ class TftForecaster:
         delta = torch.diff(xn, dim=-1, prepend=xn[:, :1])
         past_feats = torch.stack(
             [xn * v, delta * v, v, delta.abs() * v], dim=-1)[:, :Wc]
-        fut_feats = self._known_features(B, dev)
+        fut_feats = self._known_features(B, xn.device)
 
         past_embs = torch.stack(
             [_dense(params["emb_past"][i], past_feats[..., i:i + 1], cdt)
@@ -259,12 +274,26 @@ class TftForecaster:
                                 past_embs, static_ctx, cdt)
         fut_sel, _ = self._vsn(params["vsn_fut"], params["vsn_fut_var"],
                                fut_embs, static_ctx, cdt)
+        return static_ctx, past_sel, fut_sel
 
+    def _seq2seq(self, params, past_sel, fut_sel):
+        """The LSTM encoder over the context seeding the decoder over the
+        horizon, gated back onto the selected inputs: [B, W, d]."""
+        cdt = self.cfg.compute_dtype
         enc_out, (h, c) = lstm_scan(params["lstm_enc"], past_sel, cdt)
         dec_out, _ = lstm_scan(params["lstm_dec"], fut_sel, cdt, h0=h, c0=c)
         seq = torch.cat([enc_out, dec_out], dim=1)        # [B, W, d]
         skip = torch.cat([past_sel, fut_sel], dim=1)
-        seq = _glu_addnorm(params["gate_seq"], seq, skip, cdt)
+        return _glu_addnorm(params["gate_seq"], seq, skip, cdt)
+
+    def _attend(self, params, seq, static_ctx, valid):
+        """Static enrichment, attention at the horizon and the tail:
+        (quantiles [B, H, Q], attention [B, Hd, H, W])."""
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        B, W = valid.shape
+        Wc, H, d = cfg.context, cfg.horizon, cfg.hidden
+        dev = seq.device
 
         enriched = _grn(params["grn_enrich"], seq, cdt,
                         context=static_ctx[:, None, :])

@@ -38,6 +38,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Awaitable, Callable, Optional
 
@@ -291,6 +292,10 @@ class SharedScoringPool:
             buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0])
         self.stack_rebuilds = metrics.counter("scoring.stack_rebuilds")
         self._rebuilds_seen = 0
+        # a windowed ring scores a whole window a row, padding included:
+        # the real rows it scored and the bucket padding beside them
+        self.window_rows = metrics.counter("scoring.window_rows")
+        self.window_pad_rows = metrics.counter("scoring.window_pad_rows")
         # latency decomposition, pool-wide (ScoringSession's stages)
         self.stage_admit = metrics.histogram("scoring.stage_admit_s")
         self.stage_batch = metrics.histogram("scoring.stage_batch_s")
@@ -309,6 +314,9 @@ class SharedScoringPool:
         # EMA over per-dispatch device throughput (α=0.2, ~5 dispatches)
         self._tflops_ema = 0.0
         self._window_s = cfg.window_s
+        # how long the last few flush rounds' dispatches held the loop
+        # (`_close_wait`)
+        self._dispatch_holds: deque[float] = deque(maxlen=4)
         self.window_adjusts = metrics.counter(
             "scoring.megabatch_window_adjusts")
         self.window_gauge = metrics.gauge(
@@ -545,7 +553,7 @@ class SharedScoringPool:
         self._pending_max = max(self._pending_max, int(dev.max()))
         if self._deadline is None:
             # the LIVE window: the tuner floats it above the floor
-            self._deadline = time.monotonic() + self._window_s
+            self._deadline = time.monotonic() + self._close_wait()
         self._wake.set()
 
     def admit_columns(self, tenant_id: str, device_index: np.ndarray,
@@ -570,7 +578,7 @@ class SharedScoringPool:
         entry.pending_n += n
         self._pending_max = max(self._pending_max, int(device_index.max()))
         if self._deadline is None:
-            self._deadline = time.monotonic() + self._window_s
+            self._deadline = time.monotonic() + self._close_wait()
         self._wake.set()
 
     # -- flushing -----------------------------------------------------------
@@ -645,6 +653,18 @@ class SharedScoringPool:
         self.window_adjusts.inc()
         self.window_gauge.set(self._window_s * 1e3)
 
+    def _close_wait(self) -> float:
+        """How long a partial megabatch waits to fill: the window, or the
+        least of the last few dispatches' holds of the loop where each
+        held it longer (a windowed model under vmap, whose dispatch costs
+        about as much at any fill). A pool fed faster than it scores then
+        closes full buckets, and a partial one waits at most one such
+        hold; the streaming kernel's dispatches fit inside the window."""
+        holds = self._dispatch_holds
+        if len(holds) < holds.maxlen:
+            return self._window_s
+        return max(self._window_s, min(holds))
+
     @property
     def flush_due(self) -> bool:
         """The megabatch is ready to close: pending work, warmed, under
@@ -678,7 +698,8 @@ class SharedScoringPool:
     def flush_nowait(self) -> bool:
         """Close and dispatch the due megabatch now, draining the WHOLE
         pending backlog in bucket-sized stacked rounds back to back (the
-        inflight cap gates starting a flush, not its rounds). Returns
+        inflight cap gates starting a flush, not its rounds; a slow
+        scorer's partial remainder waits `_close_wait` to fill). Returns
         False when nothing was due or a regrow held the round."""
         if not self.flush_due:
             return False
@@ -691,12 +712,19 @@ class SharedScoringPool:
             self._start_warmup()
             return False
         self._deadline = None
+        bucket = self.cfg.batch_buckets[-1]
         while self._total_pending > 0:  # no awaits: admission can't race
             self.flush_rounds.inc()
             self._flush_round()
+            if (self._close_wait() > self._window_s
+                    and all(e.pending_n < bucket
+                            for e in self.tenants.values())):
+                break
         # a multi-round drain re-arms the deadline for its own leftovers;
-        # clear it so the NEXT admission opens a fresh window
-        self._deadline = None
+        # clear it so the NEXT admission opens a fresh window (a slow
+        # scorer's held remainder opens its own)
+        self._deadline = (time.monotonic() + self._close_wait()
+                          if self._total_pending else None)
         return True
 
     async def _run(self) -> None:
@@ -829,7 +857,7 @@ class SharedScoringPool:
                           ctx, self.stack.versions.get(tid, 0)))
 
         t0 = time.monotonic()
-        dispatches, took_k2 = [], 0
+        dispatches, took_k2, rows, scored = [], 0, 0, 0
         try:
             with self.tracer.span("scoring.dispatch",
                                   n_events=sum(m[2] for m in metas)):
@@ -840,6 +868,8 @@ class SharedScoringPool:
                     for slot, rdev, rval in parts:
                         dev_in[slot, :rdev.shape[0]] = rdev
                         val_in[slot, :rdev.shape[0]] = rval
+                        rows += rdev.shape[0]
+                    scored += t_cap * b
                     # start the device→host copy now (non-blocking): the
                     # settle thread then waits on this copy's event only
                     k0 = lstm_stream_kernel.launches
@@ -851,9 +881,13 @@ class SharedScoringPool:
             self.dropped.inc(sum(m[2] for m in metas))
             self._recover_ring()
             return
+        self._dispatch_holds.append(time.monotonic() - t0)
         self.dispatches.inc(len(dispatches))
         self.megabatch_dispatches.inc(len(dispatches))
         self.stream_kernel_dispatches.inc(took_k2)
+        if not self.streaming:
+            self.window_rows.inc(rows)
+            self.window_pad_rows.inc(scored - rows)
         self.megabatch_tenants.observe(float(len(metas)))
         self._tune_window(len(metas))
         # every packed tenant's traces get a queue-wait span (its own

@@ -270,7 +270,7 @@ def test_host_stages_are_registered_as_host():
     assert host == registry.HOST_STAGES == {
         "scoring.pool_take", "scoring.take_pending", "scoring.dispatch",
         "scoring.update_and_score", "scoring.settle", "runtime.gc.full",
-        "runtime.gc.young"}
+        "runtime.gc.young", "tft.select", "tft.seq2seq", "tft.attend"}
     assert registry.METRICS["runtime.gc_collections"] == "counter"
     assert registry.METRICS["runtime.gc_pause_s"] == "histogram"
 
