@@ -8,7 +8,7 @@ holds each against its plain PyTorch version on the card, then drives
 each of the port's serving paths at full width (W=64, h=64, 1 layer,
 bf16, random weights from seeds, a 32,768-device simulated fleet; the
 other models at the widths the repo configures for them), its training
-plane and its CLI, and checks what each returns. Imports torch, numpy and `sitewhere_tpu_torch` only.
+plane and its CLI, and checks what each returns. Imports torch, numpy, `sitewhere_tpu_torch` and, for the TFT's bit-equality check, the benchmark's plain reference `swxbench/reference/tft.py`.
 
 Phases (a failed phase raises; the script then exits non-zero and
 prints no result):
@@ -34,6 +34,20 @@ prints no result):
                 one launch a step; `ms`, `graph_ms`, the plain chain's
                 ms, the wrapper's input checks alone (`check_ms`), the
                 host ms of a ring dispatch with each, and the byte bound;
+  3c. tft-fused — K3 (the TFT forward's pointwise work,
+                `ops/tft_fused.py`): each of its kernels against its plain
+                version (the PyTorch chain it replaces) at the electricity
+                widths' 16,384-row shapes, on inputs with zeros, negatives,
+                large magnitudes and bf16 ties, bit for bit (and in float16
+                at a smaller shape); `ms`, `graph_ms`, the plain chain's ms
+                and the byte bound; then each stage (`tft.select`,
+                `tft.seq2seq`, `tft.attend`) and the scores of the K3
+                forward against the chain and against the benchmark's
+                reference (`swxbench/reference/tft.py`, imported, never
+                edited) at buckets 256, 1,024, 4,096 and 16,384, vmapped
+                over one stacked tenant and not: every value equal; the
+                same at `TftConfig`'s defaults; device operations and K3
+                launches a forward, before and after;
   4. main     — SWB1 encode → decode → store → admit → flush for ~8
                 fleet ticks (one with injected anomalies, one flush
                 holding duplicate devices, two small flushes); every
@@ -364,6 +378,8 @@ CUDA_CORE_MS = {256: 0.121, 1024: 0.291, 4096: 0.484, 16384: 1.486}
 # and HBM bandwidth; the card's own power limit is printed beside them
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
+# the float32 rate outside the tensor cores, where the TFT's products run
+PEAK_F32_FLOPS = 67e12
 KERNEL_ATOL = 2e-3
 # K2 against its plain chain on the card, max |Δscore| / max(1, |plain|)
 # over 256 steps: the two differ only in the order of the h·wh sum (tensor
@@ -390,6 +406,12 @@ STREAM_STEPS, STREAM_TENANTS = 256, (1, 4)
 # score type)
 STREAM_BF16 = (1, 4096)
 SCORE_ATOL, SCORE_RTOL = 1e-2, 1e-3
+# K3 (ops/tft_fused.py) at the benchmark's TFT: the electricity widths
+# (swxbench/configs/tft-electricity-32k.json), its buckets and the rows of
+# the kernels' shapes (a bucket's worth of context steps); the float16
+# kernels are checked at a smaller row count
+TFT_WIDTHS = {"window": 192, "horizon": 24, "hidden": 160, "heads": 4}
+TFT_BUCKETS, TFT_ROWS, TFT_F16_ROWS = (256, 1024, 4096, 16384), 16384, 512
 # `longwin` divides its score by a predicted interval's width, which
 # untrained weights make narrow: where the card and the CPU round a
 # quantile a bf16 ulp apart, a row's score moves past any row tolerance
@@ -785,6 +807,289 @@ def phase_stream_kernel(torch) -> list[dict]:
     return rows
 
 
+def tft_inputs(torch, gen, shape, shift=0, scale=3.0):
+    """float32 values of `shape` on the card with the cases the roundings
+    and the transcendentals turn on: a sixteenth each of zeros, negative
+    zeros, large magnitudes (±1e4) and exact ties between two bf16
+    values; `shift` elements into their buffer (1: not 16-byte aligned,
+    so the kernels take a column at a time)."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + shift, generator=gen, device="cuda")[shift:].view(
+        shape) * scale
+    pick = torch.randint(0, 16, shape, generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    ties = (x.to(torch.bfloat16).float().view(torch.int32) + 0x8000).view(
+        torch.float32)
+    x = torch.where(pick == 0, torch.zeros_like(x), x)
+    x = torch.where(pick == 1, torch.full_like(x, -0.0), x)
+    x = torch.where(pick == 2, x * 1e4 / scale, x)
+    x = torch.where(pick == 3, ties, x)
+    if not shift:
+        return x
+    out = torch.empty(n + shift, device="cuda")[shift:].view(shape)
+    return out.copy_(x)
+
+
+def tft_kernel_cases(torch, k3, gen, rows: int, kind: int,
+                     shift: int = 0) -> dict:
+    """name → a function making (args of the op, bytes it must move) at the
+    electricity widths, `rows` windows: the shapes the served forward hands
+    each kernel (the selection's past context, a recurrence step, the
+    attention's logits); the embeddings at half the rows (their outputs
+    are four inputs wide); the inputs `shift` elements off alignment."""
+    wc, d = TFT_WIDTHS["window"] - TFT_WIDTHS["horizon"], TFT_WIDTHS["hidden"]
+    hz, w, nh = TFT_WIDTHS["horizon"], TFT_WIDTHS["window"], TFT_WIDTHS["heads"]
+    t = lambda *shape: tft_inputs(torch, gen, shape, shift)  # noqa: E731
+    act = (rows, wc, d)
+    e4 = rows * wc * d * 4                      # one float32 activation
+
+    def vsn():
+        lns = [(t(*act), t(rows, wc, 1), t(rows, wc, 1).abs(), t(d), t(d))
+               for _ in range(4)]
+        weights = torch.softmax(t(rows, wc, 4), dim=-1)
+        return ((*(list(z) for z in zip(*lns)), weights, kind),
+                6 * e4 + rows * wc * 4 * 4)
+
+    def embed():
+        half = rows // 2
+        feats = t(half, w, 4)[:, :wc]           # the model's strided slice
+        ws = [k3.round_plain(t(1, d), kind)[0] for _ in range(4)]
+        return ((feats, ws, [t(d) for _ in range(4)], kind),
+                half * wc * 4 * (4 + 12 * d))
+
+    return {
+        "round": lambda: ((t(*act), kind), 2 * e4),
+        "dense": lambda: ((t(*act), t(d), t(rows, 1, d), t(d), True, k3.BOTH,
+                           kind), 3 * e4),
+        "gate": lambda: ((t(rows, wc, 2 * d), t(2 * d), t(*act), None, kind),
+                         4 * e4),
+        "sqdev": lambda: ((t(*act), t(rows, wc, 1), kind), 2 * e4),
+        "ln": lambda: ((t(*act), t(rows, wc, 1), t(rows, wc, 1).abs(), t(d),
+                        t(d), k3.BOTH, kind), 3 * e4),
+        "vsn": vsn,
+        # eight steps of the recurrence; the bound per step is the larger of
+        # its product at the float32 SIMT peak and its bytes (the product
+        # reads h and writes h·wh; the cell reads the step's input product,
+        # h·wh and c and writes c, h and h's slot of the output)
+        "lstm": lambda: ((t(rows, 8, 4 * d),
+                          k3.round_plain(t(d, 4 * d), kind)[0] / d ** 0.5,
+                          t(4 * d), k3.round_plain(t(rows, d), kind)[0],
+                          t(rows, d), kind),
+                         8 * max(2.0 * rows * d * 4 * d / PEAK_F32_FLOPS
+                                 * PEAK_BYTES_S, rows * d * 4 * 17.0)),
+        "embed": embed,
+        "logits": lambda: ((t(rows, nh, hz, w),
+                            torch.rand((rows, 1, 1, w), generator=gen,
+                                       device="cuda") > 0.05,
+                            wc, float(np.sqrt(d // nh)), kind),
+                           rows * nh * hz * w * 8 + rows * w),
+    }
+
+
+def same_tensors(label: str, got, want) -> None:
+    """Every output of a kernel equal to its plain version's, bit for bit
+    (NaN where NaN)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} outputs, plain "
+                             f"{len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{label} output {i}: shape {list(g.shape)}"
+                                 f", plain {list(w.shape)}")
+        bad = ~((g == w) | (g.isnan() & w.isnan()))
+        n = int(bad.sum())
+        if n:
+            raise AssertionError(
+                f"{label} output {i}: {n} of {g.numel()} values differ from "
+                f"the plain chain's, e.g. {g[bad][:4].tolist()} against "
+                f"{w[bad][:4].tolist()}")
+
+
+def tft_fused_kernels(torch) -> list[dict]:
+    """Each K3 kernel against its plain version on the card, bit for bit,
+    and timed at the electricity widths' 16,384-row shapes (bf16), then
+    checked again in float16."""
+    from sitewhere_tpu_torch.ops import tft_fused as k3
+    from sitewhere_tpu_torch.utils.timing import cuda_median_ms, graph_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = []
+    for name, case in tft_kernel_cases(torch, k3, gen, TFT_ROWS, 0).items():
+        args, nbytes = case()
+        op, plain = k3.OPS[name], k3.PLAIN[name]
+        launches0 = k3.launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        # one launch a call, the recurrence one a step
+        expect = args[0].shape[-2] if name == "lstm" else 1
+        if k3.launches - launches0 != expect:
+            raise AssertionError(f"tft-fused {name}: {k3.launches - launches0}"
+                                 f" launches for one call, not {expect}")
+        want = plain(*args)
+        same_tensors(f"tft-fused {name}", got, want)
+        del got, want
+        ms = cuda_median_ms(lambda: op(*args), reps=10)
+        dev_ms = graph_ms(lambda: op(*args), launches=2, reps=5)
+        plain_ms = cuda_median_ms(lambda: plain(*args), reps=5)
+        bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+        row = {"kernel": name, "rows": TFT_ROWS, "ms": ms, "graph_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_share": bound_ms / dev_ms}
+        log(f"tft-fused {name}: {json.dumps(row)}")
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    # float16 rounding, and every kernel again a column at a time (inputs
+    # off 16-byte alignment) in both types
+    for kind, shift in ((1, 0), (0, 1), (1, 1)):
+        for name, case in tft_kernel_cases(torch, k3, gen, TFT_F16_ROWS,
+                                           kind, shift).items():
+            args, _ = case()
+            same_tensors(f"tft-fused {name} kind {kind} shift {shift}",
+                         k3.OPS[name](*args), k3.PLAIN[name](*args))
+    log(f"tft-fused: all {len(k3.OPS)} kernels equal to their plain chains "
+        f"in bfloat16 ({TFT_ROWS} rows) and float16 ({TFT_F16_ROWS} rows), "
+        f"four columns a thread and one")
+    return rows
+
+
+def tft_device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, fills) one call of `fn` puts on
+    the card, from the profiler's records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation())
+
+
+def tft_stage_check(torch, k3, ref, model, params, x, label: str,
+                    with_reference: bool) -> None:
+    """The K3 forward's stages against the chain's (and the reference's)
+    on windows `x`, all valid, unvmapped."""
+    cfg = model.cfg
+    widths = {"window": cfg.window, "horizon": cfg.horizon,
+              "hidden": cfg.hidden, "heads": cfg.heads,
+              "quantiles": list(cfg.quantiles)}
+    kind = k3.KINDS[cfg.compute_dtype]
+    valid = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    xn, _, _ = model._normalize(x, valid)
+    r = k3.rounded_weights(params, kind)
+    chain = model._select(params, xn, valid)
+    fused = model._select_k3(r, xn, valid, kind)
+    same_tensors(f"{label} tft.select", [f[0] for f in fused], list(chain))
+    seq = model._seq2seq(params, chain[1], chain[2])
+    seq_k3 = model._seq2seq_k3(r, fused[1], fused[2], kind)
+    same_tensors(f"{label} tft.seq2seq", [seq_k3[0]], [seq])
+    quant = model._attend(params, seq, chain[0], valid)
+    del chain, seq
+    quant_k3 = model._attend_k3(r, seq_k3, fused[0][1], valid, kind)
+    same_tensors(f"{label} tft.attend", list(quant_k3), list(quant))
+    del quant
+    torch.cuda.empty_cache()
+    if with_reference:
+        m = ref._Weights(params, cfg.compute_dtype)
+        c_s, past, known = ref.selection(m, widths, ref.normalise(widths, x))
+        same_tensors(f"{label} tft.select vs reference",
+                     [f[0] for f in fused], [c_s, past, known])
+        seq_ref = ref.sequence(m, past, known)
+        same_tensors(f"{label} tft.seq2seq vs reference", [seq_k3[0]],
+                     [seq_ref])
+        same_tensors(f"{label} tft.attend vs reference", [quant_k3[0]],
+                     [ref.attention(m, widths, seq_ref, c_s)])
+
+
+def tft_forward_check(torch, model, params, x, vmapped: bool,
+                      chain_score) -> tuple:
+    """The K3 scores of windows `x` against the chain's, vmapped over one
+    stacked tenant (as the pool scores) or not; returns (scores, K3
+    launches of the forward)."""
+    from torch.utils._pytree import tree_map
+
+    from sitewhere_tpu_torch.ops import tft_fused as k3
+
+    valid = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    if vmapped:
+        stacked = tree_map(lambda a: a[None].contiguous(), params)
+        score = lambda: torch.func.vmap(model.score)(  # noqa: E731
+            stacked, x[None], valid[None])[0]
+    else:
+        score = lambda: model.score(params, x, valid)  # noqa: E731
+    launches0 = k3.launches
+    got = score()
+    launches = k3.launches - launches0
+    if not launches:
+        raise AssertionError("the TFT forward on the card did not take K3")
+    want = chain_score(score)
+    same_tensors("tft scores, K3 against the chain", [got], [want])
+    return got, launches, score
+
+
+def phase_tft_fused(torch) -> dict:
+    """K3's kernels, then the TFT's stages and scores through K3 against the
+    chain and the benchmark's reference at every bucket."""
+    from sitewhere_tpu_torch.models import build_model
+    from sitewhere_tpu_torch.ops import tft_fused as k3
+    from swxbench.reference import tft as ref
+
+    rows = tft_fused_kernels(torch)
+
+    def chain_score(fn):
+        """`fn` with K3 out of the way (the forward the chain's)."""
+        engaged = k3.engaged
+        k3.engaged = lambda params, x, cdt: False
+        try:
+            return fn()
+        finally:
+            k3.engaged = engaged
+
+    model = build_model("tft", **TFT_WIDTHS)
+    widths = {**TFT_WIDTHS, "quantiles": [0.1, 0.5, 0.9]}
+    params = ref.make_params(widths, SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    out = {"kernels": rows, "buckets": []}
+    for bucket in TFT_BUCKETS:
+        x = 20.0 + 3.0 * torch.randn((bucket, TFT_WIDTHS["window"]),
+                                     generator=gen, device="cuda")
+        spikes = torch.rand(x.shape, generator=gen, device="cuda") < 0.001
+        x = torch.where(spikes, x + 12.0, x)
+        tft_stage_check(torch, k3, ref, model, params, x, f"tft {bucket}",
+                        with_reference=True)
+        want = ref.window_scores(params, widths, x, torch.bfloat16)
+        row = {"bucket": bucket}
+        for vmapped in (False, True):
+            got, launches, score = tft_forward_check(
+                torch, model, params, x, vmapped, chain_score)
+            same_tensors(f"tft {bucket} scores vs reference", [got], [want])
+            row["k3_launches" + ("_vmap" if vmapped else "")] = launches
+        if bucket == 1024:
+            row["device_ops_chain"] = tft_device_ops(
+                torch, lambda: chain_score(score))
+            row["device_ops_k3"] = tft_device_ops(torch, score)
+        log(f"tft-fused bucket {bucket}: stages and scores equal to the "
+            f"chain's and the reference's, {json.dumps(row)}")
+        out["buckets"].append(row)
+        torch.cuda.empty_cache()
+    # the pool's `tft` at `TftConfig`'s defaults (W=64, d=32): bit-equal too
+    small = build_model("tft")
+    small_params = small.init(torch.Generator().manual_seed(SEED))
+    x = 20.0 + 3.0 * torch.randn((4096, small.cfg.window), generator=gen,
+                                 device="cuda")
+    tft_stage_check(torch, k3, ref, small, small_params, x, "tft defaults",
+                    with_reference=False)
+    for vmapped in (False, True):
+        tft_forward_check(torch, small, small_params, x, vmapped, chain_score)
+    log("tft-fused: TftConfig's defaults equal to the chain, vmapped and not")
+    return out
+
+
 def plain_scores(torch, model, params, x, valid):
     """`score_fused` with the kernel's plain version in place of the
     kernel, on the same ring windows."""
@@ -1144,6 +1449,7 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     from sitewhere_tpu_torch.models import build_model
     from sitewhere_tpu_torch.ops import lstm_kernel
     from sitewhere_tpu_torch.ops import lstm_stream_kernel as k2
+    from sitewhere_tpu_torch.ops import tft_fused as k3
     from sitewhere_tpu_torch.tools import main_path
 
     t_setup = time.perf_counter()
@@ -1173,11 +1479,23 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
         f"{time.perf_counter() - t_setup:.3f} s")
     dispatches = path.metrics.counter("scoring.dispatches")
     took = path.metrics.counter("scoring.stream_kernel_dispatches")
+    took3 = path.metrics.counter("scoring.tft_fused_dispatches")
     per_round = path.metrics.histogram("scoring.megabatch_tenants_per_dispatch")
-    d0, k0, expect = dispatches.value, took.value, 0
+    d0, k0, k30, expect = dispatches.value, took.value, took3.value, 0
     r0 = (per_round.count, per_round.sum)
+    # K3's launches a forward at this model's widths (any rows, vmapped or
+    # not: one launch an op call, one a recurrence step)
+    per_forward = 0
+    if model == "tft":
+        k3.launches = 0
+        m = next(iter(path.tenants.values()))
+        path.model.score(m.params, torch.zeros((8, window), device="cuda"),
+                         torch.ones((8, window), dtype=torch.bool,
+                                    device="cuda"))
+        per_forward = k3.launches
     lstm_kernel.launches = 0
     k2.launches = 0
+    k3.launches = 0
     flush_ms, host_ms, n_events, busy_s, shares = [], [], 0, 0.0, []
     for k in range(fleet_ticks + 1):
         anomalous = k == fleet_ticks
@@ -1232,26 +1550,36 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     launches = lstm_kernel.launches
     n_dispatch = int(dispatches.value - d0)
     n_k2 = int(took.value - k0)
+    n_k3 = int(took3.value - k30)
     rounds = per_round.count - r0[0]
     packed = (per_round.sum - r0[1]) / max(rounds, 1)
     # every tenant admitted before each flush: each round packs them all;
     # lstm-stream launches K2 once a dispatch, the other models never, and
-    # the counter follows the launches
+    # the counter follows the launches; every tft dispatch goes through K3
     k2_launches = k2.launches
+    k3_launches = k3.launches
     if (n_dispatch != expect or launches or rounds != fleet_ticks + 1
             or packed != tenants or len(dispatch_ms) != n_dispatch
             or k2_launches != (n_dispatch if streaming else 0)
-            or n_k2 != k2_launches):
+            or n_k2 != k2_launches
+            or n_k3 != (n_dispatch if model == "tft" else 0)
+            or k3_launches != n_dispatch * per_forward
+            or (model == "tft") != (per_forward > 0)):
         raise AssertionError(
             f"{label}: {n_dispatch} dispatches for {expect} occurrence "
             f"rounds, {launches} K1 launches, {k2_launches} K2 launches "
-            f"({n_k2} counted), {rounds} rounds packing {packed} tenants "
-            f"each, {len(dispatch_ms)} timed")
+            f"({n_k2} counted), {n_k3} dispatches through K3 with "
+            f"{k3_launches} K3 launches ({per_forward} a forward), {rounds} "
+            f"rounds packing {packed} tenants each, {len(dispatch_ms)} "
+            f"timed")
     stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
                        launches)
     stats["tenants_per_dispatch"] = packed
     stats["stream_kernel_dispatches"] = n_k2
     stats["stream_kernel_launches"] = k2_launches
+    stats["tft_fused_dispatches"] = n_k3
+    stats["tft_fused_launches"] = k3_launches
+    stats["tft_fused_launches_per_forward"] = per_forward
     stats["dispatch_host_ms_p50"] = float(np.quantile(dispatch_ms, 0.5))
     stats["dispatch_host_ms_max"] = float(np.max(dispatch_ms))
     if shares:
@@ -4154,6 +4482,7 @@ def main() -> int:
     phase_build()
     rows, widths = phase_kernels(torch)
     stream_rows = phase_stream_kernel(torch)
+    tft_fused = phase_tft_fused(torch)
     mark("device, build, kernels")
     stats = asyncio.run(phase_main(torch))
     asyncio.run(phase_stream(torch))
@@ -4172,8 +4501,8 @@ def main() -> int:
     phase_demo()
     phase_native()
     mark("pipelines, demo, native")
-    asyncio.run(drive_pool(torch, f"pool-tft-1x{FLEET}", "tft", 1, FLEET,
-                           (FLEET,), fleet_ticks=1))
+    pool_tft = asyncio.run(drive_pool(torch, f"pool-tft-1x{FLEET}", "tft", 1,
+                                      FLEET, (FLEET,), fleet_ticks=1))
     # untrained longwin scores ordinary points at the clip: no anomaly
     # bar; its bf16 sample is held in aggregate, its float32 run row for row
     for dtype, suffix in ((None, ""), (torch.float32, "-float32")):
@@ -4250,6 +4579,18 @@ def main() -> int:
         "bound_by": top["bound_by"],
         "shape": {"tenants": 1, "batch": top["batch"], "hidden": HIDDEN},
         "per_bucket": stream_rows,
+    })
+    # K3 at the main path's shape: the electricity widths, 16,384 rows
+    kernels.append({
+        "name": "tft_fused",
+        "route": "cuda",
+        "source": "sitewhere_tpu_torch/csrc/tft_fused.cu",
+        "replaces": None,
+        # the main path's own run: the pool's `tft` at TftConfig's defaults
+        "launches": pool_tft["tft_fused_launches"],
+        "launches_per_forward": pool_tft["tft_fused_launches_per_forward"],
+        "per_kernel": tft_fused["kernels"],
+        "per_bucket": tft_fused["buckets"],
     })
     # again at the end, beside the records (a long log's head may be cut)
     log(card_line())

@@ -127,6 +127,7 @@ COUNTERS = (
     "scoring.dispatches",
     "scoring.megabatch_dispatches",
     "scoring.stream_kernel_dispatches",
+    "scoring.tft_fused_dispatches",
     "scoring.stack_rebuilds",
     "scoring.window_rows",
     "scoring.window_pad_rows",

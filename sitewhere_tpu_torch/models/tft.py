@@ -16,7 +16,9 @@ scores a stacked tenant axis exactly as it does the LSTM's. Matmuls
 round through the compute dtype where the reference casts
 (`_matmul_round`), softmax, layernorm and state in float32. Params keep
 the JAX `init` layout, lists of dicts included (`emb_past`,
-`vsn_past_var`, ...).
+`vsn_past_var`, ...). On the card, with no param requiring grad, the
+forward's pointwise work between its products runs in K3
+(`ops/tft_fused.py`, `_forward_k3`), bit for bit with this chain.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from sitewhere_tpu_torch.models.common import (
     lstm_init,
     lstm_scan,
 )
+from sitewhere_tpu_torch.ops import tft_fused as k3
 from sitewhere_tpu_torch.utils import resolve_device
 
 
@@ -112,6 +115,44 @@ def _glu_addnorm(p, x, skip, cdt):
     g = _dense(p["gate"], x, cdt)
     val, gate = g.chunk(2, dim=-1)
     return _ln(p["ln"], skip + val * torch.sigmoid(gate))
+
+
+# -- the same blocks through K3 (ops/tft_fused.py) ----------------------------
+# Each takes `r`, the block's params with their weights already rounded
+# (`k3.rounded_weights`), and its input both as float32 and rounded (the
+# products' operand), and gives back what its consumers read: the float32
+# value, its rounded copy, or both (`outs`). The products are the chain's,
+# on the same contiguous float32 operands.
+
+
+def _ln_k3(p, x, kind, outs):
+    mu = x.mean(-1, keepdim=True)
+    var = k3.sqdev(x, mu, kind)[0].mean(-1, keepdim=True)
+    return k3.ln(x, mu, var, p["scale"], p["bias"], outs, kind)
+
+
+def _grn_sum_k3(r, a, a_r, kind, ctx_r=None):
+    """A GRN up to its LayerNorm: skip(a) + GLU(W2 ELU(W1 a + W3 c))."""
+    ctx = ((ctx_r @ r["ctx"]["w"], r["ctx"]["b"]) if ctx_r is not None
+           else (None, None))
+    (u,) = k3.dense(a_r @ r["fc1"]["w"], r["fc1"]["b"], *ctx, True,
+                    k3.ROUNDED, kind)
+    (u,) = k3.dense(u @ r["fc2"]["w"], r["fc2"]["b"], None, None, False,
+                    k3.ROUNDED, kind)
+    g = u @ r["gate"]["w"]
+    if "skip" in r:
+        return k3.gate(g, r["gate"]["b"], a_r @ r["skip"]["w"],
+                       r["skip"]["b"], kind)[0]
+    return k3.gate(g, r["gate"]["b"], a, None, kind)[0]
+
+
+def _grn_k3(r, a, a_r, kind, outs, ctx_r=None):
+    return _ln_k3(r["ln"], _grn_sum_k3(r, a, a_r, kind, ctx_r), kind, outs)
+
+
+def _glu_addnorm_k3(r, x_r, skip, kind, outs):
+    (s,) = k3.gate(x_r @ r["gate"]["w"], r["gate"]["b"], skip, None, kind)
+    return _ln_k3(r["ln"], s, kind, outs)
 
 
 def _einsum_round(eq: str, a, b, cdt):
@@ -235,13 +276,27 @@ class TftForecaster:
         `tft.select` (the static GRN and both variable selections),
         `tft.seq2seq` (the encoder and decoder LSTMs and their gated skip)
         and `tft.attend` (enrichment, attention, the position-wise GRN and
-        the heads)."""
+        the heads). Where `k3.engaged` holds, the same through K3."""
+        if k3.engaged(params, xn, self.cfg.compute_dtype):
+            return self._forward_k3(params, xn, valid)
         with profiled("tft.select"):
             static_ctx, past_sel, fut_sel = self._select(params, xn, valid)
         with profiled("tft.seq2seq"):
             seq = self._seq2seq(params, past_sel, fut_sel)
         with profiled("tft.attend"):
             return self._attend(params, seq, static_ctx, valid)
+
+    def _forward_k3(self, params, xn, valid):
+        """`_forward` through K3: the same stages, ranges and products, the
+        pointwise work between the products fused, bit for bit."""
+        kind = k3.KINDS[self.cfg.compute_dtype]
+        with profiled("tft.select"):
+            r = k3.rounded_weights(params, kind)
+            static, past, fut = self._select_k3(r, xn, valid, kind)
+        with profiled("tft.seq2seq"):
+            seq = self._seq2seq_k3(r, past, fut, kind)
+        with profiled("tft.attend"):
+            return self._attend_k3(r, seq, static[1], valid, kind)
 
     def _select(self, params, xn, valid):
         """(static context [B, d], selected past [B, Wc, d], selected
@@ -327,11 +382,91 @@ class TftForecaster:
         ff = _grn(params["grn_final"], x_attn, cdt)
         out = _glu_addnorm(params["gate_out"], ff, seq[:, Wc:], cdt)
         quants = _dense(params["head"], out, cdt)            # [B, H, Q]
-        # monotone quantiles: cumulative softplus offsets from the first
-        base = quants[..., :1]
-        steps = F.softplus(quants[..., 1:])
-        quants = torch.cat([base, base + torch.cumsum(steps, dim=-1)], dim=-1)
-        return quants, attn
+        return _monotone(quants), attn
+
+    # -- the stages through K3 ----------------------------------------------
+    # Each stage as the chain above computes it, its tensors as (float32,
+    # rounded) pairs where a product reads them; `r` is the params with the
+    # weights rounded.
+
+    def _select_k3(self, r, xn, valid, kind):
+        """((static context, rounded), (selected past, rounded), (selected
+        future, rounded))."""
+        B = xn.shape[0]
+        Wc, d = self.cfg.context, self.cfg.hidden
+        a = r["static"].expand(B, d)
+        static = _grn_k3(r["grn_static"], a, k3.round_(a, kind)[0], kind,
+                         k3.BOTH)
+        v = valid.float()
+        delta = torch.diff(xn, dim=-1, prepend=xn[:, :1])
+        past_feats = torch.stack(
+            [xn * v, delta * v, v, delta.abs() * v], dim=-1)[:, :Wc]
+        fut_feats = self._known_features(B, xn.device)[:, Wc:]
+        ctx_r = static[1][:, None, :]
+        past = self._vsn_k3(r["vsn_past"], r["vsn_past_var"],
+                            r["emb_past"], past_feats, ctx_r, kind)
+        fut = self._vsn_k3(r["vsn_fut"], r["vsn_fut_var"], r["emb_fut"],
+                           fut_feats, ctx_r, kind)
+        return static, past, fut
+
+    def _vsn_k3(self, r_sel, r_vars, r_emb, feats, ctx_r, kind):
+        """Embeddings and variable selection: (selected, rounded)."""
+        raw, flat_r, *each_r = k3.embed(feats, [e["w"] for e in r_emb],
+                                        [e["b"] for e in r_emb], kind)
+        (sel,) = _grn_k3(r_sel, None, flat_r, kind, k3.RAW, ctx_r=ctx_r)
+        del flat_r            # each rounded copy goes once its product ran
+        w = torch.softmax(sel, dim=-1)
+        sums = []
+        for i, r_var in enumerate(r_vars):
+            sums.append(_grn_sum_k3(r_var, raw[:, :, i], each_r[i], kind))
+            each_r[i] = None
+        mus = [s.mean(-1, keepdim=True) for s in sums]
+        var = [k3.sqdev(s, m, kind)[0].mean(-1, keepdim=True)
+               for s, m in zip(sums, mus)]
+        return k3.vsn(sums, mus, var, [p["ln"]["scale"] for p in r_vars],
+                      [p["ln"]["bias"] for p in r_vars], w, kind)
+
+    def _seq2seq_k3(self, r, past, fut, kind):
+        """Both LSTMs and the gated skip: (sequence, rounded)."""
+        enc, (h_r, c) = _lstm_k3(r["lstm_enc"], past[1], kind)
+        dec, _ = _lstm_k3(r["lstm_dec"], fut[1], kind, h_r, c)
+        seq_r = torch.cat([enc, dec], dim=1)       # the outputs, rounded
+        skip = torch.cat([past[0], fut[0]], dim=1)
+        return _glu_addnorm_k3(r["gate_seq"], seq_r, skip, kind, k3.BOTH)
+
+    def _attend_k3(self, r, seq, static_r, valid, kind):
+        """`_attend` through K3: (quantiles [B, H, Q], attention)."""
+        cfg = self.cfg
+        B, W = valid.shape
+        Wc, H, d, nh = cfg.context, cfg.horizon, cfg.hidden, cfg.heads
+        dh = d // nh
+        enriched, enriched_r = _grn_k3(r["grn_enrich"], seq[0], seq[1], kind,
+                                       k3.BOTH, ctx_r=static_r[:, None, :])
+        (q,) = k3.dense(enriched_r[:, Wc:].contiguous() @ r["attn_q"]["w"],
+                        r["attn_q"]["b"], None, None, False, k3.ROUNDED, kind)
+        (k,) = k3.dense(enriched_r @ r["attn_k"]["w"], r["attn_k"]["b"],
+                        None, None, False, k3.ROUNDED, kind)
+        (val,) = k3.dense(enriched_r @ r["attn_v"]["w"], r["attn_v"]["b"],
+                          None, None, False, k3.ROUNDED, kind)
+        q = q.reshape(B, H, nh, dh).transpose(1, 2)
+        k = k.reshape(B, W, nh, dh).transpose(1, 2)
+        (logits,) = k3.logits(torch.einsum("bnqd,bnkd->bnqk", q, k),
+                              valid[:, None, None, :], Wc, float(np.sqrt(dh)),
+                              kind)
+        attn = torch.softmax(logits, dim=-1)
+        (ctx_h,) = k3.round_(torch.einsum(
+            "bnqk,bkd->bnqd", k3.round_(attn, kind)[0], val), kind)
+        (ctx,) = k3.round_(ctx_h.mean(dim=1), kind)
+        (attn_out,) = k3.dense(ctx @ r["attn_o"]["w"], r["attn_o"]["b"],
+                               None, None, False, k3.ROUNDED, kind)
+        x_attn = _glu_addnorm_k3(r["gate_attn"], attn_out,
+                                 enriched[:, Wc:], kind, k3.BOTH)
+        (ff,) = _grn_k3(r["grn_final"], *x_attn, kind, k3.ROUNDED)
+        (out,) = _glu_addnorm_k3(r["gate_out"], ff, seq[0][:, Wc:], kind,
+                                 k3.ROUNDED)
+        (quants,) = k3.dense(out @ r["head"]["w"], r["head"]["b"], None,
+                             None, False, k3.RAW, kind)
+        return _monotone(quants), attn
 
     # -- public API --------------------------------------------------------
 
@@ -411,6 +546,22 @@ class TftForecaster:
         mask = valid[:, cfg.context:, None].float()
         return (pinball * mask).sum() / (
             mask.sum() * len(cfg.quantiles)).clamp(min=1.0)
+
+
+def _lstm_k3(r, seq_r, kind, h_r=None, c=None):
+    """`lstm_scan` through K3 from the rounded input `seq_r`: the input's
+    products for every step as one product, then in one `k3.lstm` call a
+    step's `h·wh` product and one cell launch. Returns (rounded h at every
+    step, (the last rounded h, c))."""
+    hs, h_r, c = k3.lstm(seq_r @ r["wx"], r["wh"], r["b"], h_r, c, kind)
+    return hs, (h_r, c)
+
+
+def _monotone(quants):
+    """Monotone quantiles: cumulative softplus offsets from the first."""
+    base = quants[..., :1]
+    steps = F.softplus(quants[..., 1:])
+    return torch.cat([base, base + torch.cumsum(steps, dim=-1)], dim=-1)
 
 
 def _norm_ppf(p: float) -> float:

@@ -31,7 +31,8 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
 # name → source file; every kernel the port launches is listed here
 SOURCES = {"lstm_window": "lstm_window.cu",
-           "lstm_stream_step": "lstm_stream_step.cu"}
+           "lstm_stream_step": "lstm_stream_step.cu",
+           "tft_fused": "tft_fused.cu"}
 # host libraries (C++ for the CPU, built with g++): name → source file
 HOST_SOURCES = {"swx_native": "swx_native.cpp"}
 

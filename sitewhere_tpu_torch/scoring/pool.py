@@ -48,7 +48,7 @@ from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, Sco
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
 from sitewhere_tpu_torch.kernel.tracing import NULL_TRACER
-from sitewhere_tpu_torch.ops import lstm_stream_kernel
+from sitewhere_tpu_torch.ops import lstm_stream_kernel, tft_fused
 from sitewhere_tpu_torch.parallel.tenant_stack import TenantStack
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import StackedDeviceRing
@@ -287,6 +287,10 @@ class SharedScoringPool:
         # it is the kernel's engagement share
         self.stream_kernel_dispatches = metrics.counter(
             "scoring.stream_kernel_dispatches")
+        # dispatches that launched K3 (ops/tft_fused.py: its `launches`
+        # grew across the dispatch), the TFT's fused forward
+        self.tft_fused_dispatches = metrics.counter(
+            "scoring.tft_fused_dispatches")
         self.megabatch_tenants = metrics.histogram(
             "scoring.megabatch_tenants_per_dispatch",
             buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0])
@@ -857,7 +861,7 @@ class SharedScoringPool:
                           ctx, self.stack.versions.get(tid, 0)))
 
         t0 = time.monotonic()
-        dispatches, took_k2, rows, scored = [], 0, 0, 0
+        dispatches, took_k2, took_k3, rows, scored = [], 0, 0, 0, 0
         try:
             with self.tracer.span("scoring.dispatch",
                                   n_events=sum(m[2] for m in metas)):
@@ -873,9 +877,11 @@ class SharedScoringPool:
                     # start the device→host copy now (non-blocking): the
                     # settle thread then waits on this copy's event only
                     k0 = lstm_stream_kernel.launches
+                    f0 = tft_fused.launches
                     dispatches.append(start_to_host(
                         self._dispatch(dev_in, val_in)))
                     took_k2 += lstm_stream_kernel.launches > k0
+                    took_k3 += tft_fused.launches > f0
         except Exception:
             logger.exception("pool dispatch failed; reseeding ring")
             self.dropped.inc(sum(m[2] for m in metas))
@@ -885,6 +891,7 @@ class SharedScoringPool:
         self.dispatches.inc(len(dispatches))
         self.megabatch_dispatches.inc(len(dispatches))
         self.stream_kernel_dispatches.inc(took_k2)
+        self.tft_fused_dispatches.inc(took_k3)
         if not self.streaming:
             self.window_rows.inc(rows)
             self.window_pad_rows.inc(scored - rows)

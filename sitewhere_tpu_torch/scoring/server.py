@@ -37,7 +37,7 @@ from sitewhere_tpu_torch.domain.batch import BatchContext, MeasurementBatch, Sco
 from sitewhere_tpu_torch.kernel.egresslane import deliver_scored
 from sitewhere_tpu_torch.kernel.metrics import MetricsRegistry
 from sitewhere_tpu_torch.kernel.tracing import NULL_TRACER
-from sitewhere_tpu_torch.ops import lstm_stream_kernel
+from sitewhere_tpu_torch.ops import lstm_stream_kernel, tft_fused
 from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.ring import DeviceRing
 from sitewhere_tpu_torch.scoring.settle import SETTLE_POOL
@@ -155,6 +155,10 @@ class ScoringSession:
         # `launches` grew across the dispatch)
         self.stream_kernel_dispatches = metrics.counter(
             "scoring.stream_kernel_dispatches")
+        # and those that launched K3 (ops/tft_fused.py), the TFT's fused
+        # forward
+        self.tft_fused_dispatches = metrics.counter(
+            "scoring.tft_fused_dispatches")
         # end-to-end latency decomposition:
         #   admit  = receiver arrival → admission
         #   batch  = admission → dispatch (deadline batching + inflight gate)
@@ -427,6 +431,7 @@ class ScoringSession:
         for rdev, rval, rpos in rounds:
             bucket = self._bucket_for(rdev.shape[0])
             k0 = lstm_stream_kernel.launches
+            f0 = tft_fused.launches
             with self.tracer.span("scoring.update_and_score",
                                   n_events=rdev.shape[0]):
                 scores_dev = self.ring.update_and_score(
@@ -437,6 +442,8 @@ class ScoringSession:
             self.dispatches.inc()
             if lstm_stream_kernel.launches > k0:
                 self.stream_kernel_dispatches.inc()
+            if tft_fused.launches > f0:
+                self.tft_fused_dispatches.inc()
             dispatches.append((start_to_host(scores_dev), rdev.shape[0], rpos))
         return dispatches
 
