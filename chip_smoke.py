@@ -36,18 +36,20 @@ prints no result):
                 host ms of a ring dispatch with each, and the byte bound;
   3c. tft-fused — K3 (the TFT forward's pointwise work,
                 `ops/tft_fused.py`): each of its kernels against its plain
-                version (the PyTorch chain it replaces) at the electricity
-                widths' 16,384-row shapes, on inputs with zeros, negatives,
-                large magnitudes and bf16 ties, bit for bit (and in float16
-                at a smaller shape); `ms`, `graph_ms`, the plain chain's ms
-                and the byte bound; then each stage (`tft.select`,
-                `tft.seq2seq`, `tft.attend`) and the scores of the K3
-                forward against the chain and against the benchmark's
-                reference (`swxbench/reference/tft.py`, imported, never
-                edited) at buckets 256, 1,024, 4,096 and 16,384, vmapped
-                over one stacked tenant and not: every value equal; the
-                same at `TftConfig`'s defaults; device operations and K3
-                launches a forward, before and after;
+                version at the electricity widths' 16,384-row shapes, on
+                inputs with zeros, negatives, large magnitudes and bf16
+                ties, bit for bit (and in float16 at a smaller shape);
+                `ms`, `graph_ms`, the plain version's ms and the byte
+                bound; then the TFT's one stage code through the op table
+                `OPS` against the same code through `PLAIN`, each stage
+                (`tft.select`, `tft.seq2seq`, `tft.attend`) and the
+                scores, and against the benchmark's reference
+                (`swxbench/reference/tft.py`, imported, never edited) at
+                buckets 256, 1,024, 4,096 and 16,384, vmapped over one
+                stacked tenant and not: every value equal; the same at
+                `TftConfig`'s defaults; device operations and K3 launches
+                a forward through each table, and the host's enqueue and
+                the device time of a 16,384-row forward;
   4. main     — SWB1 encode → decode → store → admit → flush for ~8
                 fleet ticks (one with injected anomalies, one flush
                 holding duplicate devices, two small flushes); every
@@ -916,7 +918,7 @@ def tft_fused_kernels(torch) -> list[dict]:
     rows = []
     for name, case in tft_kernel_cases(torch, k3, gen, TFT_ROWS, 0).items():
         args, nbytes = case()
-        op, plain = k3.OPS[name], k3.PLAIN[name]
+        op, plain = getattr(k3.OPS, name), getattr(k3.PLAIN, name)
         launches0 = k3.launches
         got = op(*args)
         torch.cuda.synchronize()
@@ -946,10 +948,11 @@ def tft_fused_kernels(torch) -> list[dict]:
                                            kind, shift).items():
             args, _ = case()
             same_tensors(f"tft-fused {name} kind {kind} shift {shift}",
-                         k3.OPS[name](*args), k3.PLAIN[name](*args))
-    log(f"tft-fused: all {len(k3.OPS)} kernels equal to their plain chains "
-        f"in bfloat16 ({TFT_ROWS} rows) and float16 ({TFT_F16_ROWS} rows), "
-        f"four columns a thread and one")
+                         getattr(k3.OPS, name)(*args),
+                         getattr(k3.PLAIN, name)(*args))
+    log(f"tft-fused: all {len(k3.KERNELS)} kernels equal to their plain "
+        f"versions in bfloat16 ({TFT_ROWS} rows) and float16 "
+        f"({TFT_F16_ROWS} rows), four columns a thread and one")
     return rows
 
 
@@ -970,47 +973,75 @@ def tft_device_ops(torch, fn) -> int:
                and not e.is_user_annotation())
 
 
+# the stages' outputs (`tft_stages`), by the range each is computed in
+TFT_STAGES = {"tft.select": slice(0, 3), "tft.seq2seq": slice(3, 4),
+              "tft.attend": slice(4, 6)}
+
+
+def tft_stages(torch, k3, model, ops, params, xn, valid,
+               vmapped: bool) -> list:
+    """The TFT's stages through the op table `ops` on normalized windows
+    `xn`: [static context, selected past, selected future, sequence,
+    quantiles, attention], vmapped over one stacked tenant (as the pool
+    scores) or not."""
+    from torch.utils._pytree import tree_map
+
+    kind = k3.ROUNDINGS[model.cfg.compute_dtype]
+
+    def stages(p, x, v):
+        r = k3.rounded_weights(ops, p, kind)
+        static, past, fut = model._select(ops, r, x, v, kind)
+        seq = model._seq2seq(ops, r, past, fut, kind)
+        quant, attn = model._attend(ops, r, seq, static[1], v, kind)
+        return static[0], past[0], fut[0], seq[0], quant, attn
+
+    if not vmapped:
+        return list(stages(params, xn, valid))
+    stacked = tree_map(lambda a: a[None].contiguous(), params)
+    return [o[0] for o in torch.func.vmap(stages)(stacked, xn[None],
+                                                  valid[None])]
+
+
 def tft_stage_check(torch, k3, ref, model, params, x, label: str,
                     with_reference: bool) -> None:
-    """The K3 forward's stages against the chain's (and the reference's)
-    on windows `x`, all valid, unvmapped."""
+    """The stages through `OPS` against the same code through `PLAIN` (and
+    the reference's) on windows `x`, all valid, vmapped and not."""
     cfg = model.cfg
     widths = {"window": cfg.window, "horizon": cfg.horizon,
               "hidden": cfg.hidden, "heads": cfg.heads,
               "quantiles": list(cfg.quantiles)}
-    kind = k3.KINDS[cfg.compute_dtype]
     valid = torch.ones(x.shape, dtype=torch.bool, device=x.device)
     xn, _, _ = model._normalize(x, valid)
-    r = k3.rounded_weights(params, kind)
-    chain = model._select(params, xn, valid)
-    fused = model._select_k3(r, xn, valid, kind)
-    same_tensors(f"{label} tft.select", [f[0] for f in fused], list(chain))
-    seq = model._seq2seq(params, chain[1], chain[2])
-    seq_k3 = model._seq2seq_k3(r, fused[1], fused[2], kind)
-    same_tensors(f"{label} tft.seq2seq", [seq_k3[0]], [seq])
-    quant = model._attend(params, seq, chain[0], valid)
-    del chain, seq
-    quant_k3 = model._attend_k3(r, seq_k3, fused[0][1], valid, kind)
-    same_tensors(f"{label} tft.attend", list(quant_k3), list(quant))
-    del quant
-    torch.cuda.empty_cache()
+    want = None
     if with_reference:
         m = ref._Weights(params, cfg.compute_dtype)
         c_s, past, known = ref.selection(m, widths, ref.normalise(widths, x))
-        same_tensors(f"{label} tft.select vs reference",
-                     [f[0] for f in fused], [c_s, past, known])
-        seq_ref = ref.sequence(m, past, known)
-        same_tensors(f"{label} tft.seq2seq vs reference", [seq_k3[0]],
-                     [seq_ref])
-        same_tensors(f"{label} tft.attend vs reference", [quant_k3[0]],
-                     [ref.attention(m, widths, seq_ref, c_s)])
+        seq = ref.sequence(m, past, known)
+        want = [c_s, past, known, seq, ref.attention(m, widths, seq, c_s)]
+        del m, c_s, past, known, seq
+    for vmapped in (False, True):
+        how = f"{label} {'vmapped' if vmapped else 'one'}"
+        fused = tft_stages(torch, k3, model, k3.OPS, params, xn, valid,
+                           vmapped)
+        plain = tft_stages(torch, k3, model, k3.PLAIN, params, xn, valid,
+                           vmapped)
+        for stage, outs in TFT_STAGES.items():
+            same_tensors(f"{how} {stage}, OPS against PLAIN", fused[outs],
+                         plain[outs])
+        del plain
+        if want is not None:      # the reference's attention gives no weights
+            for stage, outs in TFT_STAGES.items():
+                same_tensors(f"{how} {stage} against the reference",
+                             fused[:5][outs], want[outs])
+        del fused
+        torch.cuda.empty_cache()
 
 
 def tft_forward_check(torch, model, params, x, vmapped: bool,
-                      chain_score) -> tuple:
-    """The K3 scores of windows `x` against the chain's, vmapped over one
-    stacked tenant (as the pool scores) or not; returns (scores, K3
-    launches of the forward)."""
+                      plain_score) -> tuple:
+    """The scores of windows `x` through `OPS` against those through
+    `PLAIN`, vmapped over one stacked tenant (as the pool scores) or not;
+    returns (scores, K3 launches of the forward, the forward)."""
     from torch.utils._pytree import tree_map
 
     from sitewhere_tpu_torch.ops import tft_fused as k3
@@ -1026,29 +1057,50 @@ def tft_forward_check(torch, model, params, x, vmapped: bool,
     got = score()
     launches = k3.launches - launches0
     if not launches:
-        raise AssertionError("the TFT forward on the card did not take K3")
-    want = chain_score(score)
-    same_tensors("tft scores, K3 against the chain", [got], [want])
+        raise AssertionError("the TFT forward on the card did not run OPS")
+    launches0 = k3.launches
+    want = plain_score(score)
+    if k3.launches != launches0:
+        raise AssertionError("the TFT forward through PLAIN launched K3")
+    same_tensors("tft scores, OPS against PLAIN", [got], [want])
     return got, launches, score
 
 
+def tft_forward_ms(torch, fn, reps: int = 5) -> dict:
+    """The host's enqueue of `fn` from an idle card (host clock, ms) and
+    its device time (CUDA events, ms), `reps` times each."""
+    host, device = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    return {"host_ms": host, "device_ms": device}
+
+
 def phase_tft_fused(torch) -> dict:
-    """K3's kernels, then the TFT's stages and scores through K3 against the
-    chain and the benchmark's reference at every bucket."""
+    """K3's kernels, then the TFT's stages and scores through `OPS` against
+    `PLAIN` and the benchmark's reference at every bucket."""
     from sitewhere_tpu_torch.models import build_model
     from sitewhere_tpu_torch.ops import tft_fused as k3
     from swxbench.reference import tft as ref
 
     rows = tft_fused_kernels(torch)
 
-    def chain_score(fn):
-        """`fn` with K3 out of the way (the forward the chain's)."""
-        engaged = k3.engaged
-        k3.engaged = lambda params, x, cdt: False
+    def plain_score(fn):
+        """`fn` with the forward's op table forced to `PLAIN`."""
+        table = k3.table
+        k3.table = lambda params, x, cdt: k3.PLAIN
         try:
             return fn()
         finally:
-            k3.engaged = engaged
+            k3.table = table
 
     model = build_model("tft", **TFT_WIDTHS)
     widths = {**TFT_WIDTHS, "quantiles": [0.1, 0.5, 0.9]}
@@ -1066,15 +1118,17 @@ def phase_tft_fused(torch) -> dict:
         row = {"bucket": bucket}
         for vmapped in (False, True):
             got, launches, score = tft_forward_check(
-                torch, model, params, x, vmapped, chain_score)
+                torch, model, params, x, vmapped, plain_score)
             same_tensors(f"tft {bucket} scores vs reference", [got], [want])
             row["k3_launches" + ("_vmap" if vmapped else "")] = launches
         if bucket == 1024:
-            row["device_ops_chain"] = tft_device_ops(
-                torch, lambda: chain_score(score))
+            row["device_ops_plain"] = tft_device_ops(
+                torch, lambda: plain_score(score))
             row["device_ops_k3"] = tft_device_ops(torch, score)
-        log(f"tft-fused bucket {bucket}: stages and scores equal to the "
-            f"chain's and the reference's, {json.dumps(row)}")
+        if bucket == TFT_ROWS:    # vmapped, as the pool runs it
+            row["forward"] = tft_forward_ms(torch, score)
+        log(f"tft-fused bucket {bucket}: stages and scores through OPS equal "
+            f"to PLAIN's and the reference's, {json.dumps(row)}")
         out["buckets"].append(row)
         torch.cuda.empty_cache()
     # the pool's `tft` at `TftConfig`'s defaults (W=64, d=32): bit-equal too
@@ -1085,8 +1139,9 @@ def phase_tft_fused(torch) -> dict:
     tft_stage_check(torch, k3, ref, small, small_params, x, "tft defaults",
                     with_reference=False)
     for vmapped in (False, True):
-        tft_forward_check(torch, small, small_params, x, vmapped, chain_score)
-    log("tft-fused: TftConfig's defaults equal to the chain, vmapped and not")
+        tft_forward_check(torch, small, small_params, x, vmapped, plain_score)
+    log("tft-fused: TftConfig's defaults through OPS equal to PLAIN, "
+        "vmapped and not")
     return out
 
 

@@ -12,13 +12,18 @@ forecasting (config 3) and anomaly alerting.
 The same functional protocol as every registry model: `init`, and
 `score/loss(params, x[B, W], valid[B, W])` — `torch.func.vmap`
 friendly (static shapes, no Python branching on data), so the pool
-scores a stacked tenant axis exactly as it does the LSTM's. Matmuls
-round through the compute dtype where the reference casts
-(`_matmul_round`), softmax, layernorm and state in float32. Params keep
+scores a stacked tenant axis exactly as it does the LSTM's. Params keep
 the JAX `init` layout, lists of dicts included (`emb_past`,
-`vsn_past_var`, ...). On the card, with no param requiring grad, the
-forward's pointwise work between its products runs in K3
-(`ops/tft_fused.py`, `_forward_k3`), bit for bit with this chain.
+`vsn_past_var`, ...).
+
+The forward is written once, over an op table of `ops/tft_fused.py`:
+products round through the compute dtype where the reference casts
+(operands and result), softmax, layernorm and state stay float32, and
+the pointwise work between the products is the table's ops. Where
+`tft_fused.engaged` holds (on the card, no param requiring grad, bf16 or
+float16 products) the table is `OPS`, whose ops launch the K3 kernels;
+elsewhere, the CPU and training included, it is `PLAIN`, their plain
+versions, bit for bit the same.
 """
 
 from __future__ import annotations
@@ -32,12 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from sitewhere_tpu_torch.kernel.tracing import profiled
-from sitewhere_tpu_torch.models.common import (
-    _matmul_round,
-    dense_init,
-    lstm_init,
-    lstm_scan,
-)
+from sitewhere_tpu_torch.models.common import dense_init, lstm_init
 from sitewhere_tpu_torch.ops import tft_fused as k3
 from sitewhere_tpu_torch.utils import resolve_device
 
@@ -58,10 +58,12 @@ class TftConfig:
         return self.window - self.horizon
 
 
-# -- parameter-free building blocks -----------------------------------------
-
-def _dense(p, x, cdt):
-    return _matmul_round(x, p["w"], cdt) + p["b"]
+# -- the blocks, over an op table (ops/tft_fused.py) -------------------------
+# Each takes `ops`, the forward's op table, `r`, the block's params with
+# their weights already rounded (`k3.rounded_weights`), its input both as
+# float32 and rounded (the products' operand), and `kind`, the rounding;
+# and gives back what its consumers read: the float32 value, its rounded
+# copy, or both (`outs`).
 
 
 def _ln_init(d, device):
@@ -69,11 +71,10 @@ def _ln_init(d, device):
             "bias": torch.zeros(d, dtype=torch.float32, device=device)}
 
 
-def _ln(p, x):
-    x = x.float()
+def _ln(ops, p, x, kind, outs):
     mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    var = ops.sqdev(x, mu, kind)[0].mean(-1, keepdim=True)
+    return ops.ln(x, mu, var, p["scale"], p["bias"], outs, kind)
 
 
 def _grn_init(gen, d_in, d, d_out=None, with_context=False, device=None):
@@ -92,18 +93,25 @@ def _grn_init(gen, d_in, d, d_out=None, with_context=False, device=None):
     return p
 
 
-def _grn(p, a, cdt, context=None):
+def _grn_sum(ops, r, a, a_r, kind, ctx_r=None):
+    """A GRN up to its LayerNorm: skip(a) + GLU(W2 ELU(W1 a + W3 c))."""
+    ctx = ((ctx_r @ r["ctx"]["w"], r["ctx"]["b"]) if ctx_r is not None
+           else (None, None))
+    (u,) = ops.dense(a_r @ r["fc1"]["w"], r["fc1"]["b"], *ctx, True,
+                     k3.ROUNDED, kind)
+    (u,) = ops.dense(u @ r["fc2"]["w"], r["fc2"]["b"], None, None, False,
+                     k3.ROUNDED, kind)
+    g = u @ r["gate"]["w"]
+    if "skip" in r:
+        return ops.gate(g, r["gate"]["b"], a_r @ r["skip"]["w"],
+                        r["skip"]["b"], kind)[0]
+    return ops.gate(g, r["gate"]["b"], a, None, kind)[0]
+
+
+def _grn(ops, r, a, a_r, kind, outs, ctx_r=None):
     """GRN(a, c) = LayerNorm(skip(a) + GLU(W2 ELU(W1 a + W3 c)))."""
-    h = _dense(p["fc1"], a, cdt)
-    if context is not None:
-        h = h + _dense(p["ctx"], context, cdt)
-    h = F.elu(h)
-    h2 = _dense(p["fc2"], h, cdt)
-    g = _dense(p["gate"], h2, cdt)
-    val, gate = g.chunk(2, dim=-1)
-    glu = val * torch.sigmoid(gate)
-    skip = _dense(p["skip"], a, cdt) if "skip" in p else a
-    return _ln(p["ln"], skip + glu)
+    return _ln(ops, r["ln"], _grn_sum(ops, r, a, a_r, kind, ctx_r), kind,
+               outs)
 
 
 def _glu_addnorm_init(gen, d, device):
@@ -111,55 +119,47 @@ def _glu_addnorm_init(gen, d, device):
             "ln": _ln_init(d, device)}
 
 
-def _glu_addnorm(p, x, skip, cdt):
-    g = _dense(p["gate"], x, cdt)
-    val, gate = g.chunk(2, dim=-1)
-    return _ln(p["ln"], skip + val * torch.sigmoid(gate))
+def _glu_addnorm(ops, r, x_r, skip, kind, outs):
+    (s,) = ops.gate(x_r @ r["gate"]["w"], r["gate"]["b"], skip, None, kind)
+    return _ln(ops, r["ln"], s, kind, outs)
 
 
-# -- the same blocks through K3 (ops/tft_fused.py) ----------------------------
-# Each takes `r`, the block's params with their weights already rounded
-# (`k3.rounded_weights`), and its input both as float32 and rounded (the
-# products' operand), and gives back what its consumers read: the float32
-# value, its rounded copy, or both (`outs`). The products are the chain's,
-# on the same contiguous float32 operands.
+def _vsn(ops, r_sel, r_vars, r_emb, feats, ctx_r, kind):
+    """Embeddings and variable selection (TFT eq. 6-8) of `feats`
+    [B, T, nvars]: (selected [B, T, d], rounded)."""
+    raw, flat_r, *each_r = ops.embed(feats, [e["w"] for e in r_emb],
+                                     [e["b"] for e in r_emb], kind)
+    (sel,) = _grn(ops, r_sel, None, flat_r, kind, k3.RAW, ctx_r=ctx_r)
+    del flat_r            # each rounded copy goes once its product ran
+    w = torch.softmax(sel, dim=-1)
+    sums = []
+    for i, r_var in enumerate(r_vars):
+        sums.append(_grn_sum(ops, r_var, raw[:, :, i], each_r[i], kind))
+        each_r[i] = None
+    mus = [s.mean(-1, keepdim=True) for s in sums]
+    var = [ops.sqdev(s, m, kind)[0].mean(-1, keepdim=True)
+           for s, m in zip(sums, mus)]
+    return ops.vsn(sums, mus, var, [p["ln"]["scale"] for p in r_vars],
+                   [p["ln"]["bias"] for p in r_vars], w, kind)
 
 
-def _ln_k3(p, x, kind, outs):
-    mu = x.mean(-1, keepdim=True)
-    var = k3.sqdev(x, mu, kind)[0].mean(-1, keepdim=True)
-    return k3.ln(x, mu, var, p["scale"], p["bias"], outs, kind)
+# `lstm_scan` and `_einsum_round` keep the names and arguments that the
+# benchmark's planted faults patch (`swxbench/tests/test_swxbench_tft.py`);
+# `at` is the pair (op table, rounding kind).
 
 
-def _grn_sum_k3(r, a, a_r, kind, ctx_r=None):
-    """A GRN up to its LayerNorm: skip(a) + GLU(W2 ELU(W1 a + W3 c))."""
-    ctx = ((ctx_r @ r["ctx"]["w"], r["ctx"]["b"]) if ctx_r is not None
-           else (None, None))
-    (u,) = k3.dense(a_r @ r["fc1"]["w"], r["fc1"]["b"], *ctx, True,
-                    k3.ROUNDED, kind)
-    (u,) = k3.dense(u @ r["fc2"]["w"], r["fc2"]["b"], None, None, False,
-                    k3.ROUNDED, kind)
-    g = u @ r["gate"]["w"]
-    if "skip" in r:
-        return k3.gate(g, r["gate"]["b"], a_r @ r["skip"]["w"],
-                       r["skip"]["b"], kind)[0]
-    return k3.gate(g, r["gate"]["b"], a, None, kind)[0]
+def lstm_scan(r, seq_r, at, h0=None, c0=None):
+    """The LSTM from the rounded input `seq_r`: the input's products for
+    every step as one product, then in one `ops.lstm` call a step's `h·wh`
+    product and its cell. Returns (rounded h at every step, (the last
+    rounded h, c))."""
+    hs, h_r, c = at[0].lstm(seq_r @ r["wx"], r["wh"], r["b"], h0, c0, at[1])
+    return hs, (h_r, c)
 
 
-def _grn_k3(r, a, a_r, kind, outs, ctx_r=None):
-    return _ln_k3(r["ln"], _grn_sum_k3(r, a, a_r, kind, ctx_r), kind, outs)
-
-
-def _glu_addnorm_k3(r, x_r, skip, kind, outs):
-    (s,) = k3.gate(x_r @ r["gate"]["w"], r["gate"]["b"], skip, None, kind)
-    return _ln_k3(r["ln"], s, kind, outs)
-
-
-def _einsum_round(eq: str, a, b, cdt):
-    """`jnp.einsum(eq, a.astype(cdt), b.astype(cdt)).astype(f32)`: the
-    product of `cdt` operands summed in float32 and rounded once to
-    `cdt`, as `_matmul_round` does for matmuls."""
-    return torch.einsum(eq, a.to(cdt).float(), b.to(cdt).float()).to(cdt).float()
+def _einsum_round(eq, a_r, b_r, at):
+    """The product `eq` of rounded operands, rounded through `round`."""
+    return at[0].round(torch.einsum(eq, a_r, b_r), at[1])[0]
 
 
 class TftForecaster:
@@ -258,214 +258,101 @@ class TftForecaster:
                              torch.cos(2 * math.pi * pos)], dim=-1)
         return feats.expand(B, w, 2)
 
-    def _vsn(self, p_sel, p_vars, embs, static_ctx, cdt):
-        """Variable selection (TFT eq. 6-8). embs: [B, T, nvars, d]."""
-        B, T, nv, d = embs.shape
-        flat = embs.reshape(B, T, nv * d)
-        w = torch.softmax(
-            _grn(p_sel, flat, cdt, context=static_ctx[:, None, :]), dim=-1)
-        proc = torch.stack([_grn(p_vars[i], embs[:, :, i], cdt)
-                            for i in range(nv)], dim=2)
-        return (proc * w[..., None]).sum(dim=2), w   # [B, T, d], [B, T, nv]
-
     # -- forward -----------------------------------------------------------
 
     def _forward(self, params, xn, valid):
         """Normalized window → (quantiles [B, H, Q], attention
-        [B, Hd, H, W]). While a profiler runs, a range names each stage:
-        `tft.select` (the static GRN and both variable selections),
+        [B, Hd, H, W]) through the op table `k3.table` picks. While a
+        profiler runs, a range names each stage: `tft.select` (the weights'
+        rounding, the static GRN and both variable selections),
         `tft.seq2seq` (the encoder and decoder LSTMs and their gated skip)
         and `tft.attend` (enrichment, attention, the position-wise GRN and
-        the heads). Where `k3.engaged` holds, the same through K3."""
-        if k3.engaged(params, xn, self.cfg.compute_dtype):
-            return self._forward_k3(params, xn, valid)
-        with profiled("tft.select"):
-            static_ctx, past_sel, fut_sel = self._select(params, xn, valid)
-        with profiled("tft.seq2seq"):
-            seq = self._seq2seq(params, past_sel, fut_sel)
-        with profiled("tft.attend"):
-            return self._attend(params, seq, static_ctx, valid)
-
-    def _forward_k3(self, params, xn, valid):
-        """`_forward` through K3: the same stages, ranges and products, the
-        pointwise work between the products fused, bit for bit."""
-        kind = k3.KINDS[self.cfg.compute_dtype]
-        with profiled("tft.select"):
-            r = k3.rounded_weights(params, kind)
-            static, past, fut = self._select_k3(r, xn, valid, kind)
-        with profiled("tft.seq2seq"):
-            seq = self._seq2seq_k3(r, past, fut, kind)
-        with profiled("tft.attend"):
-            return self._attend_k3(r, seq, static[1], valid, kind)
-
-    def _select(self, params, xn, valid):
-        """(static context [B, d], selected past [B, Wc, d], selected
-        future [B, H, d])."""
-        cfg = self.cfg
-        cdt = cfg.compute_dtype
-        B = xn.shape[0]
-        Wc, d = cfg.context, cfg.hidden
-
-        static_ctx = _grn(params["grn_static"],
-                          params["static"].expand(B, d), cdt)
-
-        # observed past features (value, masked delta, masked value,
-        # validity flag); horizon values are masked out — the model must
-        # not see its own target
-        v = valid.float()
-        delta = torch.diff(xn, dim=-1, prepend=xn[:, :1])
-        past_feats = torch.stack(
-            [xn * v, delta * v, v, delta.abs() * v], dim=-1)[:, :Wc]
-        fut_feats = self._known_features(B, xn.device)
-
-        past_embs = torch.stack(
-            [_dense(params["emb_past"][i], past_feats[..., i:i + 1], cdt)
-             for i in range(self.N_PAST_VARS)], dim=2)   # [B, Wc, nv, d]
-        fut_embs = torch.stack(
-            [_dense(params["emb_fut"][i], fut_feats[:, Wc:, i:i + 1], cdt)
-             for i in range(self.N_FUT_VARS)], dim=2)    # [B, H, nv, d]
-
-        past_sel, _ = self._vsn(params["vsn_past"], params["vsn_past_var"],
-                                past_embs, static_ctx, cdt)
-        fut_sel, _ = self._vsn(params["vsn_fut"], params["vsn_fut_var"],
-                               fut_embs, static_ctx, cdt)
-        return static_ctx, past_sel, fut_sel
-
-    def _seq2seq(self, params, past_sel, fut_sel):
-        """The LSTM encoder over the context seeding the decoder over the
-        horizon, gated back onto the selected inputs: [B, W, d]."""
+        the heads)."""
         cdt = self.cfg.compute_dtype
-        enc_out, (h, c) = lstm_scan(params["lstm_enc"], past_sel, cdt)
-        dec_out, _ = lstm_scan(params["lstm_dec"], fut_sel, cdt, h0=h, c0=c)
-        seq = torch.cat([enc_out, dec_out], dim=1)        # [B, W, d]
-        skip = torch.cat([past_sel, fut_sel], dim=1)
-        return _glu_addnorm(params["gate_seq"], seq, skip, cdt)
+        ops, kind = k3.table(params, xn, cdt), k3.ROUNDINGS[cdt]
+        with profiled("tft.select"):
+            r = k3.rounded_weights(ops, params, kind)
+            static, past, fut = self._select(ops, r, xn, valid, kind)
+        with profiled("tft.seq2seq"):
+            seq = self._seq2seq(ops, r, past, fut, kind)
+        with profiled("tft.attend"):
+            return self._attend(ops, r, seq, static[1], valid, kind)
 
-    def _attend(self, params, seq, static_ctx, valid):
-        """Static enrichment, attention at the horizon and the tail:
-        (quantiles [B, H, Q], attention [B, Hd, H, W])."""
-        cfg = self.cfg
-        cdt = cfg.compute_dtype
-        B, W = valid.shape
-        Wc, H, d = cfg.context, cfg.horizon, cfg.hidden
-        dev = seq.device
+    # -- the stages ----------------------------------------------------------
+    # Each takes the op table, `r` (the params with the weights rounded) and
+    # the rounding kind; its tensors are (float32, rounded) pairs where a
+    # product reads them.
 
-        enriched = _grn(params["grn_enrich"], seq, cdt,
-                        context=static_ctx[:, None, :])
-
-        # interpretable multi-head attention: per-head Q/K, SHARED value
-        # head (Lim et al. §4.4) — queries are the horizon positions only
-        nh = cfg.heads
-        dh = d // nh
-        q = _dense(params["attn_q"], enriched[:, Wc:], cdt)  # [B, H, d]
-        k = _dense(params["attn_k"], enriched, cdt)          # [B, W, d]
-        val = _dense(params["attn_v"], enriched, cdt)        # [B, W, dh]
-        q = q.reshape(B, H, nh, dh).transpose(1, 2)          # [B, nh, H, dh]
-        k = k.reshape(B, W, nh, dh).transpose(1, 2)          # [B, nh, W, dh]
-        logits = _einsum_round("bnqd,bnkd->bnqk", q, k, cdt) / np.sqrt(dh)
-        # causal + validity mask: horizon step i sits at absolute Wc+i and
-        # may attend to positions <= Wc+i; invalid past steps are masked
-        key_pos = torch.arange(W, device=dev)
-        causal = key_pos[None, :] <= (Wc + torch.arange(H, device=dev))[:, None]
-        key_ok = torch.cat([valid[:, :Wc].bool(),
-                            torch.ones((B, H), dtype=torch.bool, device=dev)],
-                           dim=1)                            # [B, W]
-        mask = causal[None, None] & key_ok[:, None, None]
-        logits = logits.masked_fill(~mask, -1e9)
-        attn = torch.softmax(logits, dim=-1)
-        ctx_h = _einsum_round("bnqk,bkd->bnqd", attn, val, cdt)
-        ctx = ctx_h.mean(dim=1)                              # head-mean [B, H, dh]
-        attn_out = _dense(params["attn_o"], ctx, cdt)
-        x_attn = _glu_addnorm(params["gate_attn"], attn_out,
-                              enriched[:, Wc:], cdt)
-
-        ff = _grn(params["grn_final"], x_attn, cdt)
-        out = _glu_addnorm(params["gate_out"], ff, seq[:, Wc:], cdt)
-        quants = _dense(params["head"], out, cdt)            # [B, H, Q]
-        return _monotone(quants), attn
-
-    # -- the stages through K3 ----------------------------------------------
-    # Each stage as the chain above computes it, its tensors as (float32,
-    # rounded) pairs where a product reads them; `r` is the params with the
-    # weights rounded.
-
-    def _select_k3(self, r, xn, valid, kind):
-        """((static context, rounded), (selected past, rounded), (selected
-        future, rounded))."""
+    def _select(self, ops, r, xn, valid, kind):
+        """((static context [B, d], rounded), (selected past [B, Wc, d],
+        rounded), (selected future [B, H, d], rounded))."""
         B = xn.shape[0]
         Wc, d = self.cfg.context, self.cfg.hidden
         a = r["static"].expand(B, d)
-        static = _grn_k3(r["grn_static"], a, k3.round_(a, kind)[0], kind,
-                         k3.BOTH)
+        static = _grn(ops, r["grn_static"], a, ops.round(a, kind)[0], kind,
+                      k3.BOTH)
+        # observed past features (value, masked delta, validity, |delta|);
+        # horizon values are masked out — the model must not see its own
+        # target
         v = valid.float()
         delta = torch.diff(xn, dim=-1, prepend=xn[:, :1])
         past_feats = torch.stack(
             [xn * v, delta * v, v, delta.abs() * v], dim=-1)[:, :Wc]
         fut_feats = self._known_features(B, xn.device)[:, Wc:]
         ctx_r = static[1][:, None, :]
-        past = self._vsn_k3(r["vsn_past"], r["vsn_past_var"],
-                            r["emb_past"], past_feats, ctx_r, kind)
-        fut = self._vsn_k3(r["vsn_fut"], r["vsn_fut_var"], r["emb_fut"],
-                           fut_feats, ctx_r, kind)
+        past = _vsn(ops, r["vsn_past"], r["vsn_past_var"], r["emb_past"],
+                    past_feats, ctx_r, kind)
+        fut = _vsn(ops, r["vsn_fut"], r["vsn_fut_var"], r["emb_fut"],
+                   fut_feats, ctx_r, kind)
         return static, past, fut
 
-    def _vsn_k3(self, r_sel, r_vars, r_emb, feats, ctx_r, kind):
-        """Embeddings and variable selection: (selected, rounded)."""
-        raw, flat_r, *each_r = k3.embed(feats, [e["w"] for e in r_emb],
-                                        [e["b"] for e in r_emb], kind)
-        (sel,) = _grn_k3(r_sel, None, flat_r, kind, k3.RAW, ctx_r=ctx_r)
-        del flat_r            # each rounded copy goes once its product ran
-        w = torch.softmax(sel, dim=-1)
-        sums = []
-        for i, r_var in enumerate(r_vars):
-            sums.append(_grn_sum_k3(r_var, raw[:, :, i], each_r[i], kind))
-            each_r[i] = None
-        mus = [s.mean(-1, keepdim=True) for s in sums]
-        var = [k3.sqdev(s, m, kind)[0].mean(-1, keepdim=True)
-               for s, m in zip(sums, mus)]
-        return k3.vsn(sums, mus, var, [p["ln"]["scale"] for p in r_vars],
-                      [p["ln"]["bias"] for p in r_vars], w, kind)
-
-    def _seq2seq_k3(self, r, past, fut, kind):
-        """Both LSTMs and the gated skip: (sequence, rounded)."""
-        enc, (h_r, c) = _lstm_k3(r["lstm_enc"], past[1], kind)
-        dec, _ = _lstm_k3(r["lstm_dec"], fut[1], kind, h_r, c)
+    def _seq2seq(self, ops, r, past, fut, kind):
+        """The LSTM encoder over the context seeding the decoder over the
+        horizon, gated back onto the selected inputs: (sequence [B, W, d],
+        rounded)."""
+        enc, (h_r, c) = lstm_scan(r["lstm_enc"], past[1], (ops, kind))
+        dec, _ = lstm_scan(r["lstm_dec"], fut[1], (ops, kind), h0=h_r, c0=c)
         seq_r = torch.cat([enc, dec], dim=1)       # the outputs, rounded
         skip = torch.cat([past[0], fut[0]], dim=1)
-        return _glu_addnorm_k3(r["gate_seq"], seq_r, skip, kind, k3.BOTH)
+        return _glu_addnorm(ops, r["gate_seq"], seq_r, skip, kind, k3.BOTH)
 
-    def _attend_k3(self, r, seq, static_r, valid, kind):
-        """`_attend` through K3: (quantiles [B, H, Q], attention)."""
+    def _attend(self, ops, r, seq, static_r, valid, kind):
+        """Static enrichment, attention at the horizon and the tail:
+        (quantiles [B, H, Q], attention [B, Hd, H, W])."""
         cfg = self.cfg
         B, W = valid.shape
         Wc, H, d, nh = cfg.context, cfg.horizon, cfg.hidden, cfg.heads
         dh = d // nh
-        enriched, enriched_r = _grn_k3(r["grn_enrich"], seq[0], seq[1], kind,
-                                       k3.BOTH, ctx_r=static_r[:, None, :])
-        (q,) = k3.dense(enriched_r[:, Wc:].contiguous() @ r["attn_q"]["w"],
-                        r["attn_q"]["b"], None, None, False, k3.ROUNDED, kind)
-        (k,) = k3.dense(enriched_r @ r["attn_k"]["w"], r["attn_k"]["b"],
-                        None, None, False, k3.ROUNDED, kind)
-        (val,) = k3.dense(enriched_r @ r["attn_v"]["w"], r["attn_v"]["b"],
-                          None, None, False, k3.ROUNDED, kind)
-        q = q.reshape(B, H, nh, dh).transpose(1, 2)
-        k = k.reshape(B, W, nh, dh).transpose(1, 2)
-        (logits,) = k3.logits(torch.einsum("bnqd,bnkd->bnqk", q, k),
-                              valid[:, None, None, :], Wc, float(np.sqrt(dh)),
-                              kind)
+        enriched, enriched_r = _grn(ops, r["grn_enrich"], seq[0], seq[1],
+                                    kind, k3.BOTH, ctx_r=static_r[:, None, :])
+        # interpretable multi-head attention: per-head Q/K, SHARED value
+        # head (Lim et al. §4.4) — queries are the horizon positions only
+        (q,) = ops.dense(enriched_r[:, Wc:].contiguous() @ r["attn_q"]["w"],
+                         r["attn_q"]["b"], None, None, False, k3.ROUNDED, kind)
+        (k,) = ops.dense(enriched_r @ r["attn_k"]["w"], r["attn_k"]["b"],
+                         None, None, False, k3.ROUNDED, kind)
+        (val,) = ops.dense(enriched_r @ r["attn_v"]["w"], r["attn_v"]["b"],
+                           None, None, False, k3.ROUNDED, kind)
+        q = q.reshape(B, H, nh, dh).transpose(1, 2)          # [B, nh, H, dh]
+        k = k.reshape(B, W, nh, dh).transpose(1, 2)          # [B, nh, W, dh]
+        # causal + validity mask: horizon step i sits at absolute Wc+i and
+        # may attend to positions <= Wc+i; invalid past steps are masked
+        (logits,) = ops.logits(torch.einsum("bnqd,bnkd->bnqk", q, k),
+                               valid[:, None, None, :], Wc,
+                               float(np.sqrt(dh)), kind)
         attn = torch.softmax(logits, dim=-1)
-        (ctx_h,) = k3.round_(torch.einsum(
-            "bnqk,bkd->bnqd", k3.round_(attn, kind)[0], val), kind)
-        (ctx,) = k3.round_(ctx_h.mean(dim=1), kind)
-        (attn_out,) = k3.dense(ctx @ r["attn_o"]["w"], r["attn_o"]["b"],
-                               None, None, False, k3.ROUNDED, kind)
-        x_attn = _glu_addnorm_k3(r["gate_attn"], attn_out,
-                                 enriched[:, Wc:], kind, k3.BOTH)
-        (ff,) = _grn_k3(r["grn_final"], *x_attn, kind, k3.ROUNDED)
-        (out,) = _glu_addnorm_k3(r["gate_out"], ff, seq[0][:, Wc:], kind,
-                                 k3.ROUNDED)
-        (quants,) = k3.dense(out @ r["head"]["w"], r["head"]["b"], None,
-                             None, False, k3.RAW, kind)
+        ctx_h = _einsum_round("bnqk,bkd->bnqd", ops.round(attn, kind)[0],
+                              val, (ops, kind))
+        (ctx,) = ops.round(ctx_h.mean(dim=1), kind)         # head-mean
+        (attn_out,) = ops.dense(ctx @ r["attn_o"]["w"], r["attn_o"]["b"],
+                                None, None, False, k3.ROUNDED, kind)
+        x_attn = _glu_addnorm(ops, r["gate_attn"], attn_out,
+                              enriched[:, Wc:], kind, k3.BOTH)
+        (ff,) = _grn(ops, r["grn_final"], *x_attn, kind, k3.ROUNDED)
+        (out,) = _glu_addnorm(ops, r["gate_out"], ff, seq[0][:, Wc:], kind,
+                              k3.ROUNDED)
+        (quants,) = ops.dense(out @ r["head"]["w"], r["head"]["b"], None,
+                              None, False, k3.RAW, kind)       # [B, H, Q]
         return _monotone(quants), attn
 
     # -- public API --------------------------------------------------------
@@ -546,15 +433,6 @@ class TftForecaster:
         mask = valid[:, cfg.context:, None].float()
         return (pinball * mask).sum() / (
             mask.sum() * len(cfg.quantiles)).clamp(min=1.0)
-
-
-def _lstm_k3(r, seq_r, kind, h_r=None, c=None):
-    """`lstm_scan` through K3 from the rounded input `seq_r`: the input's
-    products for every step as one product, then in one `k3.lstm` call a
-    step's `h·wh` product and one cell launch. Returns (rounded h at every
-    step, (the last rounded h, c))."""
-    hs, h_r, c = k3.lstm(seq_r @ r["wx"], r["wh"], r["b"], h_r, c, kind)
-    return hs, (h_r, c)
 
 
 def _monotone(quants):

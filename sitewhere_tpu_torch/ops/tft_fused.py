@@ -1,21 +1,27 @@
 """The TFT forward's pointwise work as hand-written CUDA kernels (K3).
 
 Replaces no Pallas kernel: the JAX package leaves the Temporal Fusion
-Transformer's forward to XLA. In the port each dense layer spells the
-reference's bf16 product out in float32 (`models/common.py`'s
-`_matmul_round`) and every pointwise step around the products is its own
-launch; at the electricity widths those passes took twice the card's
-product time. `csrc/tft_fused.cu` (whose header states the design and the
-bound: bytes) computes each chain of them as one pass beside the float32
-products, which stay PyTorch's, bit for bit with the chains.
+Transformer's forward to XLA. The reference rounds each product to its
+bf16 compute dtype; the port spells the products out in float32, and at
+the electricity widths the pointwise passes around them, each its own
+launch, took twice the card's product time. `csrc/tft_fused.cu` (whose
+header states the design and the bound: bytes) computes each chain of
+them as one pass beside the float32 products, which stay PyTorch's.
 
-Each op is a `torch.library` custom op (`swx::tft_*`) with a `vmap` rule,
-so the pool's `vmap(model.score)` over the stacked tenant axis hands the
-kernel the tenant axis as its leading row dimension. On the card an op
-launches its kernel; anywhere else it runs its plain version, the PyTorch
-chain it replaces, which is what the CPU runs and what `chip_smoke.py`
-holds each kernel to. `on_card` is the one test of where the tensors lie.
-Which forwards take this path is `engaged`'s rule (`models/tft.py`).
+The forward (`models/tft.py`) is written once, over an op table (`Table`):
+
+- `OPS`, the `torch.library` custom ops (`swx::tft_*`), each with a `vmap`
+  rule, so the pool's `vmap(model.score)` over the stacked tenant axis
+  hands the kernel the tenant axis as its leading row dimension. On the
+  card an op launches its kernel; anywhere else it runs its plain
+  version. `on_card` is the one test of where the tensors lie.
+- `PLAIN`, each op's plain version: plain PyTorch, which autograd and
+  `vmap` go through, and which rounds to any compute dtype of the model,
+  float32 (the identity) included. `chip_smoke.py` holds each kernel to
+  it bit for bit.
+
+`engaged` is the one rule that picks `OPS` (`table`): the window on the
+card, no parameter requiring grad, bf16 or float16 products.
 
 While a profiler runs, every kernel launches inside a range of its own,
 `tft_fused.launch` (`kernel/tracing.profiler_range`, a record like an
@@ -31,19 +37,20 @@ and the stage around it.
 the dedicated session count a dispatch as K3's
 (`scoring.tft_fused_dispatches`) when it grew across their step.
 
-`rounded_weights` rounds each weight to the compute dtype once per
-install, not once a forward: the copy is cached on the weight tensor
-itself (held weakly, so it goes with its tensor) and made again when the
-tensor's version counter moved, as every install in the port moves it
+`OPS.weights` rounds each weight to the compute dtype once per install,
+not once a forward: the copy is cached on the weight tensor itself (held
+weakly, so it goes with its tensor) and made again when the tensor's
+version counter moved, as every install in the port moves it
 (`TenantStack.set_params` and the sessions' swaps write with `copy_`). A
-write through `.data` would not move it, and is not made.
+write through `.data` would not move it, and is not made. `PLAIN.weights`
+rounds anew each forward, with no cache.
 """
 
 from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,7 +65,10 @@ launches = 0
 
 # compute dtype → the kernels' rounding kind
 KINDS = {torch.bfloat16: 0, torch.float16: 1}
-_DTYPES = {v: k for k, v in KINDS.items()}
+# ... and the plain versions', which take float32 products too (whose
+# rounding is the identity)
+ROUNDINGS = {**KINDS, torch.float32: 2}
+_DTYPES = {v: k for k, v in ROUNDINGS.items()}
 
 # which outputs an op writes: the float32 value, its rounded copy, or both
 RAW, ROUNDED, BOTH = 1, 2, 3
@@ -70,15 +80,17 @@ MAX_VARS = 4
 
 
 def on_card(device) -> bool:
-    """Is `device` the card? The one test that sends an op to its kernel."""
+    """Is `device` the card? The one test that sends an op to its kernel:
+    each op asks it, not the dispatcher's device key, so that the tests
+    can take CPU tensors for the card's and read each launch's arguments."""
     return torch.device(device).type == "cuda"
 
 
 def engaged(params, x: Tensor, cdt) -> bool:
-    """Does a TFT forward on `x` take the fused path? Where the window is on
-    the card, no parameter requires grad (training through `loss` keeps
-    the chain, which autograd differentiates) and the products round to
-    bf16 or float16."""
+    """Does a TFT forward on `x` run `OPS`? Where the window is on the card,
+    no parameter requires grad (training through `loss` runs `PLAIN`,
+    which autograd differentiates) and the products round to bf16 or
+    float16."""
     return (cdt in KINDS and on_card(x.device)
             and not any(t.requires_grad for t in tree_leaves(params)))
 
@@ -122,9 +134,13 @@ def _weights_vmap(info, in_dims, ws, kind):
 weights.register_vmap(_weights_vmap)
 
 
-def rounded_weights(params: dict, kind: int) -> dict:
+def weights_plain(ws: List[Tensor], kind: int) -> List[Tensor]:
+    return [_round(w, kind) for w in ws]
+
+
+def rounded_weights(ops, params: dict, kind: int) -> dict:
     """`params` with every weight leaf (`WEIGHT_KEYS`) rounded, through one
-    `weights` call; biases, norms and the static vector as they are."""
+    `ops.weights` call; biases, norms and the static vector as they are."""
     found: list = []
 
     def collect(node):
@@ -139,7 +155,7 @@ def rounded_weights(params: dict, kind: int) -> dict:
                 collect(v)
 
     collect(params)
-    done = iter(weights(found, kind))
+    done = iter(ops.weights(found, kind))
 
     def rebuild(node):
         if isinstance(node, dict):
@@ -350,7 +366,7 @@ def _rowwise_vmap(op):
     return rule
 
 
-# -- the ops: each a plain version (the chain it replaces) and the kernel -----
+# -- the ops: each a plain version and the kernel ----------------------------
 
 
 def round_plain(x: Tensor, kind: int) -> List[Tensor]:
@@ -509,7 +525,7 @@ def lstm(xw: Tensor, wh: Tensor, b: Tensor, h0: Optional[Tensor],
          c0: Optional[Tensor], kind: int) -> List[Tensor]:
     """The LSTM over `xw` [..., T, 4d], the input's products for every
     step, unrounded, from (h0, c0) (zeros where None; h0 rounded): a step
-    is the product h·wh (cuBLAS, as the chain) and one cell launch.
+    is the product h·wh (cuBLAS, as the plain version) and one cell launch.
     Returns (rdt(h) at every step [..., T, d], the last rdt(h), the last
     c)."""
     if not on_card(xw.device):
@@ -633,13 +649,35 @@ def logits(e: Tensor, valid: Tensor, context: int, scale: float,
     return [out]
 
 
-# each op's plain version, by the name of its kernel's entry
-PLAIN = {"round": round_plain, "dense": dense_plain, "gate": gate_plain,
-         "sqdev": sqdev_plain, "ln": ln_plain, "vsn": vsn_plain,
-         "lstm": lstm_plain, "embed": embed_plain, "logits": logits_plain}
-OPS = {"round": round_, "dense": dense, "gate": gate, "sqdev": sqdev,
-       "ln": ln, "vsn": vsn, "lstm": lstm, "embed": embed, "logits": logits}
+class Table(NamedTuple):
+    """The TFT forward's ops by name, one signature an entry in both tables:
+    each kernel's op by the name of its entry, and the weights' rounding."""
+    weights: Callable
+    round: Callable
+    dense: Callable
+    gate: Callable
+    sqdev: Callable
+    ln: Callable
+    vsn: Callable
+    lstm: Callable
+    embed: Callable
+    logits: Callable
 
-for _op in OPS.values():
-    if _op is not lstm:
+
+OPS = Table(weights, round_, dense, gate, sqdev, ln, vsn, lstm, embed, logits)
+PLAIN = Table(weights_plain, round_plain, dense_plain, gate_plain,
+              sqdev_plain, ln_plain, vsn_plain, lstm_plain, embed_plain,
+              logits_plain)
+# the entries that launch a kernel on the card
+KERNELS = Table._fields[1:]
+
+
+def table(params, x: Tensor, cdt) -> Table:
+    """The op table a TFT forward on `x` runs: `OPS` where `engaged`."""
+    return OPS if engaged(params, x, cdt) else PLAIN
+
+
+for _name in KERNELS:
+    if _name != "lstm":
+        _op = getattr(OPS, _name)
         _op.register_vmap(_rowwise_vmap(_op))

@@ -1,10 +1,14 @@
 """K3, the TFT forward's pointwise work as CUDA kernels (`ops/tft_fused.py`),
-on the CPU: the fused forward (each op's plain version, which is what the
-CPU runs) held bit for bit against the chain stage by stage and whole, at
-`TftConfig`'s defaults and at the electricity widths, with and without
-`vmap` over a tenant stack with an empty slot; each op's `vmap` rule
-against the op tenant by tenant; the engagement rule, with the C entries
-replaced by a recorder so that nothing launches; the wrapper's arguments
+on the CPU. The forward is one stage code over an op table: through `OPS`
+(whose ops run their plain versions off the card, through their `vmap`
+rules under `vmap`) it is held bit for bit against the same code through
+`PLAIN`, "the chain", stage by stage and whole, at `TftConfig`'s defaults
+and at the electricity widths, with and without `vmap` over a tenant
+stack with an empty slot; and on windows all valid, against the
+benchmark's plain reference (`swxbench/reference/tft.py`) in bfloat16 and
+float32. Also: each op's `vmap` rule against the op tenant by tenant; the
+engagement rule, with the C entries replaced by a recorder so that
+nothing launches; autograd through `PLAIN`; the wrapper's arguments
 against the kernels' entry points; the rounded-weight cache across param
 swaps; every launch in the profiler's event tree under the forward's
 ranges; and the counter `scoring.tft_fused_dispatches` in the pool and the
@@ -27,6 +31,7 @@ from sitewhere_tpu_torch.persistence.telemetry import TelemetryStore
 from sitewhere_tpu_torch.scoring.pool import PoolConfig, SharedScoringPool
 from sitewhere_tpu_torch.scoring.server import ScoringConfig, ScoringSession
 from sitewhere_tpu_torch.sim.simulator import DeviceSimulator, SimConfig
+from swxbench.reference import tft as ref
 from tests.test_pipeline import wait_until
 
 # the tier-1 run shares the host's cores between test workers
@@ -85,33 +90,48 @@ def _same(got, want) -> None:
         assert torch.equal(g, w)
 
 
-# -- the fused forward against the chain, stage by stage -----------------------
+# -- the forward through OPS against PLAIN and the reference, by stage -------
 
 
-def _stages_chain(model, params, x, valid):
+def _stages(model, ops, params, x, valid):
+    """Each stage's outputs through the op table `ops`, and the score with
+    `k3.table` answering `ops`."""
+    kind = k3.ROUNDINGS[model.cfg.compute_dtype]
     xn, _, _ = model._normalize(x, valid)
-    static, past, fut = model._select(params, xn, valid)
-    seq = model._seq2seq(params, past, fut)
-    quant, attn = model._attend(params, seq, static, valid)
-    return {"select": [static, past, fut], "seq2seq": [seq],
-            "attend": [quant, attn], "whole": [model.score(params, x, valid)]}
-
-
-def _stages_k3(model, params, x, valid):
-    kind = k3.KINDS[model.cfg.compute_dtype]
-    xn, _, _ = model._normalize(x, valid)
-    r = k3.rounded_weights(params, kind)
-    static, past, fut = model._select_k3(r, xn, valid, kind)
-    seq = model._seq2seq_k3(r, past, fut, kind)
-    quant, attn = model._attend_k3(r, seq, static[1], valid, kind)
-    engaged = k3.engaged
-    k3.engaged = lambda params, x, cdt: True   # the K3 forward on the CPU
+    r = k3.rounded_weights(ops, params, kind)
+    static, past, fut = model._select(ops, r, xn, valid, kind)
+    seq = model._seq2seq(ops, r, past, fut, kind)
+    quant, attn = model._attend(ops, r, seq, static[1], valid, kind)
+    table = k3.table
+    k3.table = lambda params, x, cdt: ops
     try:
         score = model.score(params, x, valid)
     finally:
-        k3.engaged = engaged
-    return {"select": [static[0], past[0], fut[0]], "seq2seq": [seq[0]],
+        k3.table = table
+    return {"select": [*static, *past, *fut], "seq2seq": list(seq),
             "attend": [quant, attn], "whole": [score]}
+
+
+def _reference(model, params, x):
+    """The reference's stages on windows `x`, all valid, laid out as
+    `_stages`'s float32 outputs (its attention gives no weights)."""
+    cfg = model.cfg
+    widths = {"window": cfg.window, "horizon": cfg.horizon,
+              "hidden": cfg.hidden, "heads": cfg.heads,
+              "quantiles": list(cfg.quantiles)}
+    m = ref._Weights(params, cfg.compute_dtype)
+    c_s, past, known = ref.selection(m, widths, ref.normalise(widths, x))
+    seq = ref.sequence(m, past, known)
+    return {"select": [c_s, past, known], "seq2seq": [seq],
+            "attend": [ref.attention(m, widths, seq, c_s)],
+            "whole": [ref.window_scores(params, widths, x,
+                                        cfg.compute_dtype)]}
+
+
+def _float32_of(stages: dict) -> dict:
+    """`_stages`'s outputs that the reference has: the float32 values."""
+    return {"select": stages["select"][::2], "seq2seq": stages["seq2seq"][:1],
+            "attend": stages["attend"][:1], "whole": stages["whole"]}
 
 
 def _stacked(model):
@@ -131,26 +151,45 @@ def _stacked(model):
 
 
 _computed: dict = {}
+REFERENCE_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _both(config: str, vmapped: bool):
-    """(chain's stages, K3's stages), computed once a module run."""
+    """(stages through OPS, through PLAIN, and per reference dtype on
+    windows all valid (through OPS, the reference's)), computed once a
+    module run."""
     key = (config, vmapped)
-    if key not in _computed:
-        model = _model(config)
-        if vmapped:
-            params, x, valid = _stacked(model)
-            chain = torch.func.vmap(
-                lambda p, a, v: _stages_chain(model, p, a, v))(params, x,
-                                                                valid)
-            fused = torch.func.vmap(
-                lambda p, a, v: _stages_k3(model, p, a, v))(params, x, valid)
+    if key in _computed:
+        return _computed[key]
+    model = _model(config)
+    if vmapped:
+        params, x, valid = _stacked(model)
+    else:
+        params = _params(model, 3)
+        x, valid = _windows(model.cfg, np.random.default_rng(4))
+
+    def through(model, ops, params, x, valid):
+        fn = lambda p, a, v: _stages(model, ops, p, a, v)  # noqa: E731
+        return torch.func.vmap(fn)(params, x, valid) if vmapped else fn(
+            params, x, valid)
+
+    fused = through(model, k3.OPS, params, x, valid)
+    plain = through(model, k3.PLAIN, params, x, valid)
+    against = {}
+    all_valid = torch.ones_like(valid)
+    for dtype in REFERENCE_DTYPES:
+        m = _model(config, compute_dtype=dtype)
+        ops = k3.OPS if dtype in k3.KINDS else k3.PLAIN   # the card's table
+        got = _float32_of(through(m, ops, params, x, all_valid))
+        if vmapped:       # the reference, tenant by tenant
+            each = [_reference(m, tree_map(lambda t: t[i], params), x[i])
+                    for i in range(x.shape[0])]
+            want = {s: [torch.stack([e[s][i] for e in each])
+                        for i in range(len(each[0][s]))] for s in each[0]}
         else:
-            params = _params(model, 3)
-            x, valid = _windows(model.cfg, np.random.default_rng(4))
-            chain = _stages_chain(model, params, x, valid)
-            fused = _stages_k3(model, params, x, valid)
-        _computed[key] = (chain, fused)
+            want = _reference(m, params, x)
+        against[dtype] = (got, want)
+    _computed[key] = (fused, plain, against)
     return _computed[key]
 
 
@@ -158,17 +197,48 @@ def _both(config: str, vmapped: bool):
 @pytest.mark.parametrize("vmapped", [False, True], ids=["one", "vmap"])
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_fused_stage_equals_chain(config, vmapped, stage):
-    chain, fused = _both(config, vmapped)
-    _same(fused[stage], chain[stage])
+    """The one stage code through `OPS` equals it through `PLAIN`, both
+    outputs of each pair. On the CPU `OPS` runs the plain versions through
+    the custom ops, so this pair checks the ops' dispatch and `vmap` rules;
+    the independent checks are the reference's, here (on windows all
+    valid, in bfloat16 through `OPS` and float32 through `PLAIN`), and
+    JAX's in `test_torch_forecasters.py`."""
+    fused, plain, against = _both(config, vmapped)
+    _same(fused[stage], plain[stage])
+    for dtype in REFERENCE_DTYPES:
+        got, want = against[dtype]
+        _same(got[stage], want[stage])
 
 
 @pytest.mark.parametrize("dtype", [torch.float16], ids=["float16"])
 def test_fused_forward_equals_chain_in_float16(dtype):
+    """In float16 too, the forward through `OPS` equals it through
+    `PLAIN` (the ops' dispatch and `vmap` rules), and on windows all valid
+    the reference's (the independent check)."""
     model = _model("defaults", compute_dtype=dtype)
     params = _params(model, 5)
     x, valid = _windows(model.cfg, np.random.default_rng(6))
-    _same(_stages_k3(model, params, x, valid)["whole"],
-          _stages_chain(model, params, x, valid)["whole"])
+    for v in (valid, torch.ones_like(valid)):
+        fused = _stages(model, k3.OPS, params, x, v)
+        _same(fused["whole"], _stages(model, k3.PLAIN, params, x, v)["whole"])
+    _same(_float32_of(fused)["attend"], _reference(model, params, x)["attend"])
+    _same(fused["whole"], _reference(model, params, x)["whole"])
+
+
+def test_plain_table_differentiates_every_weight_in_bfloat16(card):
+    """A bf16 `loss.backward()` on the card's path, params requiring grad,
+    runs `PLAIN` (no launch) and leaves a gradient on every leaf the
+    forward reads: no custom op, which autograd cannot go through, is
+    left in the plain table."""
+    model = _model("defaults")
+    params = tree_map(lambda p: p.requires_grad_(True), _params(model, 8))
+    x, valid = _windows(model.cfg, np.random.default_rng(9))
+    assert k3.table(params, x, model.cfg.compute_dtype) is k3.PLAIN
+    model.loss(params, x, valid).backward()
+    assert card.calls == []
+    for t in torch.utils._pytree.tree_leaves(params):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+        assert t.grad.abs().sum() > 0
 
 
 # -- each op's vmap rule against the op tenant by tenant ---------------------
@@ -211,7 +281,7 @@ def _tenant(args, batched, i):
     return [one(a, b) for a, b in zip(args, batched)]
 
 
-@pytest.mark.parametrize("name", sorted(k3.OPS))
+@pytest.mark.parametrize("name", sorted(k3.KERNELS))
 def test_op_vmap_rule_equals_each_tenant(name):
     args, batched = _op_cases(torch.Generator().manual_seed(9))[name]
 
@@ -220,10 +290,10 @@ def test_op_vmap_rule_equals_each_tenant(name):
             return [dims(x) for x in b]
         return 0 if b else None
 
-    got = torch.func.vmap(k3.OPS[name], in_dims=tuple(dims(b) for b in batched))(
-        *args)
+    got = torch.func.vmap(getattr(k3.OPS, name),
+                          in_dims=tuple(dims(b) for b in batched))(*args)
     for i in range(2):
-        want = k3.PLAIN[name](*_tenant(args, batched, i))
+        want = getattr(k3.PLAIN, name)(*_tenant(args, batched, i))
         _same([g[i] for g in got], want)
 
 
@@ -284,9 +354,11 @@ def test_engagement_rule(request, recorder, case):
     if grad:
         params = tree_map(lambda p: p.requires_grad_(True), params)
     x, valid = _windows(model.cfg, np.random.default_rng(3))
+    assert k3.table(params, x, model.cfg.compute_dtype) is (
+        k3.OPS if fused else k3.PLAIN)
     before = k3.launches
     if grad:
-        loss = model.loss(params, x, valid)   # autograd through the chain
+        loss = model.loss(params, x, valid)   # autograd through PLAIN
         loss.backward()
         assert params["head"]["w"].grad is not None
     else:
@@ -533,12 +605,12 @@ def test_rounded_weights_are_cached_until_written():
     model = _model("defaults")
     stack = TenantStack(model, device="cpu")
     stack.add_tenant("a", model.init(torch.Generator().manual_seed(1)))
-    first = k3.rounded_weights(stack.stacked, 0)
-    again = k3.rounded_weights(stack.stacked, 0)
+    first = k3.rounded_weights(k3.OPS, stack.stacked, 0)
+    again = k3.rounded_weights(k3.OPS, stack.stacked, 0)
     assert again["grn_static"]["fc1"]["w"] is first["grn_static"]["fc1"]["w"]
     assert again["static"] is stack.stacked["static"]   # not a weight
     stack.set_params("a", model.init(torch.Generator().manual_seed(2)))
-    after = k3.rounded_weights(stack.stacked, 0)
+    after = k3.rounded_weights(k3.OPS, stack.stacked, 0)
     w = after["grn_static"]["fc1"]["w"]
     assert w is not first["grn_static"]["fc1"]["w"]
     assert torch.equal(w, stack.stacked["grn_static"]["fc1"]["w"]
@@ -556,7 +628,7 @@ def _store(n: int, seed: int, tid: str, window: int) -> tuple:
 DEVICES = 24
 
 
-def _chain_scores(model, params, store, dev):
+def _plain_scores(model, params, store, dev):
     x, valid = store.window(dev, model.cfg.window)
     return model.score(params, torch.from_numpy(x),
                        torch.from_numpy(valid)).numpy()
@@ -564,9 +636,9 @@ def _chain_scores(model, params, store, dev):
 
 @pytest.mark.parametrize("path", ["pool", "session"])
 def test_swapped_params_score_through_k3(monkeypatch, run, path):
-    """The K3 forward (its plain versions, on the CPU) serves a tenant, its
-    params are swapped, and the next scores are the chain's with the new
-    params: the rounded-weight cache follows the swap."""
+    """The forward through `OPS` (its plain versions, on the CPU) serves a
+    tenant, its params are swapped, and the next scores are `PLAIN`'s with
+    the new params: the rounded-weight cache follows the swap."""
     model = _model("defaults")
     monkeypatch.setattr(k3, "engaged",
                         lambda params, x, cdt: cdt in k3.KINDS)
@@ -610,7 +682,7 @@ def test_swapped_params_score_through_k3(monkeypatch, run, path):
                 got = await sink.flush()
             store.append_measurements(batch)
             order = np.argsort(got.device_index)
-            want = _chain_scores(model, params, store,
+            want = _plain_scores(model, params, store,
                                  got.device_index[order])
             np.testing.assert_array_equal(got.score[order], want)
             scores.append(got.score[order])
