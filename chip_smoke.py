@@ -34,8 +34,17 @@ prints no result):
                 one launch a step; `ms`, `graph_ms`, the plain chain's
                 ms, the wrapper's input checks alone (`check_ms`), the
                 host ms of a ring dispatch with each, and the byte bound;
-  3c. tft-fused — K3 (the TFT forward's pointwise work,
-                `ops/tft_fused.py`): each of its kernels against its plain
+  3c. tft-fused — K3 (the TFT forward's pointwise work and its
+                dense layers' products,
+                `ops/tft_fused.py`): the order probe (cuBLAS's float32
+                product against `tft_fused.probe`, the k-ascending sum, at
+                every product shape of the forward, buckets 256–16,384,
+                vmapped and not, bf16 and float16 operands with spread
+                exponents: equal wherever `tft_fused.fits` takes the shape);
+                each fused product through `OPS` against `PLAIN` (cuBLAS
+                and the plain epilogue), vmapped and not, bf16 and float16,
+                aligned and not, and at `TftConfig`'s defaults; each of its
+                kernels against its plain
                 version at the electricity widths' 16,384-row shapes, on
                 inputs with zeros, negatives, large magnitudes and bf16
                 ties, bit for bit (and in float16 at a smaller shape);
@@ -47,9 +56,11 @@ prints no result):
                 (`swxbench/reference/tft.py`, imported, never edited) at
                 buckets 256, 1,024, 4,096 and 16,384, vmapped over one
                 stacked tenant and not: every value equal; the same at
-                `TftConfig`'s defaults; device operations and K3 launches
-                a forward through each table, and the host's enqueue and
-                the device time of a 16,384-row forward;
+                `TftConfig`'s defaults; device operations, K3 launches and
+                fused products a forward through each table, and the host's
+                enqueue and the device time of a 16,384-row forward (the
+                `pool-tft` phase holds `tft_fused.product_launches` to its
+                dispatches × the fused products a forward);
   4. main     — SWB1 encode → decode → store → admit → flush for ~8
                 fleet ticks (one with injected anomalies, one flush
                 holding duplicate devices, two small flushes); every
@@ -414,6 +425,29 @@ SCORE_ATOL, SCORE_RTOL = 1e-2, 1e-3
 # kernels are checked at a smaller row count
 TFT_WIDTHS = {"window": 192, "horizon": 24, "hidden": 160, "heads": 4}
 TFT_BUCKETS, TFT_ROWS, TFT_F16_ROWS = (256, 1024, 4096, 16384), 16384, 512
+# the dense layers' products (K, N) by the rows a window gives them, at the
+# electricity widths (d = 160) and at `TftConfig`'s defaults (d = 32): one
+# row a window (the static GRN), the context's steps (the past selection),
+# the horizon's (the future selection, the attention's query, output and
+# tail) and the whole window's (enrichment, key, value);
+# the order probe holds cuBLAS to the k-ascending sum at each, at every
+# bucket (the defaults' also at the pool's fleet-sized 32,768), vmapped
+# and not, in bfloat16 and float16
+TFT_PRODUCTS = {
+    "electricity": {1: [(160, 160)],
+                    168: [(640, 160), (160, 160)],
+                    24: [(320, 160), (160, 160), (40, 160)],
+                    192: [(160, 160), (160, 40)]},
+    "defaults": {1: [(32, 32)],
+                 56: [(128, 32), (32, 32)],
+                 8: [(64, 32), (32, 32), (8, 32)],
+                 64: [(32, 32), (32, 8)]},
+}
+TFT_PROBE_BUCKETS = {"electricity": TFT_BUCKETS,
+                     "defaults": (*TFT_BUCKETS, 32768)}
+# the probe's operands: bf16 (float16) values with exponents spread over
+# 2^-20 … 2^20 (2^-11 … 2^11), so that any other order of the sum shows
+TFT_PROBE_SPAN = {0: 20, 1: 11}
 # `longwin` divides its score by a predicted interval's width, which
 # untrained weights make narrow: where the card and the CPU round a
 # quantile a bf16 ulp apart, a row's score moves past any row tolerance
@@ -834,14 +868,20 @@ def tft_inputs(torch, gen, shape, shift=0, scale=3.0):
 
 def tft_kernel_cases(torch, k3, gen, rows: int, kind: int,
                      shift: int = 0) -> dict:
-    """name → a function making (args of the op, bytes it must move) at the
-    electricity widths, `rows` windows: the shapes the served forward hands
-    each kernel (the selection's past context, a recurrence step, the
-    attention's logits); the embeddings at half the rows (their outputs
-    are four inputs wide); the inputs `shift` elements off alignment."""
+    """name → a function making (the op table's entry, its args, bytes it
+    must move, FLOP it must compute) at the electricity widths, `rows`
+    windows: the shapes the served forward hands each kernel (the
+    selection's past context, a recurrence step, the attention's logits);
+    the embeddings at half the rows (their outputs are four inputs wide);
+    the inputs `shift` elements off alignment. A dense layer takes its
+    rounded operand and weight: the past selection's first layer (K = 640,
+    its context term and ELU) and a GRN's second (K = 160) through the
+    fused kernel, and the attention's shared value (N = 40) through cuBLAS
+    and the epilogue's kernel."""
     wc, d = TFT_WIDTHS["window"] - TFT_WIDTHS["horizon"], TFT_WIDTHS["hidden"]
     hz, w, nh = TFT_WIDTHS["horizon"], TFT_WIDTHS["window"], TFT_WIDTHS["heads"]
     t = lambda *shape: tft_inputs(torch, gen, shape, shift)  # noqa: E731
+    r = lambda *shape: k3.round_plain(t(*shape), kind)[0]  # noqa: E731
     act = (rows, wc, d)
     e4 = rows * wc * d * 4                      # one float32 activation
 
@@ -849,42 +889,60 @@ def tft_kernel_cases(torch, k3, gen, rows: int, kind: int,
         lns = [(t(*act), t(rows, wc, 1), t(rows, wc, 1).abs(), t(d), t(d))
                for _ in range(4)]
         weights = torch.softmax(t(rows, wc, 4), dim=-1)
-        return ((*(list(z) for z in zip(*lns)), weights, kind),
-                6 * e4 + rows * wc * 4 * 4)
+        return ("vsn", (*(list(z) for z in zip(*lns)), weights, kind),
+                6 * e4 + rows * wc * 4 * 4, 0)
 
     def embed():
         half = rows // 2
         feats = t(half, w, 4)[:, :wc]           # the model's strided slice
         ws = [k3.round_plain(t(1, d), kind)[0] for _ in range(4)]
-        return ((feats, ws, [t(d) for _ in range(4)], kind),
-                half * wc * 4 * (4 + 12 * d))
+        return ("embed", (feats, ws, [t(d) for _ in range(4)], kind),
+                half * wc * 4 * (4 + 12 * d), 0)
+
+    def product(lead, k, n, moved):
+        """bytes and FLOP of a product over `lead` rows: x read, and `moved`
+        floats a row read or written by its epilogue"""
+        m = int(np.prod(lead))
+        return m * (k + moved) * 4, 2.0 * m * k * n
 
     return {
-        "round": lambda: ((t(*act), kind), 2 * e4),
-        "dense": lambda: ((t(*act), t(d), t(rows, 1, d), t(d), True, k3.BOTH,
-                           kind), 3 * e4),
-        "gate": lambda: ((t(rows, wc, 2 * d), t(2 * d), t(*act), None, kind),
-                         4 * e4),
-        "sqdev": lambda: ((t(*act), t(rows, wc, 1), kind), 2 * e4),
-        "ln": lambda: ((t(*act), t(rows, wc, 1), t(rows, wc, 1).abs(), t(d),
-                        t(d), k3.BOTH, kind), 3 * e4),
+        "round": lambda: ("round", (t(*act), kind), 2 * e4, 0),
+        "dense": lambda: ("dense", (r(rows, wc, 4 * d), r(4 * d, d), t(d),
+                                    t(rows, 1, d), t(d), True, k3.BOTH, kind),
+                          *product((rows, wc), 4 * d, d, 2 * d)),
+        "dense_k160": lambda: ("dense", (r(*act), r(d, d), t(d), None, None,
+                                         False, k3.ROUNDED, kind),
+                               *product((rows, wc), d, d, d)),
+        "gate": lambda: ("gate", (t(rows, wc, 2 * d), t(2 * d), t(*act),
+                                  None, kind), 4 * e4, 0),
+        "dense_n40": lambda: ("dense", (r(rows, w, d), r(d, d // nh),
+                                        t(d // nh), None, None, False,
+                                        k3.ROUNDED, kind),
+                              *product((rows, w), d, d // nh, d // nh)),
+        "sqdev": lambda: ("sqdev", (t(*act), t(rows, wc, 1), kind), 2 * e4,
+                          0),
+        "ln": lambda: ("ln", (t(*act), t(rows, wc, 1), t(rows, wc, 1).abs(),
+                              t(d), t(d), k3.BOTH, kind), 3 * e4, 0),
         "vsn": vsn,
-        # eight steps of the recurrence; the bound per step is the larger of
-        # its product at the float32 SIMT peak and its bytes (the product
-        # reads h and writes h·wh; the cell reads the step's input product,
-        # h·wh and c and writes c, h and h's slot of the output)
-        "lstm": lambda: ((t(rows, 8, 4 * d),
-                          k3.round_plain(t(d, 4 * d), kind)[0] / d ** 0.5,
-                          t(4 * d), k3.round_plain(t(rows, d), kind)[0],
-                          t(rows, d), kind),
-                         8 * max(2.0 * rows * d * 4 * d / PEAK_F32_FLOPS
-                                 * PEAK_BYTES_S, rows * d * 4 * 17.0)),
+        # eight steps of the recurrence; its product's FLOP at the float32
+        # SIMT peak and its bytes (the product reads h and writes h·wh; the
+        # cell reads the step's input product, h·wh and c and writes c, h
+        # and h's slot of the output)
+        "lstm": lambda: ("lstm", (t(rows, 8, 4 * d),
+                                  k3.round_plain(t(d, 4 * d), kind)[0]
+                                  / d ** 0.5,
+                                  t(4 * d), k3.round_plain(t(rows, d),
+                                                           kind)[0],
+                                  t(rows, d), kind),
+                         8 * rows * d * 4 * 17.0,
+                         8 * 2.0 * rows * d * 4 * d),
         "embed": embed,
-        "logits": lambda: ((t(rows, nh, hz, w),
-                            torch.rand((rows, 1, 1, w), generator=gen,
-                                       device="cuda") > 0.05,
-                            wc, float(np.sqrt(d // nh)), kind),
-                           rows * nh * hz * w * 8 + rows * w),
+        "logits": lambda: ("logits", (t(rows, nh, hz, w),
+                                      torch.rand((rows, 1, 1, w),
+                                                 generator=gen,
+                                                 device="cuda") > 0.05,
+                                      wc, float(np.sqrt(d // nh)), kind),
+                           rows * nh * hz * w * 8 + rows * w, 0),
     }
 
 
@@ -910,50 +968,209 @@ def same_tensors(label: str, got, want) -> None:
 def tft_fused_kernels(torch) -> list[dict]:
     """Each K3 kernel against its plain version on the card, bit for bit,
     and timed at the electricity widths' 16,384-row shapes (bf16), then
-    checked again in float16."""
+    checked again in float16 and off alignment. A fused product's
+    `library_ms` is torch.matmul and K3's epilogue kernel at its shape."""
     from sitewhere_tpu_torch.ops import tft_fused as k3
     from sitewhere_tpu_torch.utils.timing import cuda_median_ms, graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     rows = []
     for name, case in tft_kernel_cases(torch, k3, gen, TFT_ROWS, 0).items():
-        args, nbytes = case()
-        op, plain = getattr(k3.OPS, name), getattr(k3.PLAIN, name)
-        launches0 = k3.launches
+        entry, args, nbytes, flop = case()
+        op, plain = getattr(k3.OPS, entry), getattr(k3.PLAIN, entry)
+        launches0, products0 = k3.launches, k3.product_launches
         got = op(*args)
         torch.cuda.synchronize()
         # one launch a call, the recurrence one a step
         expect = args[0].shape[-2] if name == "lstm" else 1
-        if k3.launches - launches0 != expect:
+        fused = entry == "dense" and k3.fits(args[0], args[1])
+        if (k3.launches - launches0 != expect
+                or k3.product_launches - products0 != int(fused)):
             raise AssertionError(f"tft-fused {name}: {k3.launches - launches0}"
-                                 f" launches for one call, not {expect}")
+                                 f" launches for one call, not {expect}, "
+                                 f"{k3.product_launches - products0} fused "
+                                 f"products, not {int(fused)}")
         want = plain(*args)
         same_tensors(f"tft-fused {name}", got, want)
         del got, want
         ms = cuda_median_ms(lambda: op(*args), reps=10)
         dev_ms = graph_ms(lambda: op(*args), launches=2, reps=5)
         plain_ms = cuda_median_ms(lambda: plain(*args), reps=5)
-        bound_ms = 1e3 * nbytes / PEAK_BYTES_S
+        bound_ms = 1e3 * max(nbytes / PEAK_BYTES_S, flop / PEAK_F32_FLOPS)
         row = {"kernel": name, "rows": TFT_ROWS, "ms": ms, "graph_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_share": bound_ms / dev_ms}
+               "bound_by": ("operations" if flop / PEAK_F32_FLOPS
+                            > nbytes / PEAK_BYTES_S else "bytes"),
+               "bound_share": bound_ms / dev_ms, "fused": fused}
+        if fused:
+            x, wt, rest = args[0], args[1], args[2:]
+            row["library_ms"] = cuda_median_ms(
+                lambda: k3._dense_epilogue(x @ wt, *rest), reps=10)
+            row["cublas_ms"] = cuda_median_ms(lambda: x @ wt, reps=10)
+            row["tflops"] = flop / dev_ms / 1e9
         log(f"tft-fused {name}: {json.dumps(row)}")
         rows.append(row)
         del args
         torch.cuda.empty_cache()
     # float16 rounding, and every kernel again a column at a time (inputs
-    # off 16-byte alignment) in both types
+    # off 16-byte alignment: the products then go to cuBLAS and the
+    # epilogue's kernels) in both types
     for kind, shift in ((1, 0), (0, 1), (1, 1)):
         for name, case in tft_kernel_cases(torch, k3, gen, TFT_F16_ROWS,
                                            kind, shift).items():
-            args, _ = case()
+            entry, args, _, _ = case()
             same_tensors(f"tft-fused {name} kind {kind} shift {shift}",
-                         getattr(k3.OPS, name)(*args),
-                         getattr(k3.PLAIN, name)(*args))
+                         getattr(k3.OPS, entry)(*args),
+                         getattr(k3.PLAIN, entry)(*args))
     log(f"tft-fused: all {len(k3.KERNELS)} kernels equal to their plain "
         f"versions in bfloat16 ({TFT_ROWS} rows) and float16 "
         f"({TFT_F16_ROWS} rows), four columns a thread and one")
     return rows
+
+
+def probe_operands(torch, gen, shape, kind: int):
+    """float32 values of the rounding type, of random sign and mantissa,
+    exponents spread over ±TFT_PROBE_SPAN[kind], a 64th of them zeros."""
+    span = TFT_PROBE_SPAN[kind]
+    m = 1.0 + torch.rand(shape, generator=gen, device="cuda")
+    e = torch.randint(-span, span + 1, shape, generator=gen,
+                      device="cuda").float()
+    sign = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5,
+                       -1.0, 1.0)
+    x = torch.where(torch.rand(shape, generator=gen, device="cuda") < 1 / 64,
+                    0.0, sign * m * torch.exp2(e))
+    return x.to(torch.bfloat16 if kind == 0 else torch.float16).float()
+
+
+def tft_order_probe(torch) -> dict:
+    """cuBLAS's float32 product (torch.matmul, and under `vmap` as the pool
+    runs it) against `k3.probe`, the k-ascending sum, at every product
+    shape of the forward (`TFT_PRODUCTS`) and bucket: where the fused
+    kernel takes the shape (`k3.fits`), every value equal; elsewhere the
+    count that differs is logged. Returns (config, rows a window, K, N)
+    → the buckets and modes where cuBLAS summed in another order."""
+    from sitewhere_tpu_torch.ops import tft_fused as k3
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    other, cases = {}, 0
+    for config, products in TFT_PRODUCTS.items():
+        for kind in (0, 1):
+            for steps, shapes in products.items():
+                for k, n in shapes:
+                    for bucket in TFT_PROBE_BUCKETS[config]:
+                        lead = (bucket, steps) if steps > 1 else (bucket,)
+                        modes = [("one", 1), ("vmap", 1)]
+                        if bucket == 1024:
+                            modes.append(("vmap", 4))
+                        for mode, tenants in modes:
+                            if mode == "one":
+                                x = probe_operands(torch, gen, (*lead, k),
+                                                   kind)
+                                w = probe_operands(torch, gen, (k, n), kind)
+                                want = x @ w
+                            else:
+                                x = probe_operands(torch, gen,
+                                                   (tenants, *lead, k), kind)
+                                w = probe_operands(torch, gen,
+                                                   (tenants, k, n), kind)
+                                want = torch.func.vmap(torch.matmul)(x, w)
+                            differ = int((k3.probe(x, w) != want).sum())
+                            cases += 1
+                            if differ:
+                                key = f"{config} {steps}x{k}x{n}"
+                                other.setdefault(key, []).append(
+                                    f"{bucket} {mode}{tenants} kind {kind}: "
+                                    f"{differ} of {want.numel()}")
+                                if k3.fits(x, w):
+                                    raise AssertionError(
+                                        f"order probe: cuBLAS sums "
+                                        f"{key} at bucket {bucket} ({mode}, "
+                                        f"{tenants} tenants, kind {kind}) "
+                                        f"in another order ({differ} of "
+                                        f"{want.numel()} values), and the "
+                                        f"fused kernel takes it")
+                            del x, w, want
+                torch.cuda.empty_cache()
+    log(f"tft-fused order probe: {cases} products, every one the fused "
+        f"kernel takes summed by cuBLAS in ascending k; in another order: "
+        f"{json.dumps(other)}")
+    return other
+
+
+def tft_product_checks(torch) -> list[dict]:
+    """Each fused product through `OPS` against `PLAIN` (cuBLAS and the
+    plain epilogue), bit for bit: the electricity widths' past selection
+    (K = 640, context, ELU) and a GRN's K = 160 layer, at buckets 256
+    and 16,384, vmapped over one tenant and not (and three tenants of
+    their own weights at 256), in bfloat16 and float16, and off alignment
+    (cuBLAS and the epilogue's kernel); at `TftConfig`'s defaults the same
+    layers at 4,096 windows."""
+    from sitewhere_tpu_torch.ops import tft_fused as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    out = []
+    widths = {"electricity": (TFT_WIDTHS["hidden"], 168, (256, 16384)),
+              "defaults": (32, 56, (4096,))}
+    for config, (d, steps, buckets) in widths.items():
+        for kind in (0, 1):
+            for bucket in buckets:
+                modes = [("one", 1, 0), ("vmap", 1, 0)]
+                if bucket == buckets[0]:
+                    modes += [("vmap", 3, 0), ("one", 1, 1)]
+                for mode, tenants, shift in modes:
+                    lead = ((bucket, steps) if mode == "one"
+                            else (tenants, bucket, steps))
+                    wl = () if mode == "one" else (tenants,)
+                    t = lambda *shape: tft_inputs(  # noqa: E731
+                        torch, gen, shape, shift)
+                    r = lambda *shape: probe_operands(  # noqa: E731
+                        torch, gen, shape, kind)
+                    cases = {
+                        "past selection": ("dense", (
+                            r(*lead, 4 * d), r(*wl, 4 * d, d), t(*wl, d),
+                            t(*lead[:-1], 1, d), t(*wl, d), True, k3.BOTH,
+                            kind)),
+                        "grn layer": ("dense", (
+                            r(*lead, d), r(*wl, d, d), t(*wl, d), None, None,
+                            False, k3.ROUNDED, kind)),
+                    }
+                    for name, (entry, args) in cases.items():
+                        if shift:    # the operand off 16-byte alignment
+                            x = args[0]
+                            moved = torch.empty(x.numel() + 1,
+                                                device="cuda")[1:].view(
+                                x.shape).copy_(x)
+                            args = (moved, *args[1:])
+                        op, plain = getattr(k3.OPS, entry), getattr(
+                            k3.PLAIN, entry)
+                        if mode == "vmap":
+                            dims = tuple(0 if isinstance(a, torch.Tensor)
+                                         else None for a in args)
+                            op, plain = (torch.func.vmap(op, in_dims=dims),
+                                         torch.func.vmap(plain,
+                                                         in_dims=dims))
+                        p0 = k3.product_launches
+                        got = op(*args)
+                        fused = k3.product_launches - p0
+                        if fused != int(not shift):
+                            raise AssertionError(
+                                f"tft-fused product {config} {name}: "
+                                f"{fused} fused launches, shift {shift}")
+                        label = (f"tft-fused product {config} {name} bucket "
+                                 f"{bucket} {mode}{tenants} kind {kind} "
+                                 f"shift {shift}")
+                        same_tensors(label, got, plain(*args))
+                        out.append({"config": config, "product": name,
+                                    "bucket": bucket, "mode": mode,
+                                    "tenants": tenants, "kind": kind,
+                                    "shift": shift, "fused": fused})
+                        del got, args
+                    del cases
+                    torch.cuda.empty_cache()
+    log(f"tft-fused: {len(out)} products through OPS equal to PLAIN's "
+        f"(cuBLAS and the plain epilogue)")
+    return out
 
 
 def tft_device_ops(torch, fn) -> int:
@@ -1091,6 +1308,8 @@ def phase_tft_fused(torch) -> dict:
     from sitewhere_tpu_torch.ops import tft_fused as k3
     from swxbench.reference import tft as ref
 
+    probe = tft_order_probe(torch)
+    products = tft_product_checks(torch)
     rows = tft_fused_kernels(torch)
 
     def plain_score(fn):
@@ -1106,7 +1325,8 @@ def phase_tft_fused(torch) -> dict:
     widths = {**TFT_WIDTHS, "quantiles": [0.1, 0.5, 0.9]}
     params = ref.make_params(widths, SEED, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    out = {"kernels": rows, "buckets": []}
+    out = {"kernels": rows, "buckets": [], "order_probe_other": probe,
+           "products_checked": len(products)}
     for bucket in TFT_BUCKETS:
         x = 20.0 + 3.0 * torch.randn((bucket, TFT_WIDTHS["window"]),
                                      generator=gen, device="cuda")
@@ -1117,10 +1337,13 @@ def phase_tft_fused(torch) -> dict:
         want = ref.window_scores(params, widths, x, torch.bfloat16)
         row = {"bucket": bucket}
         for vmapped in (False, True):
+            products0 = k3.product_launches
             got, launches, score = tft_forward_check(
                 torch, model, params, x, vmapped, plain_score)
             same_tensors(f"tft {bucket} scores vs reference", [got], [want])
             row["k3_launches" + ("_vmap" if vmapped else "")] = launches
+            row["fused_products" + ("_vmap" if vmapped else "")] = (
+                k3.product_launches - products0)
         if bucket == 1024:
             row["device_ops_plain"] = tft_device_ops(
                 torch, lambda: plain_score(score))
@@ -1540,17 +1763,18 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     r0 = (per_round.count, per_round.sum)
     # K3's launches a forward at this model's widths (any rows, vmapped or
     # not: one launch an op call, one a recurrence step)
-    per_forward = 0
+    per_forward = products_per_forward = 0
     if model == "tft":
-        k3.launches = 0
+        k3.launches = k3.product_launches = 0
         m = next(iter(path.tenants.values()))
         path.model.score(m.params, torch.zeros((8, window), device="cuda"),
                          torch.ones((8, window), dtype=torch.bool,
                                     device="cuda"))
         per_forward = k3.launches
+        products_per_forward = k3.product_launches
     lstm_kernel.launches = 0
     k2.launches = 0
-    k3.launches = 0
+    k3.launches = k3.product_launches = 0
     flush_ms, host_ms, n_events, busy_s, shares = [], [], 0, 0.0, []
     for k in range(fleet_ticks + 1):
         anomalous = k == fleet_ticks
@@ -1613,18 +1837,23 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     # the counter follows the launches; every tft dispatch goes through K3
     k2_launches = k2.launches
     k3_launches = k3.launches
+    k3_products = k3.product_launches
     if (n_dispatch != expect or launches or rounds != fleet_ticks + 1
             or packed != tenants or len(dispatch_ms) != n_dispatch
             or k2_launches != (n_dispatch if streaming else 0)
             or n_k2 != k2_launches
             or n_k3 != (n_dispatch if model == "tft" else 0)
             or k3_launches != n_dispatch * per_forward
-            or (model == "tft") != (per_forward > 0)):
+            or k3_products != n_dispatch * products_per_forward
+            or (model == "tft") != (per_forward > 0)
+            or (model == "tft") != (products_per_forward > 0)):
         raise AssertionError(
             f"{label}: {n_dispatch} dispatches for {expect} occurrence "
             f"rounds, {launches} K1 launches, {k2_launches} K2 launches "
             f"({n_k2} counted), {n_k3} dispatches through K3 with "
-            f"{k3_launches} K3 launches ({per_forward} a forward), {rounds} "
+            f"{k3_launches} K3 launches ({per_forward} a forward) and "
+            f"{k3_products} fused products ({products_per_forward} a "
+            f"forward), {rounds} "
             f"rounds packing {packed} tenants each, {len(dispatch_ms)} "
             f"timed")
     stats = path_stats(flush_ms, host_ms, n_events, busy_s, n_dispatch,
@@ -1635,6 +1864,8 @@ async def drive_pool(torch, label: str, model: str, tenants: int,
     stats["tft_fused_dispatches"] = n_k3
     stats["tft_fused_launches"] = k3_launches
     stats["tft_fused_launches_per_forward"] = per_forward
+    stats["tft_fused_product_launches"] = k3_products
+    stats["tft_fused_products_per_forward"] = products_per_forward
     stats["dispatch_host_ms_p50"] = float(np.quantile(dispatch_ms, 0.5))
     stats["dispatch_host_ms_max"] = float(np.max(dispatch_ms))
     if shares:
@@ -4644,6 +4875,8 @@ def main() -> int:
         # the main path's own run: the pool's `tft` at TftConfig's defaults
         "launches": pool_tft["tft_fused_launches"],
         "launches_per_forward": pool_tft["tft_fused_launches_per_forward"],
+        "product_launches": pool_tft["tft_fused_product_launches"],
+        "products_per_forward": pool_tft["tft_fused_products_per_forward"],
         "per_kernel": tft_fused["kernels"],
         "per_bucket": tft_fused["buckets"],
     })

@@ -324,14 +324,12 @@ cudaError_t launch(const float* xn, long ldx, const float* wx, const float* wh,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<H, WN, TILES, MR>();
   static_assert(smem <= MAX_SMEM, "shared memory of one CTA");
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lstm_window_final_kernel<H, WN, TILES, MR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // the attribute is the current card's, so it is set at every launch (a
+  // mesh launches on several)
+  const cudaError_t err = cudaFuncSetAttribute(
+      lstm_window_final_kernel<H, WN, TILES, MR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
   constexpr int ROWS = MR * TILES;
   const unsigned grid = static_cast<unsigned>((B + ROWS - 1) / ROWS);
   lstm_window_final_kernel<H, WN, TILES, MR>

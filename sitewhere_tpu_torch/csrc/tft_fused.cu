@@ -16,8 +16,10 @@
 // (`ops/tft_fused.py`, whose plain versions are the chains).
 //
 // Bit for bit with the chains, so with the benchmark's reference: the
-// float32 products (cuBLAS, sequential float32 sums) and the reductions
-// (LayerNorm's means, the softmaxes) stay PyTorch's, and every pointwise
+// reductions (LayerNorm's means, the softmaxes) and the products that
+// `mm_kernel` below does not take stay PyTorch's (cuBLAS's float32 products
+// sum k in ascending order at the forward's shapes, and `mm_kernel` sums
+// the same way), and every pointwise
 // step here is the chain's, in its order, rounded where the chain
 // materialises a float32 tensor: __fadd_rn / __fmul_rn / __fdiv_rn, which
 // nvcc never contracts into a multiply-add, and the accurate libdevice
@@ -25,9 +27,10 @@
 // without fast-math. The casts round to nearest even like c10's. σ(v) is
 // torch's 1 / (1 + expf(−v)).
 //
-// What bounds it on this card: bytes. Every kernel is a pass over rows of
-// float32 columns, a few FLOP an element against 8–20 bytes; at 3.35 TB/s
-// a [16,384 × 168, 160] float32 tensor (1.76 GB) takes 0.53 ms to read.
+// What bounds it on this card: bytes, but for `mm_kernel`. Every other
+// kernel is a pass over rows of float32 columns, a few FLOP an element
+// against 8–20 bytes; at 3.35 TB/s a [16,384 × 168, 160] float32 tensor
+// (1.76 GB) takes 0.53 ms to read.
 //
 // Layout: every operand is a float32 view of the call's row space
 // [R0, R1, R2] by columns, given as (pointer, s0, s1, s2, sc) in elements:
@@ -60,6 +63,7 @@ struct Operand {
 struct Args {
   Operand o[MAX_OPERANDS];
   long long r0, r1, r2;
+  long long inner;   // a product's consecutive rows that share a weight
   int n, aux0, aux1;
   float f;
 };
@@ -440,6 +444,332 @@ __global__ void logits_kernel(Args a) {
   }
 }
 
+// The order probe: out = x·w, one thread an output, summed over k = 0 … K−1
+// in ascending order with __fmaf_rn from a zero accumulator; no rounding.
+// Operands 0 out (n columns), 1 x (aux0 = K columns), 2 w (the row's
+// [K, n] weight, row-major; its row strides select a tenant's).
+template <typename RT, int V>
+__global__ void probe_kernel(Args a) {
+  Row row;
+  if (!row_of(a, row)) return;
+  const Operand &out = a.o[0], &x = a.o[1], &w = a.o[2];
+  const long long bo = row.at(out), bx = row.at(x);
+  const float* wp = reinterpret_cast<const float*>(w.p) + row.at(w);
+  float* op = reinterpret_cast<float*>(const_cast<char*>(out.p));
+  for (int c = threadIdx.x; c < a.n; c += blockDim.x) {
+    float acc = 0.0f;
+    for (int k = 0; k < a.aux0; ++k)
+      acc = __fmaf_rn(ld(x, bx, k), wp[static_cast<long long>(k) * a.n + c],
+                      acc);
+    op[bo + c * out.sc] = acc;
+  }
+}
+
+// -- the products: a dense layer, its product and its epilogue -------------
+//
+// out = epilogue(x·w): x the layer's rounded operand (operand 2, K = aux0
+// columns, contiguous, 16-byte aligned rows), w its rounded [K, n] weight
+// (operand 3, row-major; its row strides pick a tenant's). A block of 256
+// threads computes 64 rows by BN output columns (`MmShape`). k is streamed
+// in slices of 32 through a ring of MM_STAGES shared-memory stages
+// (cp.async, 16 bytes a copy, zero-filled past K and past the rows; the
+// weight's slice comes from L2, where the small weights stay). A thread
+// holds 4 rows (ty + 16 i) by 2 J columns: an A row's four k in one shared
+// read, and per k one 16-byte read of B a group of four columns.
+//
+// Every accumulator is summed over k = 0 … K−1 in ascending order with one
+// __fmaf_rn a step from zero: the order of cuBLAS's SIMT kernels at these
+// shapes (`ops/tft_fused.py` `fits`), so the same bits, since each product
+// of two bf16 or float16 values is exact in float32; a zero-filled step
+// adds +0, which leaves a sum that started at +0 as it is. The epilogue is
+// dense_kernel's, verbatim, on the sums in registers; the float32 product
+// never reaches device memory. The rows of a block share one weight:
+// `inner` consecutive rows of the call's row space do, and the grid's z
+// walks those groups (the tenants of a stacked call).
+//
+// What bounds it: operations, at the card's 67 TFLOP/s float32 FFMA peak
+// (2·K·N FLOP against 4·(K + 2N) bytes a row: 53 FLOP a byte at K = N =
+// 160). Its design: a layer's 160 outputs in one block (no column wasted
+// at the electricity widths, where cuBLAS's 64-wide tiles compute 192), 32
+// in one where n is 32 (`TftConfig`'s defaults), few shared reads per
+// multiply-add, two blocks an SM, and an epilogue that reads its operands
+// before its arithmetic.
+
+constexpr int MM_THREADS = 256;
+constexpr int MM_STAGES = 3;
+
+// A block takes BN = 32 J output columns, a thread 2 J of them: float4
+// groups at 64 q + 4 tx, then a float2 group at 64 ⌊J/2⌋ + 2 tx where J is
+// odd.
+template <int J>
+struct MmShape {
+  static constexpr int TM = 4;              // rows a thread
+  static constexpr int BK = 32;             // k a slice
+  static constexpr int BM = 16 * TM;        // rows a block
+  static constexpr int BN = 32 * J;         // output columns a block
+  static constexpr int W = 2 * J;           // output columns a thread
+  static constexpr int Q4 = J / 2;          // its float4 groups
+  static constexpr int AST = BK + 4;        // an A row in shared memory
+  static constexpr int A_STAGE = BM * AST;
+  static constexpr int B_STAGE = BK * BN;
+  static constexpr int SMEM = MM_STAGES * (A_STAGE + B_STAGE) * 4;
+  // the block column of the thread's column t
+  __device__ __forceinline__ static int col(int t, int tx) {
+    return t < 4 * Q4 ? 64 * (t / 4) + 4 * tx + t % 4
+                      : 64 * Q4 + 2 * tx + (t - 4 * Q4);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// row r of the call's row space: no division where the rows are one
+// dimension (the common call), 32-bit division where they fit
+__device__ __forceinline__ Row row_at(const Args& a, long long r) {
+  Row row;
+  if (a.r0 == 1 && a.r1 == 1) {
+    row.i0 = row.i1 = 0;
+    row.i2 = r;
+  } else if (a.r0 * a.r1 * a.r2 <= 0xffffffffLL) {
+    const unsigned u = static_cast<unsigned>(r);
+    const unsigned r1 = static_cast<unsigned>(a.r1);
+    const unsigned r2 = static_cast<unsigned>(a.r2);
+    const unsigned q = u / r2;
+    row.i2 = u - q * r2;
+    row.i1 = q % r1;
+    row.i0 = q / r1;
+  } else {
+    const long long q = r / a.r2;
+    row.i2 = r - q * a.r2;
+    row.i1 = q % a.r1;
+    row.i0 = q / a.r1;
+  }
+  return row;
+}
+
+// an operand's row: its first element and its column stride
+struct RowPtr {
+  const float* p;
+  int sc;
+  __device__ __forceinline__ float operator[](int c) const { return p[c * sc]; }
+};
+__device__ __forceinline__ RowPtr row_ptr(const Operand& o, const Row& row) {
+  return {reinterpret_cast<const float*>(o.p) + (o.p ? row.at(o) : 0),
+          static_cast<int>(o.sc)};
+}
+
+// the row d rows on from `row` (d ≥ 0): no division, a carry a time
+__device__ __forceinline__ void step_row(const Args& a, Row& row, int d) {
+  row.i2 += d;
+  while (row.i2 >= a.r2) {
+    row.i2 -= a.r2;
+    if (++row.i1 == a.r1) {
+      row.i1 = 0;
+      ++row.i0;
+    }
+  }
+}
+
+// One row's epilogue on the group of V output columns from column t of
+// the thread (block column c): the arithmetic on the operands already read
+// (bv, x5), then V-wide stores (the outputs are the wrapper's own,
+// contiguous and aligned), none past n. E: the context term (1) or none
+// (0).
+template <typename RT, int E, int V, int W>
+__device__ __forceinline__ void mm_group(const Args& a, const float (&acc)[W],
+                                         int t, int c, const float* bv,
+                                         const float* x5, float* y0,
+                                         float* y1) {
+  float y[V], yr[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    float u = add(rnd<RT>(acc[t + v]), bv[t + v]);
+    if constexpr (E == 1) u = add(u, x5[t + v]);
+    if (a.aux1) u = u > 0.0f ? u : expm1f(u);
+    y[v] = u;
+    yr[v] = rnd<RT>(u);
+  }
+  if (c >= a.n) return;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float* out = k == 0 ? y0 : y1;
+    const float* src = k == 0 ? y : yr;
+    if (!out) continue;
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(out + c) =
+          make_float4(src[0], src[1], src[2], src[3]);
+    } else {
+      *reinterpret_cast<float2*>(out + c) = make_float2(src[0], src[1]);
+    }
+  }
+}
+
+// Operands: 0 y, 1 f32(rdt(y)), 2 x, 3 w, 4 b, 5 the context term (a GRN's
+// f32(rdt(mm2)) + b2, which the wrapper adds beforehand, as the program
+// does). y = f32(rdt(x·w)) + b, plus the context term, then ELU where
+// aux1; writes y and/or f32(rdt(y)).
+template <typename RT, int J, int E>
+__global__ void __launch_bounds__(MM_THREADS, 2) mm_kernel(Args a) {
+  using S = MmShape<J>;
+  constexpr int TM = S::TM, BK = S::BK, BM = S::BM, BN = S::BN;
+  constexpr int W = S::W, AST = S::AST, Q4 = S::Q4, Q2 = J % 2;
+  constexpr int QPR = BK / 4;                      // A copies a row a slice
+  constexpr int ACOPY = BM * QPR, AL = (ACOPY + MM_THREADS - 1) / MM_THREADS;
+  constexpr int NB = BK * BN / 4;                  // B copies a slice
+  extern __shared__ float4 mm_smem[];
+  float* As = reinterpret_cast<float*>(mm_smem);
+  float* Bs = As + MM_STAGES * S::A_STAGE;
+  const Operand &x = a.o[2], &w = a.o[3];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int K = a.aux0, n = a.n;
+  const long long first = static_cast<long long>(blockIdx.z) * a.inner;
+  // the block's tile: the column tiles of a row tile are neighbours in
+  // launch order, so they read x's rows from L2 in turn
+  const unsigned nt = (a.n + BN - 1) / BN;
+  const long long m0 = static_cast<long long>(blockIdx.x / nt) * BM;
+  const int n0 = static_cast<int>(blockIdx.x % nt) * BN;
+  const float* wp =
+      reinterpret_cast<const float*>(w.p) + row_at(a, first).at(w);
+
+  // the rows this thread copies: (tid + 256 u) / QPR, a float4 of k each
+  const float* arow[AL];
+  bool aok[AL];
+  Row xrow = row_at(a, first + m0 + tid / QPR);
+#pragma unroll
+  for (int u = 0; u < AL; ++u) {
+    const int idx = tid + MM_THREADS * u;
+    const long long r = m0 + idx / QPR;
+    if (u) step_row(a, xrow, MM_THREADS / QPR);
+    aok[u] = idx < ACOPY && r < a.inner;
+    arow[u] = reinterpret_cast<const float*>(x.p) + (aok[u] ? xrow.at(x) : 0);
+  }
+  const int kq = (tid % QPR) * 4;
+
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    float* as = As + stage * S::A_STAGE;
+#pragma unroll
+    for (int u = 0; u < AL; ++u) {
+      const int idx = tid + MM_THREADS * u;
+      if (ACOPY % MM_THREADS != 0 && idx >= ACOPY) break;
+      const bool ok = aok[u] && k0 + kq < K;
+      cp_async16(as + (idx / QPR) * AST + kq, ok ? arow[u] + k0 + kq : arow[u],
+                 ok);
+    }
+    float* bs = Bs + stage * S::B_STAGE;
+#pragma unroll
+    for (int i = tid; i < NB; i += MM_THREADS) {
+      const int kr = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const bool ok = k0 + kr < K && n0 + c < n;
+      cp_async16(bs + kr * BN + c,
+                 ok ? wp + static_cast<long long>(k0 + kr) * n + n0 + c : wp,
+                 ok);
+    }
+  };
+
+  float acc[TM][W];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int t = 0; t < W; ++t) acc[i][t] = 0.0f;
+
+  const int nk = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < MM_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<MM_STAGES - 2>();
+    __syncthreads();   // slice kt landed; every thread is done with kt − 1
+    const int next = kt + MM_STAGES - 1;
+    if (next < nk) load(next % MM_STAGES, next);
+    cp_async_commit();
+    const float* as = As + (kt % MM_STAGES) * S::A_STAGE;
+    const float* bs = Bs + (kt % MM_STAGES) * S::B_STAGE;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float4 av[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        av[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * AST + k4);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float* brow = bs + (k4 + h) * BN;
+        float bv[W];
+#pragma unroll
+        for (int q = 0; q < Q4; ++q) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(brow + 64 * q + 4 * tx);
+          bv[4 * q] = v.x;
+          bv[4 * q + 1] = v.y;
+          bv[4 * q + 2] = v.z;
+          bv[4 * q + 3] = v.w;
+        }
+        if constexpr (Q2 != 0) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(brow + 64 * Q4 + 2 * tx);
+          bv[4 * Q4] = v.x;
+          bv[4 * Q4 + 1] = v.y;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float ai = h == 0 ? av[i].x
+                           : h == 1 ? av[i].y
+                           : h == 2 ? av[i].z
+                                    : av[i].w;
+#pragma unroll
+          for (int t = 0; t < W; ++t)
+            acc[i][t] = __fmaf_rn(ai, bv[t], acc[i][t]);
+        }
+      }
+    }
+  }
+
+  // the epilogue, a row at a time: every operand of the row read first
+  // (past n the last column is read and nothing stored), then the
+  // arithmetic and the stores a group of columns at a time
+  Row row = row_at(a, first + m0 + ty);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long r = m0 + ty + 16 * i;
+    if (r >= a.inner) break;
+    if (i) step_row(a, row, 16);
+    const RowPtr b = row_ptr(a.o[4], row), e5 = row_ptr(a.o[5], row);
+    float bv[W], x5[W];
+#pragma unroll
+    for (int t = 0; t < W; ++t) {
+      const int c = min(n0 + S::col(t, tx), n - 1);
+      bv[t] = b[c];
+      if constexpr (E == 1) x5[t] = e5[c];
+    }
+    float* y0 = a.o[0].p ? reinterpret_cast<float*>(const_cast<char*>(
+                               a.o[0].p)) + row.at(a.o[0])
+                         : nullptr;
+    float* y1 = a.o[1].p ? reinterpret_cast<float*>(const_cast<char*>(
+                               a.o[1].p)) + row.at(a.o[1])
+                         : nullptr;
+#pragma unroll
+    for (int q = 0; q < Q4; ++q)
+      mm_group<RT, E, 4>(a, acc[i], 4 * q, n0 + 64 * q + 4 * tx, bv, x5, y0,
+                         y1);
+    if constexpr (Q2 != 0)
+      mm_group<RT, E, 2>(a, acc[i], 4 * Q4, n0 + 64 * Q4 + 2 * tx, bv, x5,
+                         y0, y1);
+  }
+}
+
 bool fill(Args& a, const long long* desc, int nops, const long long* dims,
           float f) {
   if (nops < 0 || nops > MAX_OPERANDS) return false;
@@ -462,6 +792,7 @@ bool fill(Args& a, const long long* desc, int nops, const long long* dims,
   a.n = static_cast<int>(dims[3]);
   a.aux0 = static_cast<int>(dims[4]);
   a.aux1 = static_cast<int>(dims[5]);
+  a.inner = 0;
   a.f = f;
   return a.r0 >= 0 && a.r1 >= 0 && a.r2 >= 0 && a.n >= 0;
 }
@@ -481,7 +812,58 @@ int launch(Kernel k, const Args& a, int v, void* stream) {
   return cudaGetLastError();
 }
 
+template <typename RT, int J, int E>
+int mm_launch(const Args& a, void* stream) {
+  using S = MmShape<J>;
+  // over 48 KB of shared memory at J = 5: the attribute is the current
+  // card's, so it is set at every launch (a mesh launches on several)
+  const cudaError_t e = cudaFuncSetAttribute(
+      mm_kernel<RT, J, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::SMEM);
+  if (e != cudaSuccess) return e;
+  const long long rows = a.r0 * a.r1 * a.r2;
+  if (rows == 0 || a.n == 0) return cudaSuccess;
+  if (a.inner < 1 || rows % a.inner != 0) return cudaErrorInvalidValue;
+  const long long groups = rows / a.inner;
+  const long long mt = (a.inner + S::BM - 1) / S::BM;
+  const long long nt = (a.n + S::BN - 1) / S::BN;
+  if (mt * nt > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
+  mm_kernel<RT, J, E><<<dim3(static_cast<unsigned>(mt * nt), 1,
+                             static_cast<unsigned>(groups)),
+                        MM_THREADS, S::SMEM,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// a block of 32 output columns where n is 32, else of 160 (the electricity
+// widths' d in one block); with the context term (E = 1) or without (0)
+template <typename RT>
+int mm_pick(const Args& a, void* stream) {
+  const bool ctx = a.o[5].p != nullptr;
+  if (a.n <= 32) {
+    return ctx ? mm_launch<RT, 1, 1>(a, stream)
+               : mm_launch<RT, 1, 0>(a, stream);
+  }
+  return ctx ? mm_launch<RT, 5, 1>(a, stream) : mm_launch<RT, 5, 0>(a, stream);
+}
+
 }  // namespace
+
+// The product's entry: dims is (R0, R1, R2, n, K, inner, elu); the wrapper
+// checked x's alignment and the weight's layout.
+extern "C" int swx_tft_dense_mm(const long long* desc, int nops,
+                                const long long* dims, float f, int kind,
+                                void* stream) {
+  Args a;
+  if (!fill(a, desc, nops, dims, f)) return cudaErrorInvalidValue;
+  a.inner = dims[5];
+  a.aux1 = static_cast<int>(dims[6]);
+  if (nops != 6 || a.aux0 < 1 || a.o[2].sc != 1 || a.n % 32 != 0)
+    return cudaErrorInvalidValue;
+  if (kind == 0) return mm_pick<__nv_bfloat16>(a, stream);
+  if (kind == 1) return mm_pick<__half>(a, stream);
+  return cudaErrorInvalidValue;
+}
 
 // Every entry: desc holds nops operands as (pointer, s0, s1, s2, sc), dims
 // is (R0, R1, R2, n, aux0, aux1, V), kind the rounding type (0 bfloat16,
@@ -512,3 +894,4 @@ SWX_TFT_ENTRY(vsn, vsn_kernel)
 SWX_TFT_ENTRY(cell, cell_kernel)
 SWX_TFT_ENTRY(embed, embed_kernel)
 SWX_TFT_ENTRY(logits, logits_kernel)
+SWX_TFT_ENTRY(probe, probe_kernel)

@@ -19,7 +19,8 @@ the JAX `init` layout, lists of dicts included (`emb_past`,
 The forward is written once, over an op table of `ops/tft_fused.py`:
 products round through the compute dtype where the reference casts
 (operands and result), softmax, layernorm and state stay float32, and
-the pointwise work between the products is the table's ops. Where
+the dense layers (each its product and the pointwise work after it) and
+the pointwise work between the other products are the table's ops. Where
 `tft_fused.engaged` holds (on the card, no param requiring grad, bf16 or
 float16 products) the table is `OPS`, whose ops launch the K3 kernels;
 elsewhere, the CPU and training included, it is `PLAIN`, their plain
@@ -97,9 +98,9 @@ def _grn_sum(ops, r, a, a_r, kind, ctx_r=None):
     """A GRN up to its LayerNorm: skip(a) + GLU(W2 ELU(W1 a + W3 c))."""
     ctx = ((ctx_r @ r["ctx"]["w"], r["ctx"]["b"]) if ctx_r is not None
            else (None, None))
-    (u,) = ops.dense(a_r @ r["fc1"]["w"], r["fc1"]["b"], *ctx, True,
+    (u,) = ops.dense(a_r, r["fc1"]["w"], r["fc1"]["b"], *ctx, True,
                      k3.ROUNDED, kind)
-    (u,) = ops.dense(u @ r["fc2"]["w"], r["fc2"]["b"], None, None, False,
+    (u,) = ops.dense(u, r["fc2"]["w"], r["fc2"]["b"], None, None, False,
                      k3.ROUNDED, kind)
     g = u @ r["gate"]["w"]
     if "skip" in r:
@@ -327,11 +328,11 @@ class TftForecaster:
                                     kind, k3.BOTH, ctx_r=static_r[:, None, :])
         # interpretable multi-head attention: per-head Q/K, SHARED value
         # head (Lim et al. §4.4) — queries are the horizon positions only
-        (q,) = ops.dense(enriched_r[:, Wc:].contiguous() @ r["attn_q"]["w"],
+        (q,) = ops.dense(enriched_r[:, Wc:].contiguous(), r["attn_q"]["w"],
                          r["attn_q"]["b"], None, None, False, k3.ROUNDED, kind)
-        (k,) = ops.dense(enriched_r @ r["attn_k"]["w"], r["attn_k"]["b"],
+        (k,) = ops.dense(enriched_r, r["attn_k"]["w"], r["attn_k"]["b"],
                          None, None, False, k3.ROUNDED, kind)
-        (val,) = ops.dense(enriched_r @ r["attn_v"]["w"], r["attn_v"]["b"],
+        (val,) = ops.dense(enriched_r, r["attn_v"]["w"], r["attn_v"]["b"],
                            None, None, False, k3.ROUNDED, kind)
         q = q.reshape(B, H, nh, dh).transpose(1, 2)          # [B, nh, H, dh]
         k = k.reshape(B, W, nh, dh).transpose(1, 2)          # [B, nh, W, dh]
@@ -344,14 +345,14 @@ class TftForecaster:
         ctx_h = _einsum_round("bnqk,bkd->bnqd", ops.round(attn, kind)[0],
                               val, (ops, kind))
         (ctx,) = ops.round(ctx_h.mean(dim=1), kind)         # head-mean
-        (attn_out,) = ops.dense(ctx @ r["attn_o"]["w"], r["attn_o"]["b"],
+        (attn_out,) = ops.dense(ctx, r["attn_o"]["w"], r["attn_o"]["b"],
                                 None, None, False, k3.ROUNDED, kind)
         x_attn = _glu_addnorm(ops, r["gate_attn"], attn_out,
                               enriched[:, Wc:], kind, k3.BOTH)
         (ff,) = _grn(ops, r["grn_final"], *x_attn, kind, k3.ROUNDED)
         (out,) = _glu_addnorm(ops, r["gate_out"], ff, seq[0][:, Wc:], kind,
                               k3.ROUNDED)
-        (quants,) = ops.dense(out @ r["head"]["w"], r["head"]["b"], None,
+        (quants,) = ops.dense(out, r["head"]["w"], r["head"]["b"], None,
                               None, False, k3.RAW, kind)       # [B, H, Q]
         return _monotone(quants), attn
 

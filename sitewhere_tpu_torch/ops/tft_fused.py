@@ -6,7 +6,17 @@ bf16 compute dtype; the port spells the products out in float32, and at
 the electricity widths the pointwise passes around them, each its own
 launch, took twice the card's product time. `csrc/tft_fused.cu` (whose
 header states the design and the bound: bytes) computes each chain of
-them as one pass beside the float32 products, which stay PyTorch's.
+them as one pass beside the float32 products.
+
+A dense layer's product is K3's too where it `fits` (N a multiple of 32,
+K at least 32, the operands aligned: 23 of the forward's 27 at the
+electricity widths): one kernel sums it on the FFMA pipes in
+cuBLAS's order (k ascending, one fused multiply-add a step from zero,
+which `probe` and `chip_smoke.py` hold cuBLAS to at every shape the
+forward takes) and applies the layer's epilogue to the sums in
+registers, so the float32 product never reaches device memory and every
+bit is cuBLAS's. The other products, the gates' and the LSTM's and the
+attention's included, stay torch's.
 
 The forward (`models/tft.py`) is written once, over an op table (`Table`):
 
@@ -36,6 +46,10 @@ and the stage around it.
 `launches` counts the kernel launches made in this process; the pool and
 the dedicated session count a dispatch as K3's
 (`scoring.tft_fused_dispatches`) when it grew across their step.
+`product_launches` counts the fused products among them: over a
+forward's `dense` calls it is the share of the products the fused kernel
+took (23 of 27 at the electricity widths, 22 of 27 at `TftConfig`'s
+defaults).
 
 `OPS.weights` rounds each weight to the compute dtype once per install,
 not once a forward: the copy is cached on the weight tensor itself (held
@@ -60,8 +74,11 @@ from torch.utils._pytree import tree_leaves
 
 from sitewhere_tpu_torch.kernel.tracing import close_range, profiler_range
 
-# kernel launches since import (or since a caller reset it to 0)
+# kernel launches since import (or since a caller reset it to 0), and of
+# them the fused products (a dense layer's product and epilogue in one
+# kernel)
 launches = 0
+product_launches = 0
 
 # compute dtype → the kernels' rounding kind
 KINDS = {torch.bfloat16: 0, torch.float16: 1}
@@ -77,6 +94,9 @@ RAW, ROUNDED, BOTH = 1, 2, 3
 WEIGHT_KEYS = ("w", "wx", "wh")
 # the selection networks' inputs the kernel takes at most
 MAX_VARS = 4
+# the products the fused kernels take: N (the product's columns) a multiple
+# of PRODUCT_WIDTH, K at least PRODUCT_DEPTH (see `fits`)
+PRODUCT_WIDTH, PRODUCT_DEPTH = 32, 32
 
 
 def on_card(device) -> bool:
@@ -256,12 +276,9 @@ def _width(operands: list, strides: list, n: int, scalar=()) -> int:
     return 4
 
 
-def _launch(name: str, operands: list, n: int, kind: int, aux=(0, 0),
-            f: float = 0.0, scalar=(), vector: bool = True) -> None:
-    """Launch `swx_tft_<name>` over `operands` (tensors, or None for an
-    operand the call leaves out), rows of `n` columns; the `scalar`
-    operands are read an element at a time, and a kernel whose columns
-    may not be taken four at a time says so (`vector`)."""
+def _card_of(operands: list) -> torch.device:
+    """The card the operands (None skipped) lie on; raises unless they all
+    lie there and are float32 (or a bool mask)."""
     live = [t for t in operands if t is not None]
     device = live[0].device
     for t in live:
@@ -273,11 +290,27 @@ def _launch(name: str, operands: list, n: int, kind: int, aux=(0, 0),
     if not on_card(device):
         raise ValueError(f"the CUDA kernels take tensors on the card, not "
                          f"on {device}")
-    dims, strides = _plan(operands)
-    width = _width(operands, strides, n, scalar) if vector else 1
+    return device
+
+
+def _desc(operands: list, strides: list) -> list:
+    """Five numbers an operand: its address and its strides (`_plan`)."""
     desc = []
     for t, s in zip(operands, strides):
         desc += [0, 0, 0, 0, 0] if t is None else [t.data_ptr(), *s]
+    return desc
+
+
+def _launch(name: str, operands: list, n: int, kind: int, aux=(0, 0),
+            f: float = 0.0, scalar=(), vector: bool = True) -> None:
+    """Launch `swx_tft_<name>` over `operands` (tensors, or None for an
+    operand the call leaves out), rows of `n` columns; the `scalar`
+    operands are read an element at a time, and a kernel whose columns
+    may not be taken four at a time says so (`vector`)."""
+    device = _card_of(operands)
+    dims, strides = _plan(operands)
+    width = _width(operands, strides, n, scalar) if vector else 1
+    desc = _desc(operands, strides)
     with torch.cuda.device(device):
         _call(name, _c_entry(name), desc,
               (ctypes.c_longlong * 7)(*dims, n, *aux, width), f, kind,
@@ -306,6 +339,62 @@ def _call(name: str, fn, desc: list, c_dims, f: float, kind: int,
     launches += 1
 
 
+def fits(x: Tensor, w: Tensor) -> bool:
+    """Does the fused kernel take the product x·w? By what it observes: the
+    width N a multiple of 32 and the depth K at
+    least 32, x's rows 16-byte aligned with its columns contiguous, and the
+    weight row-major and aligned. Where cuBLAS sums k in another order than
+    ascending, it is by those shapes: the narrow products (a selection's
+    2–8 columns, the head's 3), attention's shared value (N = d/heads, 40
+    at the electricity widths: cuBLAS cuts a product of more than 1,048,544
+    rows into chunks and gives a short last chunk of so narrow a product a
+    split-K kernel) and a depth of d/heads = 8 (`TftConfig`'s defaults'
+    attention output, split-K below 8,192 rows) stay cuBLAS's."""
+    k, n = w.shape[-2:]
+    if n % PRODUCT_WIDTH or k < PRODUCT_DEPTH:
+        return False
+    if x.stride(-1) != 1 or w.stride(-1) != 1 or w.stride(-2) != n:
+        return False
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        return False
+    lead = list(x.stride()[:-1]) + list(w.stride()[:-2])
+    return all(s % 4 == 0 for s in lead)
+
+
+def _product(x: Tensor, w: Tensor) -> Tensor:
+    """x·w as the plain forward computes it: one product, or for a tenant's
+    weight [S, K, N] the batched product that `vmap` makes of it."""
+    return torch.func.vmap(torch.matmul)(x, w) if w.dim() == 3 else x @ w
+
+
+def _weight_rows(x: Tensor, w: Tensor) -> Tensor:
+    """The weight as an operand of x's rows: [K·N] shared by every row, or
+    a tenant's [S, 1, …, K·N] over x's [S, …] rows."""
+    k, n = w.shape[-2:]
+    if w.dim() == 2:
+        return w.reshape(1, k * n)
+    return w.reshape(w.shape[0], *([1] * (x.dim() - 2)), k * n)
+
+
+def _launch_product(name: str, operands: list, n: int, k: int, kind: int,
+                    elu: bool) -> None:
+    """Launch the fused product `swx_tft_<name>` over `operands` (0 y, 1
+    rdt(y), 2 x, 3 the weight's rows, 4 b, 5 the context term), `n`
+    output columns, depth `k`: the row space as `_plan` merges it, and the
+    rows that share a weight (`inner`, past the last row dimension along
+    which the weight moves)."""
+    global product_launches
+    device = _card_of(operands)
+    dims, strides = _plan(operands)
+    moves = [i for i in range(3) if strides[3][i]]
+    inner = int(np.prod(dims[moves[-1] + 1:] if moves else dims))
+    with torch.cuda.device(device):
+        _call(name, _c_entry(name), _desc(operands, strides),
+              (ctypes.c_longlong * 7)(*dims, n, k, inner, int(elu)), 0.0,
+              kind, _stream(device))
+    product_launches += 1
+
+
 def _out(lead_of: list, cols: int, like: Tensor) -> Tensor:
     """A float32 output of `cols` columns over the operands' rows."""
     return torch.empty((*_lead(lead_of), cols), dtype=torch.float32,
@@ -331,36 +420,59 @@ def _pick(outs: int, raw: Tensor, rounded: Tensor) -> List[Tensor]:
 # -- vmap: the tenant axis as the leading row dimension -----------------------
 
 
+def _lift_rows(args, in_dims) -> list:
+    """Each tensor's batch dim to the front (an unbatched one gets a
+    leading 1), and singleton dims after it padding every operand to the
+    same leading rank, so that the operands broadcast per tenant as they
+    did per call; other arguments as they are."""
+    tensors = []
+    for a, d in zip(args, in_dims):
+        if isinstance(a, Tensor):
+            tensors.append((a, d))
+        elif isinstance(a, (list, tuple)):
+            tensors += [(t, e) for t, e in zip(a, d or [None] * len(a))]
+    lead = max(t.dim() - (d is not None) - 1 for t, d in tensors)
+
+    def lift(t, d):
+        t = t.movedim(d, 0) if d is not None else t.unsqueeze(0)
+        pad = lead - (t.dim() - 2)
+        return t[(slice(None),) + (None,) * pad] if pad else t
+
+    lifted = []
+    for a, d in zip(args, in_dims):
+        if isinstance(a, Tensor):
+            lifted.append(lift(a, d))
+        elif isinstance(a, (list, tuple)):
+            lifted.append([lift(t, e) for t, e in
+                           zip(a, d or [None] * len(a))])
+        else:
+            lifted.append(a)
+    return lifted
+
+
 def _rowwise_vmap(op):
-    """A `vmap` rule for an op over row operands: each tensor's batch dim
-    moves to the front (an unbatched one gets a leading 1), and singleton
-    dims after it pad every operand to the same leading rank, so that the
-    operands broadcast per tenant as they did per call."""
+    """A `vmap` rule for an op over row operands (`_lift_rows`)."""
 
     def rule(info, in_dims, *args):
-        tensors = []
-        for a, d in zip(args, in_dims):
-            if isinstance(a, Tensor):
-                tensors.append((a, d))
-            elif isinstance(a, (list, tuple)):
-                tensors += [(t, e) for t, e in zip(a, d or [None] * len(a))]
-        lead = max(t.dim() - (d is not None) - 1 for t, d in tensors)
+        out = op(*_lift_rows(args, in_dims))
+        return out, [0] * len(out)
 
-        def lift(t, d):
-            t = t.movedim(d, 0) if d is not None else t.unsqueeze(0)
-            pad = lead - (t.dim() - 2)
-            return t[(slice(None),) + (None,) * pad] if pad else t
+    return rule
 
-        lifted = []
-        for a, d in zip(args, in_dims):
-            if isinstance(a, Tensor):
-                lifted.append(lift(a, d))
-            elif isinstance(a, (list, tuple)):
-                lifted.append([lift(t, e) for t, e in
-                               zip(a, d or [None] * len(a))])
-            else:
-                lifted.append(a)
-        out = op(*lifted)
+
+def _product_vmap(op):
+    """A `vmap` rule for a product op (x, w, then row operands): x and the
+    row operands lifted as `_lift_rows` does, x expanded over the tenants
+    where only the weight carries them; a stacked weight passes through as
+    [S, K, N], a shared one as [K, N]."""
+
+    def rule(info, in_dims, x, w, *rest):
+        x, *rest = _lift_rows((x, *rest), (in_dims[0], *in_dims[2:]))
+        if in_dims[1] is None:
+            out = op(x, w, *rest)
+        else:
+            out = op(x.expand(info.batch_size, *x.shape[1:]),
+                     w.movedim(in_dims[1], 0), *rest)
         return out, [0] * len(out)
 
     return rule
@@ -392,7 +504,7 @@ def round_(x: Tensor, kind: int) -> List[Tensor]:
     return [out]
 
 
-def dense_plain(mm, b, mm2, b2, elu, outs, kind) -> List[Tensor]:
+def dense_epilogue_plain(mm, b, mm2, b2, elu, outs, kind) -> List[Tensor]:
     y = _round(mm, kind) + b
     if mm2 is not None:
         y = y + (_round(mm2, kind) + b2)
@@ -401,18 +513,46 @@ def dense_plain(mm, b, mm2, b2, elu, outs, kind) -> List[Tensor]:
     return _pick(outs, y, _round(y, kind) if outs & ROUNDED else None)
 
 
-@torch.library.custom_op("swx::tft_dense", mutates_args=())
-def dense(mm: Tensor, b: Tensor, mm2: Optional[Tensor], b2: Optional[Tensor],
-          elu: bool, outs: int, kind: int) -> List[Tensor]:
-    """A dense layer's epilogue on its float32 product `mm`:
-    y = rdt(mm) + b, plus (rdt(mm2) + b2) where a context product is given,
-    then ELU where asked; returns y and/or rdt(y) (`outs`)."""
-    if not on_card(mm.device):
-        return dense_plain(mm, b, mm2, b2, elu, outs, kind)
+def dense_plain(x, w, b, mm2, b2, elu, outs, kind) -> List[Tensor]:
+    return dense_epilogue_plain(x @ w, b, mm2, b2, elu, outs, kind)
+
+
+def _dense_epilogue(mm: Tensor, b: Tensor, mm2: Optional[Tensor],
+                    b2: Optional[Tensor], elu: bool, outs: int,
+                    kind: int) -> List[Tensor]:
+    """A dense layer's epilogue on its float32 product `mm` (K3's `dense`
+    kernel): y = rdt(mm) + b, plus (rdt(mm2) + b2) where a context product
+    is given, then ELU where asked; returns y and/or rdt(y) (`outs`)."""
     n = mm.shape[-1]
     raw = _out([mm, b, mm2, b2], n, mm) if outs & RAW else None
     rd = _out([mm, b, mm2, b2], n, mm) if outs & ROUNDED else None
     _launch("dense", [raw, rd, mm, b, mm2, b2], n, kind, aux=(int(elu), 0))
+    return [t for t in (raw, rd) if t is not None]
+
+
+@torch.library.custom_op("swx::tft_dense", mutates_args=())
+def dense(x: Tensor, w: Tensor, b: Tensor, mm2: Optional[Tensor],
+          b2: Optional[Tensor], elu: bool, outs: int,
+          kind: int) -> List[Tensor]:
+    """A dense layer from its rounded operand `x` and rounded weight `w`
+    ([K, N], or a tenant's [S, K, N] under a stack): y = rdt(x·w) + b, plus
+    (rdt(mm2) + b2) where a context product is given, then ELU where asked;
+    returns y and/or rdt(y) (`outs`). The product and the epilogue are one
+    kernel where the product `fits`, else cuBLAS's product and the
+    epilogue's kernel."""
+    if not on_card(x.device):
+        return dense_epilogue_plain(_product(x, w), b, mm2, b2, elu, outs,
+                                    kind)
+    if not fits(x, w):
+        return _dense_epilogue(_product(x, w), b, mm2, b2, elu, outs, kind)
+    n = w.shape[-1]
+    # the context term rdt(mm2) + b2 added beforehand, as the plain version
+    # adds it: one row a window, a kernel operand of one row
+    ctx = None if mm2 is None else _round(mm2, kind) + b2
+    rows = [x, _weight_rows(x, w), b, ctx]
+    raw = _out(rows, n, x) if outs & RAW else None
+    rd = _out(rows, n, x) if outs & ROUNDED else None
+    _launch_product("dense_mm", [raw, rd, *rows], n, w.shape[-2], kind, elu)
     return [t for t in (raw, rd) if t is not None]
 
 
@@ -649,6 +789,18 @@ def logits(e: Tensor, valid: Tensor, context: int, scale: float,
     return [out]
 
 
+def probe(x: Tensor, w: Tensor) -> Tensor:
+    """The order probe: x [..., K] · w, w [K, N] or a tenant's [S, K, N]
+    (S = x's leading dim), each output summed over k = 0 … K−1 in ascending
+    order, one fused multiply-add a step from zero, nothing rounded; on
+    the card only (`chip_smoke.py` holds cuBLAS to it)."""
+    k, n = w.shape[-2:]
+    rows = _weight_rows(x, w)
+    out = _out([x, rows], n, x)
+    _launch("probe", [out, x, rows], n, 0, aux=(k, 0), vector=False)
+    return out
+
+
 class Table(NamedTuple):
     """The TFT forward's ops by name, one signature an entry in both tables:
     each kernel's op by the name of its entry, and the weights' rounding."""
@@ -678,6 +830,8 @@ def table(params, x: Tensor, cdt) -> Table:
 
 
 for _name in KERNELS:
-    if _name != "lstm":
-        _op = getattr(OPS, _name)
+    _op = getattr(OPS, _name)
+    if _name == "dense":
+        _op.register_vmap(_product_vmap(_op))
+    elif _name != "lstm":
         _op.register_vmap(_rowwise_vmap(_op))

@@ -7,6 +7,10 @@ and at the electricity widths, with and without `vmap` over a tenant
 stack with an empty slot; and on windows all valid, against the
 benchmark's plain reference (`swxbench/reference/tft.py`) in bfloat16 and
 float32. Also: each op's `vmap` rule against the op tenant by tenant; the
+dense layers' products: `PLAIN`'s against the separate product and
+epilogue, the shape rule (`fits`) and which of a forward's products
+reach the fused kernel, the product op's `vmap` rule with stacked and
+shared weights, and the fused-product counter; the
 engagement rule, with the C entries replaced by a recorder so that
 nothing launches; autograd through `PLAIN`; the wrapper's arguments
 against the kernels' entry points; the rounded-weight cache across param
@@ -251,10 +255,15 @@ def _op_cases(gen):
     T, B, S, d = 2, 3, 4, 8
     mus = [t(T, B, S, 1) for _ in range(2)]
     variances = [t(T, B, S, 1).abs() for _ in range(2)]
+    # a product's operands small whole numbers, so that its sums are exact
+    # in any order and the rule, not the summation, is what is compared
+    z = lambda *shape: torch.randint(-3, 4, shape,  # noqa: E731
+                                     generator=gen).float()
     return {
         "round": ((t(T, B, S, d), 0), (True, None)),
-        "dense": ((t(T, B, S, d), t(T, d), t(T, B, 1, d), t(T, d), True,
-                   k3.BOTH, 0), (True, True, True, True, None, None, None)),
+        "dense": ((z(T, B, S, 6), z(T, 6, d), t(T, d), t(T, B, 1, d), t(T, d),
+                   True, k3.BOTH, 0),
+                  (True, True, True, True, True, None, None, None)),
         "gate": ((t(T, B, S, 2 * d), t(T, 2 * d), t(B, S, d), None, 0),
                  (True, True, False, None, None)),
         "sqdev": ((t(T, B, S, d), t(T, B, S, 1), 0), (True, True, None)),
@@ -372,8 +381,114 @@ def test_engagement_rule(request, recorder, case):
     assert names.count("cell") == model.cfg.window
     assert names.count("embed") == names.count("vsn") == 2
     assert names.count("logits") == 1
+    # 27 dense layers, 23 fused with their products, and 14 gates
+    assert names.count("dense_mm") == 23 and names.count("dense") == 4
+    assert names.count("gate") == 14
     assert len(names) == 264
     assert {c["kind"] for c in recorder.calls} == {0}
+
+
+# a forward's dense layers by where they go (fused, or cuBLAS's product
+# and the dense epilogue), and its gates (cuBLAS's product and the gate
+# epilogue, every one)
+ROUTES = {
+    # the selections' N = 4, 2 second layers and the attention's shared
+    # value (N = 40) and head (N = 3) stay cuBLAS's
+    "electricity": (23, 4, 14),
+    # and at d = 32 the value's N = 8 and the output's K = 8
+    "defaults": (22, 5, 14),
+}
+
+
+@pytest.mark.parametrize("vmapped", [False, True], ids=["one", "vmap"])
+@pytest.mark.parametrize("config", sorted(ROUTES))
+def test_shape_rule_routes_each_product(card, config, vmapped):
+    """Through the recorder, which of a forward's 27 dense layers go to the
+    fused kernel and which to torch's product and K3's epilogue (the 14
+    gates all do), and that each fused one is one the rule takes (N a
+    multiple of 32, K ≥ 32)."""
+    model = _model(config)
+    if vmapped:
+        params, x, valid = _stacked(model)
+        forward = torch.func.vmap(model.score)
+    else:
+        params = _params(model, 3)
+        x, valid = _windows(model.cfg, np.random.default_rng(4))
+        forward = model.score
+    before = k3.product_launches
+    forward(params, x, valid)
+    names = [c["name"] for c in card.calls]
+    assert tuple(names.count(n) for n in ("dense_mm", "dense",
+                                          "gate")) == ROUTES[config]
+    assert k3.product_launches - before == ROUTES[config][0]
+    for c in card.calls:
+        if c["name"] == "dense_mm":
+            n, depth = c["dims"][3], c["dims"][4]
+            assert n % k3.PRODUCT_WIDTH == 0
+            assert depth >= k3.PRODUCT_DEPTH
+
+
+@pytest.mark.parametrize("vmapped", [False, True], ids=["one", "vmap"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32],
+                         ids=["bfloat16", "float16", "float32"])
+def test_plain_products_equal_product_then_epilogue(dtype, vmapped):
+    """`PLAIN.dense` from (operand, weight) is the parent's separate product
+    and epilogue, bit for bit: under `vmap` too, each slot with its own
+    weight and one slot empty (zeros)."""
+    kind = k3.ROUNDINGS[dtype]
+    gen = torch.Generator().manual_seed(11)
+    t = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    S, B, T, K, d = 3, 2, 5, 48, 32
+    x = k3._round(t(S, B, T, K), kind)
+    w = k3._round(t(S, K, d), kind)
+    b, ctx, cb = t(S, d), t(S, B, 1, d), t(S, d)
+    x[2], w[2] = 0.0, 0.0                               # the empty slot
+
+    def dense(x, w, b, ctx, cb):
+        return k3.PLAIN.dense(x, w, b, ctx, cb, True, k3.BOTH, kind)
+
+    def dense_parent(x, w, b, ctx, cb):
+        return k3.dense_epilogue_plain(x @ w, b, ctx, cb, True, k3.BOTH,
+                                       kind)
+
+    if vmapped:
+        dense, dense_parent = (torch.func.vmap(f)
+                               for f in (dense, dense_parent))
+        args = (x, w, b, ctx, cb)
+    else:
+        args = (x[0], w[0], b[0], ctx[0], cb[0])
+    _same(dense(*args), dense_parent(*args))
+
+
+PRODUCT_VMAPS = {
+    "stacked weights": (0, 0),
+    "a shared weight": (0, None),
+    "a shared operand": (None, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCT_VMAPS))
+def test_product_vmap_rules_pass_the_weights_through(case):
+    """`OPS.dense` under `vmap`, with the weight stacked a tenant, shared,
+    or the operand shared, against `PLAIN` tenant by tenant (whole-number
+    operands: the sums are exact in any order)."""
+    xd, wd = PRODUCT_VMAPS[case]
+    gen = torch.Generator().manual_seed(12)
+    z = lambda *shape: torch.randint(-3, 4, shape,  # noqa: E731
+                                     generator=gen).float()
+    S, B, K, d = 3, 4, 40, 32
+    x = z(S, B, K) if xd == 0 else z(B, K)
+    w = z(S, K, d) if wd == 0 else z(K, d)
+    b = torch.randn(S, d)
+    dense = torch.func.vmap(k3.OPS.dense, in_dims=(xd, wd, 0, None, None,
+                                                   None, None, None))(
+        x, w, b, None, None, False, k3.BOTH, 0)
+    for i in range(S):
+        xi = x[i] if xd == 0 else x
+        wi = w[i] if wd == 0 else w
+        _same([o[i] for o in dense],
+              k3.PLAIN.dense(xi, wi, b[i], None, None, False, k3.BOTH, 0))
 
 
 @pytest.mark.parametrize("vmapped", [False, True], ids=["one", "vmap"])
@@ -424,17 +539,36 @@ def _desc(t, strides):
 
 
 def test_wrapper_dense_arguments(card):
-    mm = torch.randn(3, 4, 8)
+    """A narrow product (N = 8) goes to torch's product and the epilogue's
+    kernel; one that `fits` to the fused kernel, with the weight as an
+    operand of the rows (stride 0: shared) and the rows sharing it."""
+    x, w = torch.randn(3, 4, 5), torch.randn(5, 8)
     b, ctx, cb = torch.randn(8), torch.randn(3, 1, 8), torch.randn(8)
-    raw, rd = k3.dense(mm, b, ctx, cb, True, k3.BOTH, 1)
+    raw, rd = k3.dense(x, w, b, ctx, cb, True, k3.BOTH, 1)
     (call,) = card.calls
     assert call["name"] == "dense" and call["nops"] == 6
     assert call["dims"] == [1, 3, 4, 8, 1, 0, 4] and call["kind"] == 1
-    assert call["desc"] == [
-        _desc(raw, [0, 32, 8, 1]), _desc(rd, [0, 32, 8, 1]),
-        _desc(mm, [0, 32, 8, 1]), _desc(b, [0, 0, 0, 1]),
-        _desc(ctx, [0, 8, 0, 1]), _desc(cb, [0, 0, 0, 1])]
-    assert raw.shape == rd.shape == mm.shape
+    assert call["desc"][:2] == [_desc(raw, [0, 32, 8, 1]),
+                                _desc(rd, [0, 32, 8, 1])]
+    assert call["desc"][2][1:] == [0, 32, 8, 1]        # x·w, torch's
+    assert call["desc"][3:] == [_desc(b, [0, 0, 0, 1]),
+                                _desc(ctx, [0, 8, 0, 1]),
+                                _desc(cb, [0, 0, 0, 1])]
+    assert raw.shape == rd.shape == (3, 4, 8)
+    card.calls.clear()
+    x, w = torch.randn(3, 4, 32), torch.randn(32, 64)
+    b, ctx, cb = torch.randn(64), torch.randn(3, 1, 64), torch.randn(64)
+    raw, rd = k3.dense(x, w, b, ctx, cb, True, k3.BOTH, 1)
+    (call,) = card.calls
+    assert call["name"] == "dense_mm" and call["nops"] == 6
+    assert call["dims"] == [1, 3, 4, 64, 32, 12, 1] and call["kind"] == 1
+    assert call["desc"][:5] == [
+        _desc(raw, [0, 256, 64, 1]), _desc(rd, [0, 256, 64, 1]),
+        _desc(x, [0, 128, 32, 1]), _desc(w, [0, 0, 0, 1]),
+        _desc(b, [0, 0, 0, 1])]
+    # the context term rdt(ctx) + cb, one row a window, added beforehand
+    assert call["desc"][5][1:] == [0, 64, 0, 1]
+    assert raw.shape == rd.shape == (3, 4, 64)
 
 
 def test_wrapper_gate_arguments(card):
@@ -447,6 +581,63 @@ def test_wrapper_gate_arguments(card):
                             _desc(mm, [0, 0, 10, 1]), _desc(b, [0, 0, 0, 1]),
                             _desc(skip, [0, 0, 9, 1]), [0, 0, 0, 0, 0]]
     assert out.shape == (6, 5)
+
+
+def test_wrapper_stacked_product_arguments(card):
+    """Under `vmap` over a stack of three tenants, each with its own
+    weight, the fused kernel takes the tenant axis as the weight's row
+    dimension: the rows that share a weight are one tenant's."""
+    x, w = torch.randn(3, 2, 5, 32), torch.randn(3, 32, 160)
+    b = torch.randn(3, 160)
+    (rd,) = torch.func.vmap(k3.OPS.dense, in_dims=(0, 0, 0, None, None, None,
+                                                    None, None))(
+        x, w, b, None, None, False, k3.ROUNDED, 0)
+    (call,) = card.calls
+    assert call["name"] == "dense_mm"
+    assert call["dims"] == [1, 3, 10, 160, 32, 10, 0]
+    assert call["desc"][2] == _desc(x, [0, 320, 32, 1])
+    assert call["desc"][3] == _desc(w, [0, 32 * 160, 0, 1])
+    assert call["desc"][4] == _desc(b, [0, 160, 0, 1])
+    assert rd.shape == (3, 2, 5, 160)
+
+
+FITS = {
+    "electricity fc1": ((168, 640), (640, 160), True),
+    "electricity fc2": ((168, 160), (160, 160), True),
+    "attention value, N = 40": ((192, 160), (160, 40), False),
+    "selection, N = 8": ((168, 160), (160, 8), False),
+    "head, N = 3": ((24, 160), (160, 3), False),
+    "defaults' attention output, K = 8": ((8, 8), (8, 32), False),
+    "defaults' fc1": ((56, 32), (32, 32), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FITS))
+def test_fits_takes_products_by_width_and_depth(case):
+    xs, ws, want = FITS[case]
+    x, w = torch.zeros(2, *xs), torch.zeros(ws)
+    assert k3.fits(x, w) is want
+    assert k3.fits(x, torch.zeros(2, *ws)) is want     # a tenant's weights
+
+
+def test_fits_refuses_unaligned_operands():
+    x, w = torch.zeros(4, 164), torch.zeros(160, 160)
+    assert k3.fits(x[:, :160], w)                     # row stride 164
+    assert not k3.fits(x[:, 1:161], w)                # rows off 16 bytes
+    assert not k3.fits(torch.zeros(4, 162)[:, :160], w)   # row stride 162
+    assert not k3.fits(x[:, :160], torch.zeros(160, 320)[:, :160])
+    assert not k3.fits(torch.zeros(160, 4).t(), w[:4])    # columns strided
+
+
+def test_product_launches_counted_once_a_fused_product(card):
+    before, launched = k3.product_launches, k3.launches
+    k3.dense(torch.randn(4, 32), torch.randn(32, 32), torch.randn(32), None,
+             None, False, k3.RAW, 0)
+    assert k3.product_launches - before == 1 == k3.launches - launched
+    k3.gate(torch.randn(4, 8), torch.randn(8), torch.randn(4, 4), None, 0)
+    assert k3.product_launches - before == 1
+    assert k3.launches - launched == 2
+    assert [c["name"] for c in card.calls] == ["dense_mm", "gate"]
 
 
 def test_wrapper_norm_arguments(card):
